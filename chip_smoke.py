@@ -1,0 +1,390 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (simulgen_vae_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed 0] [--reps 20] [--profile]
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+1. build   : compile ops/csrc/*.cu with nvcc (one process per source, all at
+             once) and print the card's name and power limit;
+2. kernels : each GroupNorm kernel against its plain PyTorch version on the
+             card, at the serving decode's shapes (B=16, T=200), f32 within
+             atol 2e-5 and bf16 within atol 1e-2, rtol 1e-2;
+3. serve   : the flagship serving decode (200 x 95008 field, decoder filters
+             128 256 512 1024, MLP conditioner on 484 inputs) with random
+             weights from --seed in the JAX trees' layout, carried over by
+             convert.py; 40 requests through generate(max_batch=16), every
+             kernel's launch count must rise; the same batch through the
+             plain GroupNorm on the card agrees within rel-L2 1e-2 (bf16) and
+             max-abs 1e-4 (f32, TF32 off);
+4. timing  : p50 of a batch-16 decode and, per kernel at each main-path
+             shape, its time beside its plain version, one PyTorch library
+             call and the card's bound (HBM bytes at 3.35 TB/s, or
+             operations at 67 TFLOP/s f32, whichever is larger).
+
+The line before the last is the kernels' JSON; the last line is
+``{"ok": true, "device": {...}}``. --profile adds a torch.profiler table of
+device time by kernel for three decodes (written under chiprun_out/).
+Without a CUDA device, or without the package beside it, the script fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+B, T = 16, 200
+DECODE_CALLS = 40             # p75 is then the highest percentile with 10 samples beyond
+OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+REPLACES = {
+    "gn_act_onepass": "simulgen_vae_tpu/ops/groupnorm_gelu.py:109",
+    "gn_stats": "simulgen_vae_tpu/ops/groupnorm_gelu.py:352",
+    "gn_apply": "simulgen_vae_tpu/ops/groupnorm_gelu.py:366",
+}
+# Operations per element, counting erff / tanhf as one each.
+NORM_OPS, ACT_OPS, STATS_OPS = 4, {"gelu": 5, "tanh": 1, "none": 0}, 3
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _map(c: int, dtype, gen):
+    x = torch.randn((B, T, c), generator=gen, device="cuda").to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return x, scale, bias
+
+
+def _err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def _assert_close(name, got, want, dtype):
+    if dtype == torch.float32:
+        ok = torch.allclose(got, want, atol=2e-5, rtol=0)
+    else:
+        ok = torch.allclose(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    if not ok:
+        raise AssertionError(f"{name}: max abs err {_err(got, want):.3g} ({dtype})")
+
+
+def phase_kernels(gg, widths, gen) -> dict:
+    """Each kernel vs its plain version at every (C, G, act) the decode uses."""
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in REPLACES}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        for c, g, act in widths:
+            x, scale, bias = _map(c, dtype, gen)
+            if gg.onepass_fits(T, c, g, x.element_size()):
+                got = gg.gn_act_onepass(x, scale, bias, g, act=act)
+                want = gg.group_norm_act_reference(x, scale, bias, g, act=act)
+                _assert_close(f"gn_act_onepass C={c}", got, want, dtype)
+                errs["gn_act_onepass"][dname] = max(errs["gn_act_onepass"][dname],
+                                                    _err(got, want))
+                route = "gn_act_onepass"
+            else:
+                stats = gg.gn_stats(x, g)
+                want_stats = gg.group_stats_reference(x, g)
+                if not torch.allclose(stats, want_stats, atol=2e-5, rtol=1e-5):
+                    raise AssertionError(f"gn_stats C={c}: {_err(stats, want_stats):.3g}")
+                errs["gn_stats"][dname] = max(errs["gn_stats"][dname],
+                                              _err(stats, want_stats))
+                got = gg.gn_apply(x, scale, bias, want_stats, g, act)
+                want = gg.group_apply_reference(x, scale, bias, want_stats, g, act)
+                _assert_close(f"gn_apply C={c}", got, want, dtype)
+                errs["gn_apply"][dname] = max(errs["gn_apply"][dname], _err(got, want))
+                both = gg.gn_apply(x, scale, bias, stats, g, act)
+                _assert_close(f"gn_stats+gn_apply C={c}", both,
+                              gg.group_norm_act_reference(x, scale, bias, g, act=act),
+                              dtype)
+                route = "gn_stats+gn_apply"
+            torch.cuda.synchronize()
+            print(f"kernels: {dname} C={c} G={g} act={act} -> {route} ok")
+    return errs
+
+
+@contextlib.contextmanager
+def plain_group_norm(blocks, gg):
+    """Route the model's GroupNorm through the plain version, on the card."""
+    real = blocks.group_norm_act
+    blocks.group_norm_act = gg.group_norm_act_reference
+    try:
+        yield
+    finally:
+        blocks.group_norm_act = real
+
+
+@contextlib.contextmanager
+def recording_calls(blocks, calls: list):
+    """Record (C, G, act) of every GroupNorm the model calls."""
+    real = blocks.group_norm_act
+
+    def record(x, scale, bias, num_groups, eps=1e-5, act="gelu"):
+        calls.append((x.shape[2], num_groups, act))
+        return real(x, scale, bias, num_groups, eps, act)
+
+    blocks.group_norm_act = record
+    try:
+        yield
+    finally:
+        blocks.group_norm_act = real
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def kernel_timings(gg, calls, reps, gen, card) -> dict:
+    """Per kernel and main-path shape: kernel, plain and library ms, bound."""
+    per_shape = {k: [] for k in REPLACES}
+    for (c, g, act), n in sorted({k: calls.count(k) for k in set(calls)}.items()):
+        x, scale, bias = _map(c, torch.bfloat16, gen)
+        elems, xb = B * T * c, B * T * c * x.element_size()
+        xt = x.transpose(1, 2).contiguous()     # library layout [B, C, T], not timed
+        s16, b16 = scale.to(x.dtype), bias.to(x.dtype)
+        act_fn = {"gelu": F.gelu, "tanh": torch.tanh, "none": lambda v: v}[act]
+        lib_gn = cuda_ms(lambda: act_fn(F.group_norm(xt, g, s16, b16, 1e-5)), reps)
+
+        def row(name, ms, plain_ms, library_ms, nbytes, ops, library_call):
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+            per_shape[name].append(dict(
+                C=c, G=g, act=act, per_decode=n, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_call=library_call,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations"))
+
+        if gg.onepass_fits(T, c, g, x.element_size()):
+            row("gn_act_onepass",
+                cuda_ms(lambda: gg.gn_act_onepass(x, scale, bias, g, act=act), reps),
+                cuda_ms(lambda: gg.group_norm_act_reference(x, scale, bias, g, act=act),
+                        reps),
+                lib_gn, 2 * xb + 8 * c, elems * (STATS_OPS + NORM_OPS + ACT_OPS[act]),
+                "F.group_norm + activation")
+        else:
+            stats = gg.gn_stats(x, g)
+            cg = c // g
+            row("gn_stats", cuda_ms(lambda: gg.gn_stats(x, g), reps),
+                cuda_ms(lambda: gg.group_stats_reference(x, g), reps),
+                cuda_ms(lambda: torch.var_mean(x.view(B, T, g, cg), dim=(1, 3)), reps),
+                xb + 8 * B * g, elems * STATS_OPS, "torch.var_mean")
+            row("gn_apply",
+                cuda_ms(lambda: gg.gn_apply(x, scale, bias, stats, g, act), reps),
+                cuda_ms(lambda: gg.group_apply_reference(x, scale, bias, stats, g, act),
+                        reps),
+                lib_gn, 2 * xb + 8 * c + 8 * B * g, elems * (NORM_OPS + ACT_OPS[act]),
+                "F.group_norm + activation (whole GroupNorm)")
+        print(f"timing: [{card}] C={c} G={g} act={act} x{n}/decode: " + ", ".join(
+            f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.4f}, library "
+            f"{v[-1]['library_ms']:.4f}, bound {v[-1]['bound_ms']:.4f})"
+            for k, v in per_shape.items() if v and v[-1]["C"] == c))
+    return per_shape
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reps", type=int, default=20, help="timed calls per measurement")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from simulgen_vae_tpu_torch import convert
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+    from simulgen_vae_tpu_torch.models import blocks
+    from simulgen_vae_tpu_torch.ops import _build
+    from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
+
+    t_start = time.perf_counter()
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. build
+    seconds = _build.build()
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_build.log").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
+    print(f"build: {max(seconds.values()):.1f} s for {len(seconds)} kernels "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+
+    # 3a. the flagship pipeline (built before phase 2 to learn the shapes)
+    cfg = VAEConfig(num_time=T, num_node=95008, latent_dim_end=32, latent_dim=8,
+                    num_filter_enc=[1024, 512, 256, 128], small=True)
+    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024])
+    n_in = 484
+    rng = np.random.default_rng(args.seed)
+    vae_params = {"decoder": convert.random_decoder_tree(cfg, rng)}
+    lc_params = convert.random_conditioner_tree(lc_cfg, cfg, n_in, rng)
+    scalers = {name: MinMaxScaler(rng.uniform(0.5, 2.0, n).astype(np.float32),
+                                  rng.uniform(-0.3, 0.3, n).astype(np.float32))
+               for name, n in (("lv_scaler", 32), ("xs_scaler", 24),
+                               ("data_scaler", cfg.num_node))}
+    inputs = rng.standard_normal((40, n_in)).astype(np.float32)
+
+    def pipeline(dtype):
+        return tgen.make_pipeline(cfg, lc_cfg, vae_params, lc_params, device="cuda",
+                                  dtype=dtype, **scalers)
+
+    pipe = pipeline(torch.bfloat16)
+    calls = []
+    with recording_calls(blocks, calls):
+        tgen.generate(pipe, inputs[:B], max_batch=B)
+    expected = 1 + sum(isinstance(m, blocks.NormAct) for m in pipe["vae"].modules())
+    if len(calls) != expected:
+        raise AssertionError(f"{len(calls)} GroupNorm calls per decode, expected {expected}")
+    widths = sorted(set(calls))
+    print(f"serve: {len(calls)} GroupNorm calls per decode at C = "
+          f"{sorted({c for c, _, _ in calls})}")
+
+    # 2. each kernel against its plain version
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    errs = phase_kernels(gg, widths, gen)
+
+    # 3b. serve 40 requests through the kernels
+    gg.reset_launch_counts()
+    t0 = time.perf_counter()
+    fields = tgen.generate(pipe, inputs, max_batch=B)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = dict(gg.LAUNCHES)
+    if tuple(fields.shape) != (40, T, cfg.num_node) or not bool(fields.isfinite().all()):
+        raise AssertionError(f"bad output {tuple(fields.shape)} or non-finite values")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+    if launches["gn_act_onepass"] + launches["gn_stats"] != 3 * expected:
+        raise AssertionError(f"launches {launches} != 3 decodes x {expected}")
+    print(f"serve: 40 requests -> {tuple(fields.shape)} {fields.dtype}, finite, "
+          f"{serve_s:.3f} s with first-chunk set-up; launches {launches}")
+    del fields
+
+    # 3c. kernels vs plain GroupNorm on the card, tanh outputs (no descale)
+    checks = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        p = pipe if dtype == torch.bfloat16 else pipeline(dtype)
+        got = tgen.generate(p, inputs, descale_output=False, max_batch=B)
+        with plain_group_norm(blocks, gg):
+            want = tgen.generate(p, inputs, descale_output=False, max_batch=B)
+        rel, mx = _rel_l2(got, want), _err(got, want)
+        checks[str(dtype).split(".")[1]] = {"rel_l2": rel, "max_abs": mx}
+        ok = rel <= 1e-2 if dtype == torch.bfloat16 else mx <= 1e-4
+        print(f"serve: kernels vs plain GroupNorm, {dtype}: rel-L2 {rel:.3g}, "
+              f"max abs {mx:.3g} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"serving output disagrees with the plain path ({dtype})")
+        del got, want, p
+    torch.cuda.empty_cache()
+
+    # 4. timings
+    fn = tgen.make_generate_fn(pipe, descale_output=True, max_batch=B)
+    batch = torch.as_tensor(inputs[:B], device="cuda")
+
+    def latencies_ms(run):
+        """Host clock around each decode, synchronised: DECODE_CALLS samples."""
+        for _ in range(3):
+            run(batch)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(DECODE_CALLS):
+            t0 = time.perf_counter()
+            run(batch)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return np.asarray(lat)
+
+    lat = latencies_ms(fn)
+    with plain_group_norm(blocks, gg):
+        plain_lat = latencies_ms(fn)
+    decode_p50, decode_p75 = (float(v) for v in np.percentile(lat, [50, 75]))
+    plain_p50 = float(np.percentile(plain_lat, 50))
+    print(f"timing: [{card}] batch-16 decode over {DECODE_CALLS} calls: p50 "
+          f"{decode_p50:.3f} ms, p75 {decode_p75:.3f} ms, min/max {lat.min():.3f}/"
+          f"{lat.max():.3f} ms ({B / decode_p50 * 1e3:.1f} samples/s at p50); "
+          f"plain GroupNorm decode p50 {plain_p50:.3f} ms")
+    per_shape = kernel_timings(gg, calls, args.reps, gen, card)
+
+    if args.profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn(batch)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # Kernel rows only: CPU-op rows repeat the device time of their kernels.
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA) / 1e3 / 3
+        host_ms = sum(e.self_cpu_time_total for e in events) / 1e3 / 3
+        table = events.table(sort_by="self_device_time_total", row_limit=40)
+        (OUT_DIR / "chip_smoke_profile.txt").write_text(table)
+        print(f"profile: device busy {busy_ms:.3f} ms and host ops {host_ms:.3f} ms "
+              f"per decode (profiled) against the {decode_p50:.3f} ms p50 (idle share "
+              f"{1 - busy_ms / decode_p50:.3f}); device time by kernel in "
+              "chiprun_out/chip_smoke_profile.txt")
+        print("\n".join(table.splitlines()[:24]))
+
+    kernels = []
+    for name, rows in per_shape.items():
+        total = lambda key: sum(r[key] * r["per_decode"] for r in rows)  # noqa: E731
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"simulgen_vae_tpu_torch/ops/csrc/{name}.cu",
+            replaces=REPLACES[name], launches=launches[name],
+            launches_per_decode=sum(r["per_decode"] for r in rows),
+            max_abs_err=errs[name]["bfloat16"], max_abs_err_f32=errs[name]["float32"],
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations",
+            library_ms=total("library_ms"), per_decode_sum=True, card=card,
+            shapes=rows))
+    result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
+                  decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
+                  samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
+                  serve_checks=checks, launches=launches, kernels=kernels,
+                  seconds=time.perf_counter() - t_start)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

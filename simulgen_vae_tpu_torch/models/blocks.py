@@ -1,0 +1,187 @@
+"""Decoder building blocks over ``[B, T, C]`` maps (time, then channels).
+
+Counterpart of ``simulgen_vae_tpu/models/blocks.py`` for the serving decode.
+Public tensors keep the JAX layout ``[B, T, C]``; convolution weights use
+PyTorch's ``[out, in, k]`` and dense weights ``[out, in]`` (``convert.py``
+carries JAX parameters over). Every GroupNorm + activation goes through
+:class:`NormAct`, which calls ``ops.groupnorm_gelu.group_norm_act``: the
+hand-written kernels on the card, the plain version on the CPU.
+
+Conventions as in the JAX package: GroupNorm(:func:`group_count` groups,
+eps 1e-5) with f32 statistics, exact (erf) GELU, residual branches scaled by
+0.1. Parameters other than the GroupNorm affines (kept in f32) live in the
+module's compute dtype, as flax's ``promote_dtype`` casts them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from simulgen_vae_tpu_torch.ops.groupnorm_gelu import group_norm_act
+
+
+def group_count(channels: int) -> int:
+    """min(8, max(1, C // 4)), reduced to the nearest divisor of C."""
+    g = min(8, max(1, channels // 4))
+    while channels % g != 0:
+        g -= 1
+    return g
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf-based) GELU."""
+    return F.gelu(x)
+
+
+def conv1d_same(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Stride-1 SAME 1-D convolution of ``x`` [B, T, C] with ``weight``
+    [F, C, k] (odd k; cross-correlation, no tap flip). Returns a contiguous
+    [B, T, F] map."""
+    k = weight.shape[-1]
+    if k == 1:
+        return F.linear(x, weight[:, :, 0], bias)
+    y = F.conv1d(x.transpose(1, 2), weight, bias, padding=k // 2)
+    return y.transpose(1, 2).contiguous()
+
+
+def _param(shape, device, dtype, fill: float | None = None) -> nn.Parameter:
+    data = torch.empty(shape, device=device, dtype=dtype)
+    if fill is None:
+        bound = (6.0 / (data[0].numel() if data.dim() > 1 else 1)) ** 0.5
+        nn.init.uniform_(data, -bound, bound)  # He-uniform over fan_in
+    else:
+        data.fill_(fill)
+    return nn.Parameter(data, requires_grad=False)
+
+
+class NormAct(nn.Module):
+    """GroupNorm (+ fused activation) over [B, T, C]; ``act`` in
+    {'gelu', 'tanh', 'none'}."""
+
+    def __init__(self, channels: int, act: str = "gelu", device=None):
+        super().__init__()
+        self.act = act
+        self.num_groups = group_count(channels)
+        self.scale = _param((channels,), device, torch.float32, 1.0)
+        self.bias = _param((channels,), device, torch.float32, 0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm_act(x.contiguous(), self.scale, self.bias,
+                              self.num_groups, act=self.act)
+
+
+class Conv1d(nn.Module):
+    """k-tap SAME conv over the time axis of [B, T, C] data."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 1,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.weight = _param((features, in_features, kernel_size), device, dtype)
+        self.bias = _param((features,), device, dtype, 0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1d_same(x, self.weight, self.bias)
+
+
+class Dense(nn.Module):
+    def __init__(self, in_features: int, features: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.weight = _param((features, in_features), device, dtype)
+        self.bias = _param((features,), device, dtype, 0.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class _ConvNormStages(nn.Module):
+    """A chain of (Conv1d -> NormAct gelu) stages, given (in, out, k) each."""
+
+    def __init__(self, stages, device=None, dtype=torch.float32):
+        super().__init__()
+        self.convs = nn.ModuleList(
+            Conv1d(i, o, k, device, dtype) for i, o, k in stages)
+        self.norms = nn.ModuleList(
+            NormAct(o, "gelu", device) for _, o, _ in stages)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, norm in zip(self.convs, self.norms):
+            x = norm(conv(x))
+        return x
+
+
+class ResidualBlock(_ConvNormStages):
+    """x + 0.1 * seq(x); seq = (Conv k=3 -> GN -> GELU) x (1 small / 2 large)."""
+
+    def __init__(self, features: int, small: bool = True, device=None,
+                 dtype=torch.float32):
+        reps = 1 if small else 2
+        super().__init__([(features, features, 3)] * reps, device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + 0.1 * super().forward(x)
+
+
+class DecoderResidualBlock(_ConvNormStages):
+    """x + 0.1 * bottleneck(x) with 5x channel expansion.
+
+    small: k=1 expand -> k=5 -> k=1 contract (each Conv -> GN -> GELU)
+    large: k=1 keep  -> k=5 expand -> k=5 -> k=1 contract
+    """
+
+    EXPANSION = 5
+
+    def __init__(self, features: int, small: bool = True, device=None,
+                 dtype=torch.float32):
+        f, m = features, features * self.EXPANSION
+        if small:
+            stages = [(f, m, 1), (m, m, 5), (m, f, 1)]
+        else:
+            stages = [(f, f, 1), (f, m, 5), (m, m, 5), (m, f, 1)]
+        super().__init__(stages, device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + 0.1 * super().forward(x)
+
+
+class DecoderBlock(nn.Module):
+    """Conv(k=3, SAME) -> GELU (the reference's stride-1 ConvTranspose1d,
+    with its taps flipped into a regular conv)."""
+
+    def __init__(self, in_features: int, features: int, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv1d(in_features, features, 3, device, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu(self.conv(x))
+
+
+class FusedPointwiseNormTanh(nn.Module):
+    """Readout: k=1 conv [B, T, F] -> [B, T, nodes], then GroupNorm + Tanh.
+
+    The direct path of the JAX module (``analytic=False``): one matmul in the
+    compute dtype with f32 accumulation and the bias added in its epilogue,
+    one rounding to the compute dtype, then ``group_norm_act(..., act='tanh')``.
+    In bf16 the bias is rounded to bf16 before the add (the JAX module adds it
+    in f32); in f32 the two agree exactly.
+    """
+
+    def __init__(self, in_features: int, num_node: int, eps: float = 1e-5,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.num_groups = group_count(num_node)
+        self.kernel = _param((num_node, in_features), device, dtype)
+        self.bias = _param((num_node,), device, torch.float32, 0.0)
+        self.scale = _param((num_node,), device, torch.float32, 1.0)
+        self.norm_bias = _param((num_node,), device, torch.float32, 0.0)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        dtype = self.kernel.dtype
+        y = F.linear(h.to(dtype), self.kernel, self.bias.to(dtype))
+        return group_norm_act(y, self.scale, self.norm_bias, self.num_groups,
+                              eps=self.eps, act="tanh")
