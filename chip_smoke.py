@@ -7,9 +7,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. build   : compile ops/csrc/*.cu with nvcc (one process per source, all at
              once) and print the card's name and power limit;
-2. kernels : each GroupNorm kernel against its plain PyTorch version on the
-             card, at the serving decode's shapes (B=16, T=200), f32 within
-             atol 2e-5 and bf16 within atol 1e-2, rtol 1e-2;
+2. kernels : each GroupNorm forward kernel against its plain PyTorch version
+             on the card, at the serving decode's shapes (B=16, T=200), f32
+             within atol 2e-5 and bf16 within atol 1e-2, rtol 1e-2;
 3. serve   : the flagship serving decode (200 x 95008 field, decoder filters
              128 256 512 1024, MLP conditioner on 484 inputs) with random
              weights from --seed in the JAX trees' layout, carried over by
@@ -20,18 +20,36 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. timing  : p50 of a batch-16 decode and, per kernel at each main-path
              shape, its time beside its plain version, one PyTorch library
              call and the card's bound (HBM bytes at 3.35 TB/s, or
-             operations at 67 TFLOP/s f32, whichever is larger).
+             operations at 67 TFLOP/s f32, whichever is larger);
+5. train   : the flagship VAE train step (bench.py's configuration: 64
+             resident samples of 200 x 95008 made on the card from --seed,
+             encoder filters 1024 512 256 128, batch 16, bf16 compute, f32
+             master weights and AdamW moments, spectral norm every step,
+             default augmentation) through VAETrainer.train_epoch: two
+             warm-up steps, then each train kernel (gather_augment,
+             gn_bwd_onepass, gn_bwd_stats, gn_bwd_apply) against its plain
+             version at every shape the step gives it, in f32 and bf16; two
+             epochs (8 steps) whose loss and gradient norm must be finite and
+             in which every train kernel must launch (gather_augment once per
+             step); one step's loss and gradients through the kernels against
+             the plain versions from the same state, batch and noise (bf16:
+             loss within 1e-2 relative; f32 with TF32 off: loss within 1e-4,
+             every gradient within rel-L2 1e-3); then the step's p50 and each
+             train kernel's time per step beside its bound, plain and library
+             times.
 
 The line before the last is the kernels' JSON; the last line is
-``{"ok": true, "device": {...}}``. --profile adds a torch.profiler table of
-device time by kernel for three decodes (written under chiprun_out/).
-Without a CUDA device, or without the package beside it, the script fails.
+``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
+device time by kernel for three decodes and one train step (written under
+chiprun_out/). Without a CUDA device, or without the package beside it, the
+script fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -52,8 +70,19 @@ REPLACES = {
     "gn_stats": "simulgen_vae_tpu/ops/groupnorm_gelu.py:352",
     "gn_apply": "simulgen_vae_tpu/ops/groupnorm_gelu.py:366",
 }
-# Operations per element, counting erff / tanhf as one each.
+TRAIN_REPLACES = {
+    "gather_augment": "simulgen_vae_tpu/ops/gather_augment.py:56",
+    "gn_bwd_onepass": "simulgen_vae_tpu/ops/groupnorm_gelu.py:196",
+    "gn_bwd_stats": "simulgen_vae_tpu/ops/groupnorm_gelu.py:436",
+    "gn_bwd_apply": "simulgen_vae_tpu/ops/groupnorm_gelu.py:467",
+}
+# Operations per element, counting erff / tanhf / expf / logf / sincospif as
+# one each.
 NORM_OPS, ACT_OPS, STATS_OPS = 4, {"gelu": 5, "tanh": 1, "none": 0}, 3
+ACT_GRAD_OPS = {"gelu": 9, "tanh": 3, "none": 0}
+BWD_SUM_OPS, BWD_DX_OPS = 8, 4       # four column sums; dx from dxn, m1, m2, inv
+MIX_OPS, NOISE_OPS = 5, 33           # amp + mixup; Philox (25) + Box-Muller (8)
+TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 2, 10
 
 
 def card_line() -> str:
@@ -210,6 +239,336 @@ def kernel_timings(gg, calls, reps, gen, card) -> dict:
     return per_shape
 
 
+# -- 5. the train step --------------------------------------------------------
+
+def _bwd_case(c, dtype, gen):
+    x, scale, bias = _map(c, dtype, gen)
+    return x, torch.randn((B, T, c), generator=gen, device="cuda").to(dtype), scale, bias
+
+
+def _assert_sums_close(name, got, want, tol):
+    """f32 sums over B * T rows (dscale, dbias and their partials)."""
+    for part, a, b in zip(("dscale", "dbias"), got, want):
+        if not torch.allclose(a, b, atol=tol, rtol=tol):
+            raise AssertionError(f"{name} {part}: max abs err {_err(a, b):.3g}")
+
+
+def check_train_gn_kernels(gg, shapes, gen) -> dict:
+    """#3, #6, #7 against their plain versions at every (C, G, act) of the
+    step, on the route the step takes there, in f32 and bf16."""
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in TRAIN_REPLACES if k != "gather_augment"}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        vec_tol = 1e-4 if dtype == torch.float32 else 1e-3
+        for c, g, act in shapes:
+            x, grad, scale, bias = _bwd_case(c, dtype, gen)
+            route = ("onepass" if gg.bwd_onepass_engages(T, c, g, x.element_size())
+                     else "two_phase")
+            if route == "onepass":
+                got = gg.gn_bwd_onepass(x, scale, bias, grad, g, act=act)
+                want = gg.group_norm_act_backward_reference(x, scale, bias, grad, g, act=act)
+                _assert_close(f"gn_bwd_onepass C={c} dx", got[0], want[0], dtype)
+                _assert_sums_close(f"gn_bwd_onepass C={c}", got[1:], want[1:], vec_tol)
+                errs["gn_bwd_onepass"][dname] = max(errs["gn_bwd_onepass"][dname],
+                                                    *(_err(a, b) for a, b in zip(got, want)))
+            else:
+                stats = gg.group_stats_reference(x, g)
+                got = gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act)
+                want = gg.gn_bwd_stats_reference(x, scale, bias, grad, stats, g, act)
+                if not torch.allclose(got[0], want[0], atol=1e-6, rtol=1e-4):
+                    raise AssertionError(f"gn_bwd_stats C={c} msums: {_err(got[0], want[0]):.3g}")
+                _assert_sums_close(f"gn_bwd_stats C={c}", got[1:], want[1:], vec_tol)
+                errs["gn_bwd_stats"][dname] = max(errs["gn_bwd_stats"][dname],
+                                                  *(_err(a, b) for a, b in zip(got, want)))
+                dx = gg.gn_bwd_apply(x, scale, bias, grad, stats, want[0], g, act)
+                dx_want = gg.gn_bwd_apply_reference(x, scale, bias, grad, stats, want[0], g, act)
+                _assert_close(f"gn_bwd_apply C={c}", dx, dx_want, dtype)
+                errs["gn_bwd_apply"][dname] = max(errs["gn_bwd_apply"][dname], _err(dx, dx_want))
+                both = gg.gn_bwd_apply(x, scale, bias, grad, gg.gn_stats(x, g), got[0], g, act)
+                _assert_close(f"gn_stats+gn_bwd_stats+gn_bwd_apply C={c}", both,
+                              gg.group_norm_act_backward_reference(
+                                  x, scale, bias, grad, g, act=act)[0], dtype)
+            torch.cuda.synchronize()
+            print(f"train kernels: {dname} C={c} G={g} act={act} -> {route} backward ok")
+            del x, grad
+    return errs
+
+
+def check_gather_augment(ga, data, gen) -> float:
+    """#1 against its plain version at the step's shape: without noise the
+    same bits; with noise sd = 0.05 on half the rows, (out - x) / sd has mean
+    within 0.01 of 0 and std within 0.01 of 1, the other rows are unchanged,
+    and the same seed gives the same bits. Returns the max abs error."""
+    n, dname = data.shape[0], str(data.dtype).split(".")[1]
+    idx = torch.randint(0, n, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    pidx = torch.randint(0, n, (B,), generator=gen, device="cuda", dtype=torch.int32)
+    lam = torch.where(torch.rand(B, generator=gen, device="cuda") < 0.5,
+                      0.1 + 0.8 * torch.rand(B, generator=gen, device="cuda"), 1.0)
+    amp = torch.where(torch.rand(B, generator=gen, device="cuda") < 0.5,
+                      0.9 + 0.2 * torch.rand(B, generator=gen, device="cuda"), 1.0)
+    zero = torch.zeros(B, device="cuda")
+    got = ga.gather_augment(data, idx, pidx, 7, lam, amp, zero)
+    want = ga.gather_augment_reference(data, idx, pidx, None, lam, amp, zero)
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather_augment ({dname}) differs without noise: "
+                             f"{_err(got, want):.3g}")
+    ones = torch.ones(B, device="cuda")
+    sd = torch.tensor([0.05, 0.0] * (B // 2), device="cuda")
+    noisy = ga.gather_augment(data, idx, idx, 11, ones, ones, sd)
+    again = ga.gather_augment(data, idx, idx, 11, ones, ones, sd)
+    x = data.index_select(0, idx.long())
+    z = (noisy[0::2].float() - x[0::2].float()) / 0.05
+    mean, std = float(z.mean()), float(z.std())
+    same = torch.equal(noisy, again) and torch.equal(noisy[1::2], x[1::2])
+    print(f"train kernels: gather_augment {dname} [{n}, {T}, {data.shape[2]}] -> "
+          f"[{B}, {T}, {data.shape[2]}]: no-noise bits equal; noise mean {mean:.5f} "
+          f"std {std:.5f}; sd=0 rows and repeat {'equal' if same else 'DIFFER'}")
+    if abs(mean) > 0.01 or abs(std - 1.0) > 0.01 or not same:
+        raise AssertionError("gather_augment noise is off")
+    return _err(got, want)
+
+
+def _grad_rel(a, b) -> float:
+    nb = float(torch.linalg.vector_norm(b.float()))
+    na = float(torch.linalg.vector_norm((a.float() - b.float())))
+    return 0.0 if na == 0.0 else na / max(nb, 1e-30)
+
+
+def compare_step(trainer, state, batch, blocks, gg, beta, label, loss_tol, grad_tol):
+    """One loss-and-grads through the kernels and one through the plain
+    GroupNorm on the card, same state, batch and reparameterisation noise."""
+    out = {}
+    for route in ("kernels", "plain"):
+        gen = torch.Generator("cuda").manual_seed(7)
+        ctx = plain_group_norm(blocks, gg) if route == "plain" else contextlib.nullcontext()
+        with ctx:
+            metrics, _, grads = trainer.loss_and_grads(state, batch, beta, generator=gen)
+        out[route] = (float(metrics["loss"]), {k: g.clone() for k, g in grads.items()})
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    loss_rel = abs(lk - lp) / abs(lp)
+    rels = {k: _grad_rel(gk[k], gp[k]) for k in gk}
+    worst = max(rels, key=rels.get)
+    ok = loss_rel <= loss_tol and (grad_tol is None or rels[worst] <= grad_tol)
+    print(f"train: kernels vs plain step, {label}: loss {lk:.6g} vs {lp:.6g} "
+          f"(rel {loss_rel:.3g}), worst gradient rel-L2 {rels[worst]:.3g} ({worst}) "
+          f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel and plain train steps disagree ({label})")
+    return dict(loss_kernels=lk, loss_plain=lp, loss_rel=loss_rel,
+                worst_grad_rel_l2=rels[worst], worst_grad=worst)
+
+
+def train_kernel_timings(gg, ga, shapes, data, reps, gen, card) -> dict:
+    """Per train kernel and step shape: kernel, plain and library ms, bound."""
+    per_shape = {k: [] for k in TRAIN_REPLACES}
+
+    def row(name, n, ms, plain_ms, library_ms, nbytes, ops, library_call, **shape):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        per_shape[name].append(dict(
+            **shape, per_step=n, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            library_call=library_call, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations"))
+
+    for (c, g, act), n in sorted(shapes.items()):
+        x, grad, scale, bias = _bwd_case(c, torch.bfloat16, gen)
+        elems, xb = B * T * c, B * T * c * x.element_size()
+        act_fn = {"gelu": F.gelu, "tanh": torch.tanh, "none": lambda v: v}[act]
+        xt = x.transpose(1, 2).contiguous().requires_grad_()
+        w16 = scale.to(x.dtype).requires_grad_()
+        b16 = bias.to(x.dtype).requires_grad_()
+        lib_out = act_fn(F.group_norm(xt, g, w16, b16, 1e-5))
+        gt = grad.transpose(1, 2).contiguous()
+        lib = cuda_ms(lambda: torch.autograd.grad(lib_out, (xt, w16, b16), gt,
+                                                  retain_graph=True), reps)
+        lib_call = "autograd backward of F.group_norm + activation on [B, C, T]"
+        kw = dict(C=c, G=g, act=act)
+        if gg.bwd_onepass_engages(T, c, g, x.element_size()):
+            ops = elems * (STATS_OPS + NORM_OPS + ACT_GRAD_OPS[act] + BWD_SUM_OPS + BWD_DX_OPS)
+            row("gn_bwd_onepass", n,
+                cuda_ms(lambda: gg.gn_bwd_onepass(x, scale, bias, grad, g, act=act), reps),
+                cuda_ms(lambda: gg.group_norm_act_backward_reference(
+                    x, scale, bias, grad, g, act=act), reps),
+                lib, 3 * xb + 8 * c + 8 * B * c, ops, lib_call, **kw)
+        else:
+            stats = gg.gn_stats(x, g)
+            msums = gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act)[0]
+            row("gn_bwd_stats", n,
+                cuda_ms(lambda: gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act), reps),
+                cuda_ms(lambda: gg.gn_bwd_stats_reference(x, scale, bias, grad, stats, g,
+                                                          act), reps),
+                lib, 2 * xb + 8 * c + 8 * B * c + 16 * B * g,
+                elems * (NORM_OPS + ACT_GRAD_OPS[act] + BWD_SUM_OPS),
+                lib_call + " (whole backward)", **kw)
+            row("gn_bwd_apply", n,
+                cuda_ms(lambda: gg.gn_bwd_apply(x, scale, bias, grad, stats, msums, g,
+                                                act), reps),
+                cuda_ms(lambda: gg.gn_bwd_apply_reference(x, scale, bias, grad, stats,
+                                                          msums, g, act), reps),
+                lib, 3 * xb + 8 * c + 32 * B * g,
+                elems * (NORM_OPS + ACT_GRAD_OPS[act] + BWD_DX_OPS),
+                lib_call + " (whole backward)", **kw)
+        print(f"timing: [{card}] train C={c} G={g} act={act} x{n}/step: " + ", ".join(
+            f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.4f}, library "
+            f"{v[-1]['library_ms']:.4f}, bound {v[-1]['bound_ms']:.4f})"
+            for k, v in per_shape.items() if v and v[-1].get("C") == c))
+        del x, grad, xt, lib_out, gt
+
+    rng = np.random.default_rng(1)
+    lam, amp, sd = (torch.from_numpy(v).cuda() for v in ga.draw_augment_scalars(rng, B))
+    idx, pidx = (torch.from_numpy(rng.integers(0, data.shape[0], B).astype(np.int32)).cuda()
+                 for _ in range(2))
+    row_elems = T * data.shape[2]
+    noisy_rows = int((sd != 0).sum())
+    ms = cuda_ms(lambda: ga.gather_augment(data, idx, pidx, 3, lam, amp, sd), reps)
+    plain = cuda_ms(lambda: ga.gather_augment_reference(
+        data, idx, pidx, torch.randn((B, T, data.shape[2]), generator=gen, device="cuda"),
+        lam, amp, sd), reps)
+    row("gather_augment", 1, ms, plain, None, 3 * B * row_elems * data.element_size() + 20 * B,
+        B * row_elems * MIX_OPS + noisy_rows * row_elems * NOISE_OPS,
+        "none: no single PyTorch call gathers, draws the noise and mixes",
+        rows=f"[{data.shape[0]}, {T}, {data.shape[2]}] -> [{B}, {T}, {data.shape[2]}]",
+        noisy_rows=noisy_rows)
+    r = per_shape["gather_augment"][-1]
+    print(f"timing: [{card}] train gather_augment x1/step ({noisy_rows} of {B} rows with "
+          f"noise): {ms:.4f} ms (plain {plain:.4f}, bound {r['bound_ms']:.4f}, "
+          f"{r['bound_by']}; no library call)")
+    return per_shape
+
+
+def phase_train(args, card, blocks, gg, ga, gen):
+    """Phase 5: the flagship train step. Returns (per-kernel dict, result dict)."""
+    from simulgen_vae_tpu_torch.config import VAEConfig
+    from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
+
+    cfg = VAEConfig(num_param=TRAIN_SAMPLES, num_time=T, num_node=95008, latent_dim_end=32,
+                    latent_dim=8, num_filter_enc=[1024, 512, 256, 128], small=True,
+                    batch_size=B, lr=1e-3, alpha=1e6, loss_type="MSE", dtype="bfloat16",
+                    use_spectral_norm=True)
+    trainer = VAETrainer(cfg, device="cuda", seed=args.seed)
+    state = trainer.init_state(args.seed)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    tgen = torch.Generator("cuda").manual_seed(args.seed + 1)
+    data = (0.3 * torch.randn((TRAIN_SAMPLES, T, cfg.num_node), generator=tgen,
+                              device="cuda")).to(torch.bfloat16)
+    print(f"train: {n_params / 1e6:.1f}M parameters, dataset {tuple(data.shape)} "
+          f"{data.dtype} ({data.numel() * 2 / 1e9:.2f} GB) on the card")
+
+    # warm-up: two steps; the first records the GroupNorm shapes of a step
+    calls = []
+    with recording_calls(blocks, calls):
+        state, m = trainer.train_epoch(state, data, max_steps=1)
+    state, m = trainer.train_epoch(state, data, max_steps=1)
+    torch.cuda.synchronize()
+    shapes = {k: calls.count(k) for k in set(calls)}
+    print(f"train: warm-up done (loss {float(m['loss']):.6g}); {len(calls)} GroupNorms per "
+          f"step at C = {sorted({c for c, _, _ in calls})}")
+
+    # each train kernel against its plain version
+    errs = check_train_gn_kernels(gg, sorted(shapes), gen)
+    errs["gather_augment"] = {"bfloat16": check_gather_augment(ga, data, gen)}
+    data32 = data[:20].float().contiguous()
+    errs["gather_augment"]["float32"] = check_gather_augment(ga, data32, gen)
+
+    # the main path: TRAIN_EPOCHS epochs through train_epoch, counters from 0
+    gg.reset_launch_counts()
+    ga.reset_launch_counts()
+    steps, losses, norms = 0, [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_EPOCHS):
+        state, m = trainer.train_epoch(state, data)
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        steps += -(-TRAIN_SAMPLES // B)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {**gg.LAUNCHES, **ga.LAUNCHES}
+    losses, norms = [float(v) for v in losses], [float(v) for v in norms]
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"non-finite train metrics: loss {losses}, grad norm {norms}")
+    if not all(launches[k] > 0 for k in launches):
+        raise AssertionError(f"a kernel did not run on the train path: {launches}")
+    if launches["gather_augment"] != steps:
+        raise AssertionError(f"gather_augment ran {launches['gather_augment']} times "
+                             f"in {steps} steps")
+    print(f"train: {TRAIN_EPOCHS} epochs = {steps} steps in {run_s:.3f} s; loss per epoch "
+          f"{losses}, grad norm {norms}; launches {launches}")
+
+    # step time: single steps through train_epoch, each synchronised
+    lat = []
+    for _ in range(STEP_TIMING):
+        t0 = time.perf_counter()
+        state, _ = trainer.train_epoch(state, data, max_steps=1)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = np.asarray(lat)
+    step_p50 = float(np.percentile(lat, 50))
+    print(f"timing: [{card}] train step (batch {B}, bf16) over {STEP_TIMING} steps: p50 "
+          f"{step_p50:.3f} ms, min/max {lat.min():.3f}/{lat.max():.3f} ms "
+          f"({B / step_p50 * 1e3:.1f} samples/s at p50); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # kernels vs plain versions, one step from the same state, batch and noise
+    beta = 0.5
+    zero, ones = torch.zeros(B, device="cuda"), torch.ones(B, device="cuda")
+    rows = torch.arange(B, device="cuda", dtype=torch.int32)
+    lam = torch.linspace(0.3, 1.0, B, device="cuda")
+    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    if not torch.equal(batch, ga.gather_augment_reference(data, rows, rows.flip(0), None,
+                                                          lam, ones, zero)):
+        raise AssertionError("gather_augment batch differs from its plain version")
+    checks = {"bfloat16": compare_step(trainer, state, batch, blocks, gg, beta, "bf16",
+                                       1e-2, None)}
+    del batch
+    trainer32 = VAETrainer(dataclasses.replace(cfg, dtype="float32"), device="cuda",
+                           seed=args.seed)
+    model32 = trainer32.build_model()
+    model32.load_state_dict(state.model.state_dict())
+    state32 = dataclasses.replace(state, model=model32, opt_state=None)
+    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    checks["float32"] = compare_step(trainer32, state32, batch32, blocks, gg, beta,
+                                     "f32, TF32 off", 1e-4, 1e-3)
+    del trainer32, model32, state32, batch32
+    torch.cuda.empty_cache()
+
+    per_shape = train_kernel_timings(gg, ga, shapes, data, args.reps, gen, card)
+
+    if args.profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = trainer.train_epoch(state, data, max_steps=1)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy_ms = sum(e.self_device_time_total for e in events
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        table = events.table(sort_by="self_device_time_total", row_limit=40)
+        (OUT_DIR / "chip_smoke_train_profile.txt").write_text(table)
+        print(f"profile: train step device busy {busy_ms:.3f} ms against the "
+              f"{step_p50:.3f} ms p50 (idle share {1 - busy_ms / step_p50:.3f}); device "
+              "time by kernel in chiprun_out/chip_smoke_train_profile.txt")
+        print("\n".join(table.splitlines()[:24]))
+
+    kernels = []
+    for name, krows in per_shape.items():
+        total = lambda key: sum(r[key] * r["per_step"] for r in krows)  # noqa: E731
+        lib = None if name == "gather_augment" else total("library_ms")
+        kernels.append(dict(
+            name=name, route="cuda", source=f"simulgen_vae_tpu_torch/ops/csrc/{name}.cu",
+            replaces=TRAIN_REPLACES[name], launches=launches[name],
+            launches_per_step=launches[name] / steps,
+            max_abs_err=errs[name]["bfloat16"], max_abs_err_f32=errs[name]["float32"],
+            ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in krows)
+            else "operations",
+            library_ms=lib, per_step_sum=True, card=card, shapes=krows))
+    result = dict(step_p50_ms=step_p50, step_ms=lat.tolist(),
+                  samples_per_s=B / step_p50 * 1e3, steps=steps, epoch_losses=losses,
+                  epoch_grad_norms=norms, launches=launches, step_checks=checks,
+                  params=n_params, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return kernels, result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -226,6 +585,7 @@ def main(argv=None) -> int:
     from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
     from simulgen_vae_tpu_torch.models import blocks
     from simulgen_vae_tpu_torch.ops import _build
+    from simulgen_vae_tpu_torch.ops import gather_augment as ga
     from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
 
     t_start = time.perf_counter()
@@ -282,7 +642,7 @@ def main(argv=None) -> int:
     fields = tgen.generate(pipe, inputs, max_batch=B)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = dict(gg.LAUNCHES)
+    launches = {k: gg.LAUNCHES[k] for k in REPLACES}
     if tuple(fields.shape) != (40, T, cfg.num_node) or not bool(fields.isfinite().all()):
         raise AssertionError(f"bad output {tuple(fields.shape)} or non-finite values")
     if not all(n > 0 for n in launches.values()):
@@ -373,10 +733,18 @@ def main(argv=None) -> int:
             else "operations",
             library_ms=total("library_ms"), per_decode_sum=True, card=card,
             shapes=rows))
+    del pipe, fn, batch
+    torch.cuda.empty_cache()
+
+    # 5. the train step
+    train_kernels, train = phase_train(args, card, blocks, gg, ga, gen)
+    for k in kernels:  # the forward kernels run in the train step too
+        k["launches_train"] = train["launches"][k["name"]]
+    kernels += train_kernels
     result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
-                  serve_checks=checks, launches=launches, kernels=kernels,
+                  serve_checks=checks, launches=launches, kernels=kernels, train=train,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

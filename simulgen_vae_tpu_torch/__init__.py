@@ -1,9 +1,11 @@
 """PyTorch/CUDA port of SimulGen-VAE for one NVIDIA H100.
 
-The serving decode: the MLP latent conditioner, the hierarchical decoder and
-its GroupNorm + activation kernels (``ops/csrc/``, built with ``nvcc`` at first
-use). ``simulgen_vae_tpu`` (JAX) stays the reference; this package imports
-none of it.
+The serving decode (the MLP latent conditioner and the hierarchical decoder)
+and the VAE train step (``train.vae_trainer.VAETrainer``), with hand-written
+CUDA kernels for GroupNorm + activation forward and backward and for batch
+assembly (``ops/csrc/``, built with ``nvcc`` at first use).
+``simulgen_vae_tpu`` (JAX) stays the reference; this package imports none of
+it.
 """
 
 from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX parameter trees (nested dicts of numpy arrays) -> the port's modules.
+"""Weight bridge: JAX trees (nested dicts of numpy arrays) -> the port's modules and state.
 
 Layout rules (the same as ``scripts/export_torch_state.py``, re-implemented):
 
@@ -10,9 +10,12 @@ Layout rules (the same as ``scripts/export_torch_state.py``, re-implemented):
 
 Each ``*_state`` function returns a flat ``{name: array}`` keyed like the
 port module's ``state_dict``; :func:`load_state` copies it in (strict: every
-key must match). The ``random_*_tree`` functions make trees with the JAX
-modules' paths and shapes from a numpy generator, for runs without trained
-weights.
+key must match). The VAE's functions take a ``leaves`` strategy, so that
+one walk of the tree serves every tree of the VAE's layout: parameters, and
+equally gradients and AdamW moments (:data:`PARAMS`), or the spectral-norm
+``u`` vectors, one per kernel, keyed by their kernel's name (:data:`SN_U`).
+The ``random_*_tree`` functions make trees with the JAX modules' paths and
+shapes from a numpy generator, for runs without trained weights.
 """
 
 from __future__ import annotations
@@ -34,74 +37,145 @@ def _np(a) -> np.ndarray:
     return np.asarray(a, dtype=np.float32)
 
 
+class _Params:
+    """Leaves of a parameter-shaped tree (parameters, gradients, moments)."""
+
+    @staticmethod
+    def conv(a):
+        return _np(a).transpose(2, 1, 0)
+
+    @staticmethod
+    def dense(a):
+        return _np(a).T
+
+    vec = staticmethod(_np)
+
+
+class _SnU:
+    """Leaves of a spectral-norm ``u`` tree: one ``[out]`` vector per kernel,
+    kept as it is (it lives on the out axis in both layouts); no vectors."""
+
+    conv = dense = staticmethod(_np)
+    vec = None
+
+
+PARAMS, SN_U = _Params(), _SnU()
+
+
 def _prefixed(prefix: str, state: State) -> State:
     return {f"{prefix}.{k}": v for k, v in state.items()}
 
 
-def conv_state(tree) -> State:
+def _vecs(tree, names, leaves) -> State:
+    """The vector leaves ``names`` of ``tree`` as they are (none for u trees)."""
+    if leaves.vec is None:
+        return {}
+    return {port: leaves.vec(tree[jax]) for jax, port in names}
+
+
+def conv_state(tree, leaves=PARAMS) -> State:
     """flax ``Conv1d`` subtree ``{Conv_0: {kernel [k, C, F], bias}}``."""
-    return {"weight": _np(tree["Conv_0"]["kernel"]).transpose(2, 1, 0),
-            "bias": _np(tree["Conv_0"]["bias"])}
+    return {"weight": leaves.conv(tree["Conv_0"]["kernel"]),
+            **_vecs(tree["Conv_0"], [("bias", "bias")], leaves)}
 
 
-def linear_state(tree) -> State:
+def linear_state(tree, leaves=PARAMS) -> State:
     """A dense layer's ``{kernel [in, out], bias}``."""
-    return {"weight": _np(tree["kernel"]).T, "bias": _np(tree["bias"])}
+    return {"weight": leaves.dense(tree["kernel"]),
+            **_vecs(tree, [("bias", "bias")], leaves)}
 
 
-def norm_state(tree) -> State:
-    return {"scale": _np(tree["scale"]), "bias": _np(tree["bias"])}
+def norm_state(tree, leaves=PARAMS) -> State:
+    return _vecs(tree, [("scale", "scale"), ("bias", "bias")], leaves)
 
 
 def layer_norm_state(tree) -> State:
     return {"weight": _np(tree["scale"]), "bias": _np(tree["bias"])}
 
 
-def stages_state(tree) -> State:
-    """``Conv1d_j`` / ``NormAct_j`` stages: ResidualBlock, DecoderResidualBlock."""
+def stages_state(tree, leaves=PARAMS) -> State:
+    """``Conv1d_j`` / ``NormAct_j`` stages: ConvBlock, ResidualBlock,
+    EncoderResidualBlock, DecoderResidualBlock."""
     out = {}
     for j in range(sum(1 for k in tree if k.startswith("Conv1d_"))):
-        out.update(_prefixed(f"convs.{j}", conv_state(tree[f"Conv1d_{j}"])))
-        out.update(_prefixed(f"norms.{j}", norm_state(tree[f"NormAct_{j}"])))
+        out.update(_prefixed(f"convs.{j}", conv_state(tree[f"Conv1d_{j}"], leaves)))
+        out.update(_prefixed(f"norms.{j}", norm_state(tree.get(f"NormAct_{j}"), leaves)))
     return out
 
 
-def decoder_block_state(tree) -> State:
-    return _prefixed("conv", conv_state(tree["Conv1d_0"]))
+def decoder_block_state(tree, leaves=PARAMS) -> State:
+    return _prefixed("conv", conv_state(tree["Conv1d_0"], leaves))
 
 
-def latent_injector_state(tree) -> State:
-    return {**_prefixed("dense", linear_state(tree["Dense_0"]["Dense_0"])),
-            **_prefixed("conv", conv_state(tree["Conv1d_0"])),
-            **_prefixed("norm", norm_state(tree["NormAct_0"]))}
+def latent_injector_state(tree, leaves=PARAMS) -> State:
+    return {**_prefixed("dense", linear_state(tree["Dense_0"]["Dense_0"], leaves)),
+            **_prefixed("conv", conv_state(tree["Conv1d_0"], leaves)),
+            **_prefixed("norm", norm_state(tree.get("NormAct_0"), leaves))}
 
 
-def condition_head_state(tree) -> State:
-    return {**_prefixed("res", stages_state(tree["ResidualBlock_0"])),
-            **_prefixed("conv", conv_state(tree["Conv1d_0"]))}
+def condition_head_state(tree, leaves=PARAMS) -> State:
+    return {**_prefixed("res", stages_state(tree["ResidualBlock_0"], leaves)),
+            **_prefixed("conv", conv_state(tree["Conv1d_0"], leaves))}
 
 
-def readout_state(tree) -> State:
-    return {"kernel": _np(tree["kernel"]).T, "bias": _np(tree["bias"]),
-            "scale": _np(tree["scale"]), "norm_bias": _np(tree["norm_bias"])}
+def readout_state(tree, leaves=PARAMS) -> State:
+    return {"kernel": leaves.dense(tree["kernel"]),
+            **_vecs(tree, [("bias", "bias"), ("scale", "scale"),
+                           ("norm_bias", "norm_bias")], leaves)}
 
 
-def decoder_state(tree) -> State:
+def decoder_state(tree, leaves=PARAMS) -> State:
     """The ``vae_params['decoder']`` tree -> ``models.decoder.Decoder``."""
-    out = _prefixed("sequence_start", latent_injector_state(tree["sequence_start"]))
+    out = _prefixed("sequence_start",
+                    latent_injector_state(tree["sequence_start"], leaves))
     n = sum(1 for k in tree if k.startswith("dec_block_"))
     for i in range(n):
-        out.update(_prefixed(f"dec_block.{i}", decoder_block_state(tree[f"dec_block_{i}"])))
-        out.update(_prefixed(f"dec_res.{i}", stages_state(tree[f"dec_res_{i}"])))
+        out.update(_prefixed(f"dec_block.{i}",
+                             decoder_block_state(tree[f"dec_block_{i}"], leaves)))
+        out.update(_prefixed(f"dec_res.{i}", stages_state(tree[f"dec_res_{i}"], leaves)))
     for i in range(n - 1):
         out.update(_prefixed(f"condition_z.{i}",
-                             condition_head_state(tree[f"condition_z_{i}"])))
+                             condition_head_state(tree[f"condition_z_{i}"], leaves)))
         out.update(_prefixed(f"xs_sequence.{i}",
-                             latent_injector_state(tree[f"xs_sequence_{i}"])))
+                             latent_injector_state(tree[f"xs_sequence_{i}"], leaves)))
         out.update(_prefixed(f"condition_xz.{i}",
-                             condition_head_state(tree[f"condition_xz_{i}"])))
-    out.update(_prefixed("recon", readout_state(tree["recon"])))
+                             condition_head_state(tree[f"condition_xz_{i}"], leaves)))
+    out.update(_prefixed("recon", readout_state(tree["recon"], leaves)))
     return out
+
+
+def encoder_state(tree, leaves=PARAMS) -> State:
+    """The ``vae_params['encoder']`` tree -> ``models.encoder.Encoder``."""
+    out = {}
+    n = sum(1 for k in tree if k.startswith("enc_block_"))
+    for i in range(n):
+        out.update(_prefixed(f"enc_block.{i}", stages_state(tree[f"enc_block_{i}"], leaves)))
+        out.update(_prefixed(f"enc_res.{i}", stages_state(tree[f"enc_res_{i}"], leaves)))
+        out.update(_prefixed(f"xs_linear.{i}",
+                             linear_state(tree[f"xs_linear_{i}"]["Dense_0"], leaves)))
+    out.update(_prefixed("last_x_linear",
+                         linear_state(tree["last_x_linear"]["Dense_0"], leaves)))
+    return out
+
+
+def vae_state(tree, leaves=PARAMS) -> State:
+    """A whole VAE tree (``{'encoder', 'decoder'}``) -> ``models.vae.VAE``
+    names: parameters, gradients or AdamW moments."""
+    return {**_prefixed("encoder", encoder_state(tree["encoder"], leaves)),
+            **_prefixed("decoder", decoder_state(tree["decoder"], leaves))}
+
+
+def sn_u_state(tree) -> State:
+    """A JAX ``sn_u`` tree -> ``{kernel parameter name: u}``, the keys of
+    ``models.spectral_norm``'s state."""
+    return vae_state(tree, SN_U)
+
+
+def adamw_state(opt_state) -> dict:
+    """A JAX ``FusedAdamWState`` (``count``, ``mu``, ``nu``; f32 moments) ->
+    the port's ``{"count", "mu", "nu"}`` keyed by parameter name."""
+    return {"count": int(np.asarray(opt_state.count)),
+            "mu": vae_state(opt_state.mu), "nu": vae_state(opt_state.nu)}
 
 
 def _mlp_block_state(tree) -> State:
@@ -143,6 +217,23 @@ def load_state(module: nn.Module, state: State) -> nn.Module:
     tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()}
     module.load_state_dict(tensors, strict=True)
     return module
+
+
+def _tensors(state: State, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+            for k, v in state.items()}
+
+
+def train_state_from_jax(trainer, jax_state):
+    """A JAX ``VAETrainState`` as numpy (``params``, ``opt_state``, ``sn_u``,
+    ``epoch``) -> the port's ``VAETrainState`` for ``trainer``."""
+    from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainState
+
+    model = load_state(trainer.build_model(), vae_state(jax_state.params))
+    opt = adamw_state(jax_state.opt_state)
+    opt["mu"], opt["nu"] = (_tensors(opt[k], trainer.device) for k in ("mu", "nu"))
+    sn_u = _tensors(sn_u_state(jax_state.sn_u), trainer.device) if jax_state.sn_u else {}
+    return VAETrainState(model, opt, sn_u, int(np.asarray(jax_state.epoch)))
 
 
 def vae_from_jax(decoder_tree, cfg: VAEConfig, device,
@@ -200,6 +291,10 @@ def _rand_injector(rng, latent, features, num_time):
             "NormAct_0": _rand_norm(rng, features)}
 
 
+def _rand_dense_layer(rng, fin, fout):
+    return {"Dense_0": _rand_dense(rng, fin, fout)}
+
+
 def _rand_head(rng, fin, features, small):
     reps = 1 if small else 2
     return {"ResidualBlock_0": _rand_stages(rng, [(fin, fin, 3)] * reps),
@@ -226,6 +321,25 @@ def random_decoder_tree(cfg: VAEConfig, rng: np.random.Generator) -> dict:
     tree["recon"] = {"kernel": _he(rng, (f[-1], c), f[-1]), "bias": _small(rng, c),
                      "scale": _small(rng, c, 1.0), "norm_bias": _small(rng, c)}
     return tree
+
+
+def random_encoder_tree(cfg: VAEConfig, rng: np.random.Generator) -> dict:
+    """A ``vae_params['encoder']`` tree, drawn as :func:`random_decoder_tree`."""
+    f, t = list(cfg.num_filter_enc), cfg.num_time
+    tree = {}
+    for i, (fin, c) in enumerate(zip([cfg.num_node] + f[:-1], f)):
+        stages = [(fin, c, 1)] + ([] if cfg.small else [(c, c, 3)])
+        tree[f"enc_block_{i}"] = _rand_stages(rng, stages)
+        tree[f"enc_res_{i}"] = _rand_stages(rng, [(c, c, 3)] * (1 if cfg.small else 2))
+        tree[f"xs_linear_{i}"] = _rand_dense_layer(rng, c * t, cfg.latent_dim)
+    tree["last_x_linear"] = _rand_dense_layer(rng, f[-1] * t, 2 * cfg.latent_dim_end)
+    return tree
+
+
+def random_vae_tree(cfg: VAEConfig, rng: np.random.Generator) -> dict:
+    """A whole VAE ``params`` tree (``{'encoder', 'decoder'}``)."""
+    return {"encoder": random_encoder_tree(cfg, rng),
+            "decoder": random_decoder_tree(cfg, rng)}
 
 
 def _rand_ln(rng, c):

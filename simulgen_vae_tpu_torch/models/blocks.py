@@ -1,16 +1,24 @@
-"""Decoder building blocks over ``[B, T, C]`` maps (time, then channels).
+"""Encoder and decoder building blocks over ``[B, T, C]`` maps (time, then channels).
 
-Counterpart of ``simulgen_vae_tpu/models/blocks.py`` for the serving decode.
-Public tensors keep the JAX layout ``[B, T, C]``; convolution weights use
-PyTorch's ``[out, in, k]`` and dense weights ``[out, in]`` (``convert.py``
-carries JAX parameters over). Every GroupNorm + activation goes through
-:class:`NormAct`, which calls ``ops.groupnorm_gelu.group_norm_act``: the
-hand-written kernels on the card, the plain version on the CPU.
+Counterpart of ``simulgen_vae_tpu/models/blocks.py``. Public tensors keep the
+JAX layout ``[B, T, C]``; convolution weights use PyTorch's ``[out, in, k]``
+and dense weights ``[out, in]`` (``convert.py`` carries JAX parameters over).
+Every GroupNorm + activation goes through :class:`NormAct`, which calls
+``ops.groupnorm_gelu.group_norm_act``: the hand-written kernels on the card,
+the plain version on the CPU, with a kernel backward when gradients flow.
 
 Conventions as in the JAX package: GroupNorm(:func:`group_count` groups,
 eps 1e-5) with f32 statistics, exact (erf) GELU, residual branches scaled by
-0.1. Parameters other than the GroupNorm affines (kept in f32) live in the
-module's compute dtype, as flax's ``promote_dtype`` casts them.
+0.1. Each module computes in its ``compute_dtype`` (inputs, weights and biases
+are cast at use, as flax's ``promote_dtype`` does); GroupNorm affines stay f32.
+Serving builds the parameters in the compute dtype, so the casts are free;
+the trainer keeps f32 master parameters and sets a lower compute dtype with
+:func:`set_compute_dtype`.
+
+Spectral norm: :class:`Conv1d`, :class:`Dense` and the readout read an
+optional ``inv_sigma`` attribute (a 0-d f32 tensor, set by
+``models.spectral_norm.attach_inv_sigmas``) and scale their output by it
+before the bias, which equals using ``W / sigma`` since each is linear in W.
 """
 
 from __future__ import annotations
@@ -54,7 +62,22 @@ def _param(shape, device, dtype, fill: float | None = None) -> nn.Parameter:
         nn.init.uniform_(data, -bound, bound)  # He-uniform over fan_in
     else:
         data.fill_(fill)
-    return nn.Parameter(data, requires_grad=False)
+    return nn.Parameter(data)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every layer under ``module`` compute in ``dtype`` whatever its
+    parameters' dtype (f32 master weights, bf16 compute)."""
+    for m in module.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = dtype
+    return module
+
+
+def _scaled(y: torch.Tensor, inv_sigma, bias: torch.Tensor) -> torch.Tensor:
+    """``y * inv_sigma + bias`` with inv_sigma cast to y's dtype first, as the
+    JAX layers round it (``y * inv.astype(y.dtype) + bias``)."""
+    return y * inv_sigma.to(y.dtype) + bias
 
 
 class NormAct(nn.Module):
@@ -79,22 +102,34 @@ class Conv1d(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  device=None, dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
+        self.inv_sigma = None
         self.weight = _param((features, in_features, kernel_size), device, dtype)
         self.bias = _param((features,), device, dtype, 0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1d_same(x, self.weight, self.bias)
+        cd = self.compute_dtype
+        w, b = self.weight.to(cd), self.bias.to(cd)
+        if self.inv_sigma is None:
+            return conv1d_same(x.to(cd), w, b)
+        return _scaled(conv1d_same(x.to(cd), w), self.inv_sigma, b)
 
 
 class Dense(nn.Module):
     def __init__(self, in_features: int, features: int, device=None,
                  dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
+        self.inv_sigma = None
         self.weight = _param((features, in_features), device, dtype)
         self.bias = _param((features,), device, dtype, 0.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        cd = self.compute_dtype
+        w, b = self.weight.to(cd), self.bias.to(cd)
+        if self.inv_sigma is None:
+            return F.linear(x.to(cd), w, b)
+        return _scaled(F.linear(x.to(cd), w), self.inv_sigma, b)
 
 
 class _ConvNormStages(nn.Module):
@@ -113,6 +148,18 @@ class _ConvNormStages(nn.Module):
         return x
 
 
+class ConvBlock(_ConvNormStages):
+    """Encoder conv block: Conv(k=1) -> GN -> GELU, and for ``small=False``
+    a further Conv(k=3) -> GN -> GELU."""
+
+    def __init__(self, in_features: int, features: int, small: bool = True,
+                 device=None, dtype=torch.float32):
+        stages = [(in_features, features, 1)]
+        if not small:
+            stages.append((features, features, 3))
+        super().__init__(stages, device, dtype)
+
+
 class ResidualBlock(_ConvNormStages):
     """x + 0.1 * seq(x); seq = (Conv k=3 -> GN -> GELU) x (1 small / 2 large)."""
 
@@ -123,6 +170,10 @@ class ResidualBlock(_ConvNormStages):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + 0.1 * super().forward(x)
+
+
+class EncoderResidualBlock(ResidualBlock):
+    """The encoder's residual block: the same structure as :class:`ResidualBlock`."""
 
 
 class DecoderResidualBlock(_ConvNormStages):
@@ -168,6 +219,10 @@ class FusedPointwiseNormTanh(nn.Module):
     one rounding to the compute dtype, then ``group_norm_act(..., act='tanh')``.
     In bf16 the bias is rounded to bf16 before the add (the JAX module adds it
     in f32); in f32 the two agree exactly.
+
+    With spectral norm and ``F <= nodes`` the input is scaled by inv_sigma
+    (in f32, then rounded), as the JAX module does, so sigma's backward runs
+    on the narrow ``[B, T, F]`` side.
     """
 
     def __init__(self, in_features: int, num_node: int, eps: float = 1e-5,
@@ -175,13 +230,25 @@ class FusedPointwiseNormTanh(nn.Module):
         super().__init__()
         self.eps = eps
         self.num_groups = group_count(num_node)
+        self.compute_dtype = dtype
+        self.inv_sigma = None
         self.kernel = _param((num_node, in_features), device, dtype)
         self.bias = _param((num_node,), device, torch.float32, 0.0)
         self.scale = _param((num_node,), device, torch.float32, 1.0)
         self.norm_bias = _param((num_node,), device, torch.float32, 0.0)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        dtype = self.kernel.dtype
-        y = F.linear(h.to(dtype), self.kernel, self.bias.to(dtype))
+        cd = self.compute_dtype
+        w, b, inv = self.kernel.to(cd), self.bias.to(cd), self.inv_sigma
+        h = h.to(cd)
+        if inv is not None and w.shape[1] <= w.shape[0]:
+            h, inv = (h.float() * inv).to(cd), None
+        y = F.linear(h, w, b) if inv is None else _scaled(F.linear(h, w), inv, b)
         return group_norm_act(y, self.scale, self.norm_bias, self.num_groups,
                               eps=self.eps, act="tanh")
+
+
+def flatten_channels_first(x: torch.Tensor) -> torch.Tensor:
+    """Flatten ``[B, T, C]`` -> ``[B, C*T]`` in channel-major order (the
+    reference flattens ``[B, C, T]`` maps before its linear heads)."""
+    return x.transpose(1, 2).reshape(x.shape[0], -1)

@@ -14,6 +14,9 @@ Per level i (of ``L - 1`` levels, L = len(num_filter_dec)):
 ``mode='fix'`` multiplies std by 1e-10 before the [1e-8, 10] clamp: the decode
 still draws noise, at std 1e-8 while log_var < 2 ln 100. ``frozen_zs`` reuses
 the ``zs`` of an earlier call. Noise comes from an explicit ``torch.Generator``.
+Spectral norm reaches each conv, dense and readout layer through its
+``inv_sigma`` attribute (``models.spectral_norm.attach_inv_sigmas``); the
+decoder itself passes nothing.
 """
 
 from __future__ import annotations

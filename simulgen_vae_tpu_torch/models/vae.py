@@ -1,7 +1,11 @@
-"""Top-level VAE for serving (``simulgen_vae_tpu/models/vae.py``).
+"""Top-level hierarchical VAE (``simulgen_vae_tpu/models/vae.py``).
 
-This slice carries the decoder only: ``decode`` and ``generate``. The encoder
-and the training forward come with the training slice.
+Serving builds it without an encoder (``decode`` and ``generate`` only);
+training passes ``num_filter_enc`` and calls :meth:`VAE.forward`: encode,
+clamp log_var to +-30, reparameterize (std clamped to [1e-8, 10]), decode
+with the hierarchical latents, then the reconstruction loss in the
+configured flavor, the always-on MSE monitor and the KL terms. Noise comes
+from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -11,17 +15,43 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from simulgen_vae_tpu_torch.models.decoder import Decoder
+from simulgen_vae_tpu_torch.losses import kl, make_recon_loss_pair
+from simulgen_vae_tpu_torch.models.decoder import Decoder, reparameterize
+from simulgen_vae_tpu_torch.models.encoder import Encoder
 
 
 class VAE(nn.Module):
     def __init__(self, latent_dim: int, hierarchical_dim: int,
                  num_filter_dec: Sequence[int], num_node: int, num_time: int,
-                 small: bool = True, device=None, dtype=torch.float32):
+                 small: bool = True, device=None, dtype=torch.float32,
+                 num_filter_enc: Optional[Sequence[int]] = None,
+                 lossfun: str = "MSE"):
         super().__init__()
         self.num_node, self.num_time = num_node, num_time
+        self.lossfun = lossfun
+        self.encoder = None
+        if num_filter_enc is not None:
+            self.encoder = Encoder(latent_dim, hierarchical_dim, num_filter_enc,
+                                   num_node, num_time, small, device, dtype)
         self.decoder = Decoder(latent_dim, hierarchical_dim, num_filter_dec,
                                num_node, num_time, small, device, dtype)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """``(x_hat, recon_loss, [kl_main, kl_hier...], recon_loss_mse)`` for
+        ``x`` [B, T, nodes]; losses are f32 scalars."""
+        mu, log_var, xs = self.encode(x)
+        log_var = log_var.clamp(-30.0, 30.0)
+        z = reparameterize(mu, torch.exp(0.5 * log_var), generator)
+        x_hat, kl_losses, _ = self.decoder(z, xs, generator=generator)
+        recon_loss, recon_loss_mse = make_recon_loss_pair(self.lossfun)(x_hat, x)
+        kl_loss = kl(mu.float(), log_var.float())
+        return x_hat, recon_loss, [kl_loss] + list(kl_losses), recon_loss_mse
+
+    def encode(self, x: torch.Tensor):
+        """``(mu, log_var, xs)``: the hierarchical posterior parameters."""
+        if self.encoder is None:
+            raise ValueError("this VAE was built without an encoder (num_filter_enc)")
+        return self.encoder(x)
 
     def decode(self, z: torch.Tensor,
                xs: Optional[Sequence[torch.Tensor]] = None, mode: str = "random",

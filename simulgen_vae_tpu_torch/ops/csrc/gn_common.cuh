@@ -43,6 +43,20 @@ __device__ __forceinline__ float activate(float v) {
   }
 }
 
+// d activate(y) / dy, for the backward kernels.
+template <int ACT>
+__device__ __forceinline__ float activate_grad(float y) {
+  if constexpr (ACT == kActGelu) {
+    return 0.5f * (1.0f + erff(y * 0.70710678118654752f)) +
+           y * 0.39894228040143268f * expf(-0.5f * y * y);
+  } else if constexpr (ACT == kActTanh) {
+    const float th = tanhf(y);
+    return 1.0f - th * th;
+  } else {
+    return 1.0f;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

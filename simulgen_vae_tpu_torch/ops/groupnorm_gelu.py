@@ -3,14 +3,28 @@
 Counterpart of ``simulgen_vae_tpu/ops/groupnorm_gelu.py``. Per sample,
 GroupNorm takes statistics over (T x the group's channels) in f32, then the
 affine, then ``gelu`` (exact erf), ``tanh`` or ``none``; the result has x's
-dtype. Three hand-written kernels (``ops/csrc/``) compute it on the card:
+dtype. Hand-written kernels (``ops/csrc/``) compute it on the card.
+
+Forward:
 
 * ``gn_act_onepass``: the whole sample in shared memory, for maps that fit
   (:func:`onepass_fits`);
 * ``gn_stats`` then ``gn_apply``: two passes for wider maps, such as the
   95008-channel readout with 11876-wide groups.
 
-:func:`group_norm_act` dispatches: a CPU tensor goes to the plain version, a
+Backward (the JAX ``custom_vjp`` of ``fused_group_norm_gelu`` and
+``tiled_group_norm_gelu``), through :class:`GroupNormAct`:
+
+* ``gn_bwd_onepass``: x and the incoming gradient of one sample in shared
+  memory (:func:`onepass_bwd_fits`, its own engage rule: at T = 200 only
+  C <= 284 in bf16, C <= 143 in f32);
+* ``gn_bwd_stats`` then ``gn_bwd_apply``: two passes for wider maps. They
+  need the forward's statistics: the two-phase forward saves them; after a
+  one-pass forward whose backward does not fit one block, ``gn_stats``
+  recomputes them (one extra read of a map of at most T x 512 per sample).
+  The forward stays the serving forward, bit for bit.
+
+:func:`group_norm_act` dispatches: a CPU tensor goes to the plain versions, a
 CUDA tensor to the kernels, anything else raises. There is no fallback from a
 kernel to the plain version. Each kernel wrapper counts its launches in
 :data:`LAUNCHES`, so a run can show which kernels it went through.
@@ -25,7 +39,8 @@ import torch.nn.functional as F
 
 from simulgen_vae_tpu_torch.ops import _build
 
-LAUNCHES = {"gn_act_onepass": 0, "gn_stats": 0, "gn_apply": 0}
+LAUNCHES = {"gn_act_onepass": 0, "gn_stats": 0, "gn_apply": 0,
+            "gn_bwd_onepass": 0, "gn_bwd_stats": 0, "gn_bwd_apply": 0}
 
 # Largest dynamic shared memory one block may opt into on an H100 (227 KB).
 ONEPASS_SMEM_LIMIT = 232448
@@ -88,6 +103,82 @@ def group_apply_reference(x: torch.Tensor, scale: torch.Tensor,
     return _activate(out, act).to(x.dtype)
 
 
+def _act_grad(y: torch.Tensor, act: str) -> torch.Tensor:
+    """d act(y) / dy (exact GELU's derivative for ``gelu``)."""
+    if act == "gelu":
+        return (0.5 * (1.0 + torch.erf(y * 0.7071067811865476))
+                + y * 0.3989422804014327 * torch.exp(-0.5 * y * y))
+    if act == "tanh":
+        th = torch.tanh(y)
+        return 1.0 - th * th
+    if act == "none":
+        return torch.ones_like(y)
+    raise ValueError(f"unknown activation '{act}'")
+
+
+def _bwd_terms(x, scale, bias, grad, mean, inv, num_groups, act):
+    """xn, da = g * act'(y) and dxn = da * scale, all f32 ``[B, T, C]``;
+    ``mean``/``inv`` are ``[B, G]``."""
+    b, t, c = x.shape
+    cg = c // num_groups
+    xn = ((x.float().reshape(b, t, num_groups, cg) - mean[:, None, :, None])
+          * inv[:, None, :, None]).reshape(b, t, c)
+    y = xn * scale.float() + bias.float()
+    da = grad.float() * _act_grad(y, act)
+    return xn, da, da * scale.float()
+
+
+def _group_sums(v: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """Per-(sample, group) sums of a ``[B, T, C]`` f32 map -> ``[B, G]``."""
+    b, t, c = v.shape
+    return v.reshape(b, t, num_groups, c // num_groups).sum(dim=(1, 3))
+
+
+def _expand(v: torch.Tensor, c: int) -> torch.Tensor:
+    """``[B, G]`` per-group values -> ``[B, 1, C]`` per column."""
+    return v.repeat_interleave(c // v.shape[1], dim=1)[:, None, :]
+
+
+def group_norm_act_backward_reference(x, scale, bias, grad, num_groups: int,
+                                      eps: float = 1e-5, act: str = "gelu"):
+    """Plain version of ``gn_bwd_onepass`` (the JAX ``_bwd_kernel``):
+    statistics recomputed from x, then ``dx = (dxn - m1 - xn * m2) * inv``
+    with m1, m2 the group means of dxn and dxn * xn. Returns
+    ``(dx [B,T,C] in x's dtype, dscale [C] f32, dbias [C] f32)``."""
+    stats = group_stats_reference(x, num_groups, eps)
+    msums, dscale_p, dbias_p = gn_bwd_stats_reference(x, scale, bias, grad, stats,
+                                                      num_groups, act)
+    dx = gn_bwd_apply_reference(x, scale, bias, grad, stats, msums, num_groups, act)
+    return dx, dscale_p.sum(dim=0), dbias_p.sum(dim=0)
+
+
+def gn_bwd_stats_reference(x, scale, bias, grad, stats, num_groups: int,
+                           act: str = "gelu"):
+    """Plain version of ``gn_bwd_stats`` (the JAX ``_bwd_stats_kernel`` with
+    the tile sum and the division that follow it): ``(msums [B, 2, G] f32 of
+    (mean of dxn, mean of dxn * xn) per group, dscale partials [B, C],
+    dbias partials [B, C])``."""
+    b, t, c = x.shape
+    xn, da, dxn = _bwd_terms(x, scale, bias, grad, stats[:, 0], stats[:, 1],
+                             num_groups, act)
+    denom = float(t * (c // num_groups))
+    msums = torch.stack([_group_sums(dxn, num_groups),
+                         _group_sums(dxn * xn, num_groups)], dim=1) / denom
+    return msums, (da * xn).sum(dim=1), da.sum(dim=1)
+
+
+def gn_bwd_apply_reference(x, scale, bias, grad, stats, msums, num_groups: int,
+                           act: str = "gelu") -> torch.Tensor:
+    """Plain version of ``gn_bwd_apply`` (the JAX ``_bwd_apply_kernel``):
+    ``dx = (dxn - m1 - xn * m2) * inv`` in x's dtype."""
+    c = x.shape[2]
+    xn, _, dxn = _bwd_terms(x, scale, bias, grad, stats[:, 0], stats[:, 1],
+                            num_groups, act)
+    dx = (dxn - _expand(msums[:, 0], c) - xn * _expand(msums[:, 1], c)) \
+        * _expand(stats[:, 1], c)
+    return dx.to(x.dtype)
+
+
 # -- kernel wrappers ----------------------------------------------------------
 
 def onepass_smem_bytes(t: int, c: int, num_groups: int, elem_bytes: int) -> int:
@@ -95,6 +186,31 @@ def onepass_smem_bytes(t: int, c: int, num_groups: int, elem_bytes: int) -> int:
     ``stage_offset`` plus the staged sample)."""
     head = (2 * c + 2 * num_groups) * 4
     return ((head + 15) // 16) * 16 + t * c * elem_bytes
+
+
+def onepass_bwd_smem_bytes(t: int, c: int, num_groups: int, elem_bytes: int) -> int:
+    """Shared memory of one ``gn_bwd_onepass`` block (mirrors the kernel's
+    ``stage_offset``: four column and four group vectors, then x and g, each
+    map starting on a 16-byte boundary)."""
+    def round16(v):
+        return (v + 15) // 16 * 16
+
+    return round16((4 * c + 4 * num_groups) * 4) + round16(t * c * elem_bytes) \
+        + t * c * elem_bytes
+
+
+def onepass_bwd_fits(t: int, c: int, num_groups: int, elem_bytes: int) -> bool:
+    """Engage rule of the one-pass backward: x and the gradient of one sample,
+    both staged in x's dtype, plus column and group sums fit one block's
+    shared memory. At T = 200: C <= 284 in bf16, C <= 143 in f32."""
+    return onepass_bwd_smem_bytes(t, c, num_groups, elem_bytes) <= ONEPASS_SMEM_LIMIT
+
+
+def bwd_onepass_engages(t: int, c: int, num_groups: int, elem_bytes: int) -> bool:
+    """Whether the backward takes ``gn_bwd_onepass``: the forward took the
+    one-pass route (no saved statistics) and x and g fit one block."""
+    return (onepass_fits(t, c, num_groups, elem_bytes)
+            and onepass_bwd_fits(t, c, num_groups, elem_bytes))
 
 
 def onepass_fits(t: int, c: int, num_groups: int, elem_bytes: int) -> bool:
@@ -117,6 +233,21 @@ def _check_map(x: torch.Tensor, num_groups: int) -> None:
         raise ValueError(f"{x.shape[2]} channels do not split into {num_groups} groups")
     if x.shape[0] > 65535:
         raise ValueError("batch above 65535")
+
+
+def _check_like(g: torch.Tensor, x: torch.Tensor, what: str) -> None:
+    if (g.device != x.device or g.dtype != x.dtype or g.shape != x.shape
+            or not g.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {x.dtype} {tuple(x.shape)} "
+                         f"tensor on {x.device}")
+
+
+def _check_stats(st: torch.Tensor, x: torch.Tensor, num_groups: int, what: str) -> None:
+    b = x.shape[0]
+    if (st.device != x.device or st.dtype != torch.float32
+            or tuple(st.shape) != (b, 2, num_groups) or not st.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous float32 [{b}, 2, {num_groups}] "
+                         f"tensor on {x.device}")
 
 
 def _check_vec(v: torch.Tensor, x: torch.Tensor, what: str) -> None:
@@ -210,10 +341,7 @@ def gn_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check_vec(scale, x, "scale")
     _check_vec(bias, x, "bias")
     b, t, c = x.shape
-    if (stats.device != x.device or stats.dtype != torch.float32
-            or tuple(stats.shape) != (b, 2, num_groups) or not stats.is_contiguous()):
-        raise ValueError(f"stats must be a contiguous float32 [{b}, 2, {num_groups}] "
-                         f"tensor on {x.device}")
+    _check_stats(stats, x, num_groups, "stats")
     fn = _fn("gn_apply", "gn_apply",
              [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
     out = torch.empty_like(x)
@@ -225,17 +353,144 @@ def gn_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+def gn_bwd_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   grad: torch.Tensor, num_groups: int, eps: float = 1e-5,
+                   act: str = "gelu"):
+    """One-pass GroupNorm + activation backward (kernel ``gn_bwd_onepass``):
+    ``(dx, dscale, dbias)``; the per-sample dscale/dbias partials the kernel
+    writes are summed over the batch here, in order."""
+    if x.device.type == "cpu":
+        return group_norm_act_backward_reference(x, scale, bias, grad, num_groups,
+                                                 eps, act)
+    _check_map(x, num_groups)
+    _check_like(grad, x, "grad")
+    _check_vec(scale, x, "scale")
+    _check_vec(bias, x, "bias")
+    b, t, c = x.shape
+    if not onepass_bwd_fits(t, c, num_groups, x.element_size()):
+        raise ValueError(f"[T={t}, C={c}] {x.dtype} backward does not fit one block")
+    fn = _fn("gn_bwd_onepass", "gn_bwd_onepass",
+             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P])
+    dx = torch.empty_like(x)
+    dscale_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    dbias_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(grad), _ptr(dx),
+                 _ptr(dscale_p), _ptr(dbias_p), b, t, c, num_groups, eps,
+                 _DTYPE_CODES[x.dtype], _act_code(act), _stream(x))
+    _raise_on(err, "gn_bwd_onepass")
+    LAUNCHES["gn_bwd_onepass"] += 1
+    return dx, dscale_p.sum(dim=0), dbias_p.sum(dim=0)
+
+
+def gn_bwd_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 grad: torch.Tensor, stats: torch.Tensor, num_groups: int,
+                 act: str = "gelu"):
+    """Backward phase A (kernel ``gn_bwd_stats``): ``(msums [B, 2, G],
+    dscale partials [B, C], dbias partials [B, C])``, all f32."""
+    if x.device.type == "cpu":
+        return gn_bwd_stats_reference(x, scale, bias, grad, stats, num_groups, act)
+    _check_map(x, num_groups)
+    _check_like(grad, x, "grad")
+    _check_vec(scale, x, "scale")
+    _check_vec(bias, x, "bias")
+    _check_stats(stats, x, num_groups, "stats")
+    b, t, c = x.shape
+    fn = _fn("gn_bwd_stats", "gn_bwd_stats",
+             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    tiles = _fn("gn_bwd_stats", "gn_bwd_stats_tiles", [_I])(c)
+    partials = torch.empty((b, tiles, 2, num_groups), device=x.device,
+                           dtype=torch.float32)
+    msums = torch.empty((b, 2, num_groups), device=x.device, dtype=torch.float32)
+    dscale_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    dbias_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(grad), _ptr(stats),
+                 _ptr(partials), _ptr(msums), _ptr(dscale_p), _ptr(dbias_p),
+                 b, t, c, num_groups, _DTYPE_CODES[x.dtype], _act_code(act),
+                 _stream(x))
+    _raise_on(err, "gn_bwd_stats")
+    LAUNCHES["gn_bwd_stats"] += 1
+    return msums, dscale_p, dbias_p
+
+
+def gn_bwd_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 grad: torch.Tensor, stats: torch.Tensor, msums: torch.Tensor,
+                 num_groups: int, act: str = "gelu") -> torch.Tensor:
+    """Backward phase B (kernel ``gn_bwd_apply``): dx in x's dtype."""
+    if x.device.type == "cpu":
+        return gn_bwd_apply_reference(x, scale, bias, grad, stats, msums,
+                                      num_groups, act)
+    _check_map(x, num_groups)
+    _check_like(grad, x, "grad")
+    _check_vec(scale, x, "scale")
+    _check_vec(bias, x, "bias")
+    _check_stats(stats, x, num_groups, "stats")
+    _check_stats(msums, x, num_groups, "msums")
+    b, t, c = x.shape
+    fn = _fn("gn_bwd_apply", "gn_bwd_apply",
+             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+    dx = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(grad), _ptr(stats),
+                 _ptr(msums), _ptr(dx), b, t, c, num_groups,
+                 _DTYPE_CODES[x.dtype], _act_code(act), _stream(x))
+    _raise_on(err, "gn_bwd_apply")
+    LAUNCHES["gn_bwd_apply"] += 1
+    return dx
+
+
+def _forward(x, scale, bias, num_groups, eps, act):
+    """The forward route: ``(out, stats or None)``."""
+    if onepass_fits(x.shape[1], x.shape[2], num_groups, x.element_size()):
+        return gn_act_onepass(x, scale, bias, num_groups, eps, act), None
+    stats = gn_stats(x, num_groups, eps)
+    return gn_apply(x, scale, bias, stats, num_groups, act), stats
+
+
+class GroupNormAct(torch.autograd.Function):
+    """GroupNorm + activation whose backward is the kernels' (the JAX
+    ``custom_vjp``): the forward saves ``(x, scale, bias)`` and, on the
+    two-phase route, the ``[B, 2, G]`` statistics."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        out, stats = _forward(x, scale, bias, num_groups, eps, act)
+        ctx.save_for_backward(x, scale, bias, stats)
+        ctx.cfg = (num_groups, eps, act)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, scale, bias, stats = ctx.saved_tensors
+        num_groups, eps, act = ctx.cfg
+        grad = grad.contiguous()
+        if bwd_onepass_engages(x.shape[1], x.shape[2], num_groups, x.element_size()):
+            dx, dscale, dbias = gn_bwd_onepass(x, scale, bias, grad, num_groups,
+                                               eps, act)
+        else:
+            if stats is None:
+                stats = gn_stats(x, num_groups, eps)
+            msums, dscale_p, dbias_p = gn_bwd_stats(x, scale, bias, grad, stats,
+                                                    num_groups, act)
+            dx = gn_bwd_apply(x, scale, bias, grad, stats, msums, num_groups, act)
+            dscale, dbias = dscale_p.sum(dim=0), dbias_p.sum(dim=0)
+        return dx, dscale, dbias, None, None, None
+
+
 def group_norm_act(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int, eps: float = 1e-5,
                    act: str = "gelu") -> torch.Tensor:
-    """GroupNorm + activation over ``[B, T, C]``: the plain version on the CPU,
-    the one-pass kernel on the card where the sample fits one block, else
-    ``gn_stats`` + ``gn_apply``."""
+    """GroupNorm + activation over ``[B, T, C]``: the plain versions on the
+    CPU, the one-pass kernel on the card where the sample fits one block,
+    else ``gn_stats`` + ``gn_apply``. Where a gradient is wanted it goes
+    through :class:`GroupNormAct`, whose backward is the kernels' too."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no GroupNorm kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return GroupNormAct.apply(x, scale, bias, num_groups, eps, act)
     if x.device.type == "cpu":
         return group_norm_act_reference(x, scale, bias, num_groups, eps, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"no GroupNorm kernel for device {x.device}")
     _check_map(x, num_groups)
-    if onepass_fits(x.shape[1], x.shape[2], num_groups, x.element_size()):
-        return gn_act_onepass(x, scale, bias, num_groups, eps, act)
-    return gn_apply(x, scale, bias, gn_stats(x, num_groups, eps), num_groups, act)
+    return _forward(x, scale, bias, num_groups, eps, act)[0]

@@ -1,4 +1,4 @@
-"""Port decoder blocks vs the JAX blocks, weights carried over by convert.py.
+"""Port encoder and decoder blocks vs the JAX blocks, weights carried over by convert.py.
 
 Each JAX block is initialised from a key, its parameters are perturbed with
 seeded numpy noise (so biases and norm affines are not at their 0/1 inits),
@@ -49,6 +49,18 @@ CASES = {
     "condition_head": (lambda: jd._ConditionHead(8),
                        lambda: td._ConditionHead(16, 8),
                        convert.condition_head_state, (2, 10, 16)),
+    "conv_block_small": (lambda: jb.ConvBlock(12, True),
+                         lambda: tb.ConvBlock(20, 12, True),
+                         convert.stages_state, (2, 10, 20)),
+    "conv_block_large": (lambda: jb.ConvBlock(12, False),
+                         lambda: tb.ConvBlock(20, 12, False),
+                         convert.stages_state, (2, 10, 20)),
+    "encoder_residual_small": (lambda: jb.EncoderResidualBlock(16, True),
+                               lambda: tb.EncoderResidualBlock(16, True),
+                               convert.stages_state, (2, 10, 16)),
+    "encoder_residual_large": (lambda: jb.EncoderResidualBlock(16, False),
+                               lambda: tb.EncoderResidualBlock(16, False),
+                               convert.stages_state, (2, 10, 16)),
     "readout": (lambda: jb.FusedPointwiseNormTanh(300),
                 lambda: tb.FusedPointwiseNormTanh(16, 300),
                 convert.readout_state, (2, 6, 16)),
@@ -64,8 +76,39 @@ def test_block_matches_jax(name):
     want = np.asarray(jmod.apply({"params": params}, x))
 
     port = convert.load_state(make_port(), state_fn(params))
-    got = port(torch.from_numpy(x)).numpy()
+    got = port(torch.from_numpy(x)).detach().numpy()  # parameters are trainable
     assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+SN_CASES = {
+    # name: (JAX module, port module, state fn, sigma collection, input shape)
+    "conv": (lambda: jb.Conv1d(6, 3), lambda: tb.Conv1d(5, 6, 3), convert.conv_state,
+             lambda v: {"Conv_0": {"inv_sigma": v}}, (2, 7, 5)),
+    "dense": (lambda: jb.Dense(6), lambda: tb.Dense(5, 6),
+              lambda p: convert.linear_state(p["Dense_0"]),
+              lambda v: {"Dense_0": {"inv_sigma": v}}, (3, 5)),
+    # F <= nodes: the readout scales its input by inv_sigma
+    "readout": (lambda: jb.FusedPointwiseNormTanh(300),
+                lambda: tb.FusedPointwiseNormTanh(16, 300), convert.readout_state,
+                lambda v: {"inv_sigma": v}, (2, 6, 16)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SN_CASES))
+def test_spectral_norm_scaled_layer_matches_jax(name):
+    """A layer given ``inv_sigma`` matches the JAX layer given the same value
+    in its ``sn_sigma`` collection (output scaled before the bias)."""
+    make_jax, make_port, state_fn, collection, shape = SN_CASES[name]
+    x = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    jmod = make_jax()
+    params = _perturbed_params(jmod, x, seed=len(name) + 1)
+    inv = np.float32(0.37)
+    want = np.asarray(jmod.apply({"params": params, "sn_sigma": collection(inv)}, x))
+    port = convert.load_state(make_port(), state_fn(params))
+    port.inv_sigma = torch.tensor(inv)
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
