@@ -36,12 +36,26 @@ Phases, each printing its own lines; any failure exits non-zero:
              loss within 1e-2 relative; f32 with TF32 off: loss within 1e-4,
              every gradient within rel-L2 1e-3); then the step's p50 and each
              train kernel's time per step beside its bound, plain and library
-             times.
+             times;
+6. fused   : the fused-readout train path (VAETrainer(fused_readout=True)):
+             each of its four kernels (readout_matmul_stats, readout_loss,
+             readout_bwd_stats, readout_bwd_dy) against its plain version in
+             f32 and bf16 at the flagship readout shape (B=16, T=200, F=1024,
+             C=95008, G=8) and two small ragged ones; the same configuration,
+             data and seed as phase 5 trained for one epoch (4 steps) with
+             finite losses, each new kernel launched once per step and no
+             GroupNorm kernel launched at C = 95008; one step from one state,
+             batch and noise three ways (fused kernels, fused plain versions,
+             unfused route; f32 with TF32 off: loss within 1e-4, every
+             gradient and the readout's inv_sigma gradient within rel-L2 1e-3;
+             bf16: loss within 1e-2); then per-kernel times beside their
+             bounds, the readout segment fused against unfused, and the fused
+             against the unfused step p50, timed in turns.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
-device time by kernel for three decodes and one train step (written under
-chiprun_out/). Without a CUDA device, or without the package beside it, the
+device time by kernel for three decodes, one train step and one fused train
+step (written under chiprun_out/). Without a CUDA device, or without the package beside it, the
 script fails.
 """
 
@@ -62,6 +76,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 F32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
 B, T = 16, 200
 DECODE_CALLS = 40             # p75 is then the highest percentile with 10 samples beyond
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
@@ -76,13 +91,21 @@ TRAIN_REPLACES = {
     "gn_bwd_stats": "simulgen_vae_tpu/ops/groupnorm_gelu.py:436",
     "gn_bwd_apply": "simulgen_vae_tpu/ops/groupnorm_gelu.py:467",
 }
+READOUT_REPLACES = {
+    "readout_matmul_stats": "simulgen_vae_tpu/ops/readout_chain.py:106",
+    "readout_loss": "simulgen_vae_tpu/ops/readout_chain.py:129",
+    "readout_bwd_stats": "simulgen_vae_tpu/ops/readout_chain.py:206",
+    "readout_bwd_dy": "simulgen_vae_tpu/ops/readout_chain.py:309",
+}
 # Operations per element, counting erff / tanhf / expf / logf / sincospif as
 # one each.
 NORM_OPS, ACT_OPS, STATS_OPS = 4, {"gelu": 5, "tanh": 1, "none": 0}, 3
 ACT_GRAD_OPS = {"gelu": 9, "tanh": 3, "none": 0}
 BWD_SUM_OPS, BWD_DX_OPS = 8, 4       # four column sums; dx from dxn, m1, m2, inv
 MIX_OPS, NOISE_OPS = 5, 33           # amp + mixup; Philox (25) + Box-Muller (8)
+LOSS_OPS, LOSS_GRAD_OPS = 5, 8       # loss and squared error; dl/do, (1 - o^2), da
 TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 2, 10
+READOUT_F, READOUT_C, READOUT_G = 1024, 95008, 8
 
 
 def card_line() -> str:
@@ -435,15 +458,22 @@ def train_kernel_timings(gg, ga, shapes, data, reps, gen, card) -> dict:
     return per_shape
 
 
-def phase_train(args, card, blocks, gg, ga, gen):
-    """Phase 5: the flagship train step. Returns (per-kernel dict, result dict)."""
+def train_config():
+    """The flagship train configuration (bench.py's), 403.5M parameters."""
     from simulgen_vae_tpu_torch.config import VAEConfig
+
+    return VAEConfig(num_param=TRAIN_SAMPLES, num_time=T, num_node=READOUT_C,
+                     latent_dim_end=32, latent_dim=8, num_filter_enc=[1024, 512, 256, 128],
+                     small=True, batch_size=B, lr=1e-3, alpha=1e6, loss_type="MSE",
+                     dtype="bfloat16", use_spectral_norm=True)
+
+
+def phase_train(args, card, blocks, gg, ga, gen):
+    """Phase 5: the flagship train step. Returns (per-kernel dict, result dict,
+    and the trainer, state and data for the phase after it)."""
     from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
 
-    cfg = VAEConfig(num_param=TRAIN_SAMPLES, num_time=T, num_node=95008, latent_dim_end=32,
-                    latent_dim=8, num_filter_enc=[1024, 512, 256, 128], small=True,
-                    batch_size=B, lr=1e-3, alpha=1e6, loss_type="MSE", dtype="bfloat16",
-                    use_spectral_norm=True)
+    cfg = train_config()
     trainer = VAETrainer(cfg, device="cuda", seed=args.seed)
     state = trainer.init_state(args.seed)
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -533,21 +563,8 @@ def phase_train(args, card, blocks, gg, ga, gen):
     per_shape = train_kernel_timings(gg, ga, shapes, data, args.reps, gen, card)
 
     if args.profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, _ = trainer.train_epoch(state, data, max_steps=1)
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        busy_ms = sum(e.self_device_time_total for e in events
-                      if e.device_type == DeviceType.CUDA) / 1e3
-        table = events.table(sort_by="self_device_time_total", row_limit=40)
-        (OUT_DIR / "chip_smoke_train_profile.txt").write_text(table)
-        print(f"profile: train step device busy {busy_ms:.3f} ms against the "
-              f"{step_p50:.3f} ms p50 (idle share {1 - busy_ms / step_p50:.3f}); device "
-              "time by kernel in chiprun_out/chip_smoke_train_profile.txt")
-        print("\n".join(table.splitlines()[:24]))
+        state, _ = profile_step(trainer, state, data, step_p50,
+                                "chip_smoke_train_profile.txt", "train step")
 
     kernels = []
     for name, krows in per_shape.items():
@@ -566,6 +583,363 @@ def phase_train(args, card, blocks, gg, ga, gen):
                   samples_per_s=B / step_p50 * 1e3, steps=steps, epoch_losses=losses,
                   epoch_grad_norms=norms, launches=launches, step_checks=checks,
                   params=n_params, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return kernels, result, dict(cfg=cfg, trainer=trainer, state=state, data=data,
+                                 data32=data32)
+
+
+# -- 6. the fused-readout train path ------------------------------------------
+
+# (B, T, F, C, G, loss): two small ragged shapes (C = 300 puts bf16 rows off
+# 16-byte boundaries and no 128-column tile holds a 50-wide group whole), then
+# the flagship readout.
+READOUT_SHAPES = [(3, T, 128, 300, 6, "Huber"), (3, T, 128, 5120, 8, "MAE"),
+                  (B, T, READOUT_F, READOUT_C, READOUT_G, "MSE")]
+
+
+def _readout_case(b, t, f, c, dtype, gen):
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return dict(h=(0.5 * r(b, t, f)).to(dtype), w=(r(c, f) / f ** 0.5).to(dtype),
+                bias=0.1 * r(c), scale=1.0 + 0.1 * r(c), nb=0.1 * r(c),
+                x=(0.5 * r(b, t, c)).to(dtype), inv=torch.tensor(0.8, device="cuda"))
+
+
+def _assert_rel(name, got, want, tol) -> float:
+    rel = _grad_rel(got, want)
+    if not rel <= tol:
+        raise AssertionError(f"{name}: rel-L2 {rel:.3g} above {tol:g}")
+    return rel
+
+
+def check_readout_kernels(rc, gen) -> dict:
+    """#8, #9, #10, #12 against their plain versions, f32 (TF32 off) and bf16.
+    y: f32 atol 2e-5, bf16 atol/rtol 1e-2. Statistics, group means and the loss
+    sums: rel-L2 1e-4 (f32), 1e-3 (bf16 inputs). dy: rel-L2 1e-5 / 1e-2 (its
+    values are of order 1 / n_elem, so an absolute bound says nothing).
+    Per-column sums over T: rel-L2 1e-4 / 1e-3. The d inv_sigma partials: 2e-3,
+    a sum of 19M terms of both signs per sample that cancels to a small rest.
+    Each kernel after the first takes the plain version's outputs, so each is
+    held alone. Returns the max abs errors of the main outputs."""
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in READOUT_REPLACES}
+    gvec = torch.tensor([1.7, 0.3, 0.8], device="cuda")   # (gl, gm, inv_sigma)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        sum_tol, dy_tol = (1e-4, 1e-5) if dtype == torch.float32 else (1e-3, 1e-2)
+        for b, t, f, c, g, lossfun in READOUT_SHAPES:
+            k = _readout_case(b, t, f, c, dtype, gen)
+            n_elem, tag = float(b * t * c), f"C={c} {dname}"
+            chain = (k["x"], k["scale"], k["nb"])
+            y, stats = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
+            y0, stats0 = rc.matmul_stats_reference(k["h"], k["w"], k["bias"], k["inv"], g)
+            _assert_close(f"readout_matmul_stats {tag} y", y, y0, dtype)
+            rels = [_assert_rel(f"readout_matmul_stats {tag} stats", stats, stats0, sum_tol)]
+            errs["readout_matmul_stats"][dname] = max(errs["readout_matmul_stats"][dname],
+                                                      _err(y, y0))
+            del y
+            sums = rc.readout_loss(y0, *chain, stats0, g, lossfun)
+            sums0 = rc.loss_reference(y0, *chain, stats0, g, lossfun)
+            rels.append(_assert_rel(f"readout_loss {tag}", sums, sums0, sum_tol))
+            errs["readout_loss"][dname] = max(errs["readout_loss"][dname],
+                                              _err(sums, sums0) / n_elem)
+            got = rc.readout_bwd_stats(y0, *chain, stats0, gvec, n_elem, g, lossfun)
+            want = rc.bwd_stats_reference(y0, *chain, stats0, gvec, n_elem, g, lossfun)
+            for part, a, w0 in zip(("msums", "dscale", "dnorm_bias"), got, want):
+                rels.append(_assert_rel(f"readout_bwd_stats {tag} {part}", a, w0, sum_tol))
+            errs["readout_bwd_stats"][dname] = max(errs["readout_bwd_stats"][dname],
+                                                   *(_err(a, w0) for a, w0 in zip(got, want)))
+            msums = want[0]
+            del got, want
+            got = rc.readout_bwd_dy(y0, *chain, k["bias"], stats0, msums, gvec, n_elem, g,
+                                    lossfun)
+            want = rc.bwd_dy_reference(y0, *chain, k["bias"], stats0, msums, gvec, n_elem, g,
+                                       lossfun)
+            for part, a, w0, tol in zip(("dy", "dbias", "dinv_sigma"), got, want,
+                                        (dy_tol, sum_tol, 2e-3)):
+                rels.append(_assert_rel(f"readout_bwd_dy {tag} {part}", a, w0, tol))
+            errs["readout_bwd_dy"][dname] = max(errs["readout_bwd_dy"][dname],
+                                                _err(got[0], want[0]))
+            torch.cuda.synchronize()
+            print(f"fused kernels: {dname} B={b} F={f} C={c} G={g} {lossfun}: y max abs "
+                  f"{errs['readout_matmul_stats'][dname]:.3g}; rel-L2 stats, loss sums, "
+                  f"msums, dscale, dnorm_bias, dy, dbias, dinv = "
+                  + ", ".join(f"{r:.2g}" for r in rels) + " -> ok")
+            del k, y0, got, want, chain
+            torch.cuda.empty_cache()
+    return errs
+
+
+@contextlib.contextmanager
+def plain_readout(rc):
+    """Route the fused readout's four kernels through their plain versions, on the card."""
+    real = {name: getattr(rc, name) for name in READOUT_REPLACES}
+    rc.readout_matmul_stats = rc.matmul_stats_reference
+    rc.readout_loss = rc.loss_reference
+    rc.readout_bwd_stats = rc.bwd_stats_reference
+    rc.readout_bwd_dy = rc.bwd_dy_reference
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(rc, name, fn)
+
+
+@contextlib.contextmanager
+def capturing_sigma_grads(vt, sink: dict):
+    """Record the inv_sigma gradients a step hands to the rank-1 update."""
+    real = vt.add_sigma_rank1_grads
+
+    def capture(grads, g_inv, factors):
+        sink.update({k: v.clone() for k, v in g_inv.items() if v is not None})
+        return real(grads, g_inv, factors)
+
+    vt.add_sigma_rank1_grads = capture
+    try:
+        yield
+    finally:
+        vt.add_sigma_rank1_grads = real
+
+
+def compare_routes(trainer, state, batch, beta, rc, vt, label, loss_tol, grad_tol):
+    """One loss-and-grads three ways from the same state, batch and noise: the
+    fused route through its kernels, through its plain versions, and the
+    unfused route. The readout's inv_sigma gradient is compared too."""
+    readout = "decoder.recon.kernel"
+    out = {}
+    for route in ("fused kernels", "fused plain", "unfused"):
+        gen = torch.Generator("cuda").manual_seed(7)
+        trainer.fused_readout = route != "unfused"
+        sink = {}
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(capturing_sigma_grads(vt, sink))
+            if route == "fused plain":
+                stack.enter_context(plain_readout(rc))
+            metrics, _, grads = trainer.loss_and_grads(state, batch, beta, generator=gen)
+        grads = {k: g.clone() for k, g in grads.items()}
+        grads[f"inv_sigma.grad of {readout}"] = sink[readout]
+        out[route] = (float(metrics["loss"]), grads)
+    trainer.fused_readout = True
+    lk, gk = out["fused kernels"]
+    result = {"loss_fused_kernels": lk}
+    for other in ("fused plain", "unfused"):
+        lo, go = out[other]
+        loss_rel = abs(lk - lo) / abs(lo)
+        rels = {k: _grad_rel(gk[k], go[k]) for k in gk}
+        worst = max(rels, key=rels.get)
+        ok = loss_rel <= loss_tol and (grad_tol is None or rels[worst] <= grad_tol)
+        print(f"fused: kernels vs {other} step, {label}: loss {lk:.6g} vs {lo:.6g} (rel "
+              f"{loss_rel:.3g}), worst gradient rel-L2 {rels[worst]:.3g} ({worst}), "
+              f"inv_sigma.grad rel {rels[f'inv_sigma.grad of {readout}']:.3g} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"fused kernels and the {other} route disagree ({label})")
+        result[other.replace(" ", "_")] = dict(loss=lo, loss_rel=loss_rel, worst_grad=worst,
+                                               worst_grad_rel_l2=rels[worst])
+    return result
+
+
+def readout_kernel_timings(rc, gg, reps, gen, card) -> dict:
+    """Per fused-readout kernel at the flagship bf16 shape: kernel, plain and
+    library ms and the bound; then the readout segment (h to dy, without the
+    dW and dh products both routes share) fused against unfused."""
+    from simulgen_vae_tpu_torch.losses import make_recon_loss_pair
+
+    b, t, f, c, g = B, T, READOUT_F, READOUT_C, READOUT_G
+    k = _readout_case(b, t, f, c, torch.bfloat16, gen)
+    elems, n_elem, mb = b * t * c, float(b * t * c), b * t * c * 2
+    chain = (k["x"], k["scale"], k["nb"])
+    gvec = torch.tensor([1.0, 0.3, 0.8], device="cuda")
+    y, stats = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
+    msums = rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g)[0]
+    b16 = k["bias"].to(torch.bfloat16)
+    few = max(reps // 4, 2)
+    rows = {}
+
+    def row(name, ms, plain_ms, library_ms, library_call, nbytes, ops, ops_per_s):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
+        rows[name] = dict(
+            shape=f"h [{b}, {t}, {f}], W [{c}, {f}], maps [{b}, {t}, {c}] bf16, G={g}",
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, library_call=library_call,
+            bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+        lib = "none" if library_ms is None else f"{library_ms:.4f}"
+        print(f"timing: [{card}] fused readout {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"library {lib}, bound {rows[name]['bound_ms']:.4f} by {rows[name]['bound_by']})")
+
+    def library_matmul_stats():
+        yl = F.linear(k["h"], k["w"], b16)
+        return torch.var_mean(yl.view(b, t, g, c // g), dim=(1, 3))
+
+    row("readout_matmul_stats",
+        cuda_ms(lambda: rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g), reps),
+        cuda_ms(lambda: rc.matmul_stats_reference(k["h"], k["w"], k["bias"], k["inv"], g), few),
+        cuda_ms(library_matmul_stats, reps), "F.linear + torch.var_mean",
+        (b * t * f + c * f) * 2 + mb + 4 * c + 8 * b * g, 2 * b * t * f * c, BF16_OPS_PER_S)
+    none = "none: no single PyTorch call computes it (see the segment times)"
+    row("readout_loss", cuda_ms(lambda: rc.readout_loss(y, *chain, stats, g), reps),
+        cuda_ms(lambda: rc.loss_reference(y, *chain, stats, g), few), None, none,
+        2 * mb + 8 * c + 8 * b * g, elems * (NORM_OPS + ACT_OPS["tanh"] + LOSS_OPS),
+        F32_OPS_PER_S)
+    row("readout_bwd_stats",
+        cuda_ms(lambda: rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g), reps),
+        cuda_ms(lambda: rc.bwd_stats_reference(y, *chain, stats, gvec, n_elem, g), few),
+        None, none, 2 * mb + 8 * c + 8 * b * c + 16 * b * g,
+        elems * (NORM_OPS + ACT_OPS["tanh"] + LOSS_GRAD_OPS + 4), F32_OPS_PER_S)
+    row("readout_bwd_dy",
+        cuda_ms(lambda: rc.readout_bwd_dy(y, *chain, k["bias"], stats, msums, gvec, n_elem, g),
+                reps),
+        cuda_ms(lambda: rc.bwd_dy_reference(y, *chain, k["bias"], stats, msums, gvec, n_elem,
+                                            g), few),
+        None, none, 3 * mb + 12 * c + 4 * b * c + 16 * b * g,
+        elems * (NORM_OPS + ACT_OPS["tanh"] + LOSS_GRAD_OPS + BWD_DX_OPS + 4), F32_OPS_PER_S)
+
+    pair = make_recon_loss_pair("MSE")
+
+    def unfused_segment():
+        yl = F.linear(k["h"], k["w"], b16).requires_grad_()
+        o = gg.group_norm_act(yl, k["scale"], k["nb"], g, act="tanh")
+        loss, mse = pair(o, k["x"])
+        (loss + 0.3 * mse).backward()
+        return yl.grad
+
+    def fused_segment():
+        y_, st = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
+        rc.readout_loss(y_, *chain, st, g)
+        ms_ = rc.readout_bwd_stats(y_, *chain, st, gvec, n_elem, g)[0]
+        return rc.readout_bwd_dy(y_, *chain, k["bias"], st, ms_, gvec, n_elem, g)[0]
+
+    seg = dict(unfused_ms=cuda_ms(unfused_segment, few), fused_ms=cuda_ms(fused_segment, few),
+               fused_ms_again=cuda_ms(fused_segment, few),
+               unfused_ms_again=cuda_ms(unfused_segment, few))
+    print(f"timing: [{card}] readout segment h -> dy (product, GroupNorm + tanh, loss pair and "
+          f"their backward; dW and dh excluded): unfused (F.linear, gn_stats, gn_apply, loss "
+          f"pair, gn_bwd_stats, gn_bwd_apply) {seg['unfused_ms']:.3f} / "
+          f"{seg['unfused_ms_again']:.3f} ms, fused (four kernels) {seg['fused_ms']:.3f} / "
+          f"{seg['fused_ms_again']:.3f} ms")
+    return rows, seg
+
+
+def profile_step(trainer, state, data, step_p50, name, label):
+    """torch.profiler over one train step: device busy time, idle share
+    against the step's p50, and the table of device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = trainer.train_epoch(state, data, max_steps=1)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    table = events.table(sort_by="self_device_time_total", row_limit=40)
+    (OUT_DIR / name).write_text(table)
+    print(f"profile: {label} device busy {busy_ms:.3f} ms against the {step_p50:.3f} ms p50 "
+          f"(idle share {1 - busy_ms / step_p50:.3f}); device time by kernel in "
+          f"chiprun_out/{name}")
+    print("\n".join(table.splitlines()[:24]))
+    return state, busy_ms
+
+
+def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
+    """Phase 6: the fused-readout train path. Returns (per-kernel dicts, result dict)."""
+    from simulgen_vae_tpu_torch.train import vae_trainer as vt
+
+    cfg, data, data32 = ctx["cfg"], ctx["data"], ctx["data32"]
+    errs = check_readout_kernels(rc, gen)
+
+    trainer = vt.VAETrainer(cfg, device="cuda", seed=args.seed, fused_readout=True)
+    state = trainer.init_state(args.seed)
+    for _ in range(2):  # warm-up
+        state, m = trainer.train_epoch(state, data, max_steps=1)
+    torch.cuda.synchronize()
+
+    # the main path: one epoch through train_epoch, counters from 0
+    for mod in (gg, ga, rc):
+        mod.reset_launch_counts()
+    calls = []
+    t0 = time.perf_counter()
+    with recording_calls(blocks, calls):
+        state, m = trainer.train_epoch(state, data)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    steps = -(-TRAIN_SAMPLES // B)
+    launches = {**gg.LAUNCHES, **ga.LAUNCHES, **rc.LAUNCHES}
+    metrics = {key: float(m[key]) for key in ("loss", "recon", "kl", "recon_mse", "grad_norm")}
+    if not all(np.isfinite(list(metrics.values()))):
+        raise AssertionError(f"non-finite fused train metrics: {metrics}")
+    if not all(launches[name] == steps for name in (*READOUT_REPLACES, "gather_augment")):
+        raise AssertionError(f"fused path: not one launch per step in {steps} steps: {launches}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"a kernel did not run on the fused train path: {launches}")
+    widths = sorted({c for c, _, _ in calls})
+    if READOUT_C in widths:
+        raise AssertionError(f"a GroupNorm kernel ran at C = {READOUT_C} on the fused path")
+    print(f"fused: 1 epoch = {steps} steps in {run_s:.3f} s; {metrics}; launches {launches}; "
+          f"{len(calls) // steps} GroupNorms per step at C = {widths} (none at {READOUT_C})")
+
+    # fused against unfused step time, in turns on this card
+    def timed(tr, st, n):
+        lat = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            st, _ = tr.train_epoch(st, data, max_steps=1)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t1) * 1e3)
+        return st, lat
+
+    half = STEP_TIMING // 2
+    ustate, u1 = timed(ctx["trainer"], ctx["state"], half)
+    state, f1 = timed(trainer, state, half)
+    state, f2 = timed(trainer, state, half)
+    ustate, u2 = timed(ctx["trainer"], ustate, half)
+    fused_lat, unfused_lat = np.asarray(f1 + f2), np.asarray(u1 + u2)
+    fused_p50, unfused_p50 = (float(np.percentile(v, 50)) for v in (fused_lat, unfused_lat))
+    print(f"timing: [{card}] train step (batch {B}, bf16), {half} unfused, {2 * half} fused, "
+          f"{half} unfused: fused p50 {fused_p50:.3f} ms (min/max {fused_lat.min():.3f}/"
+          f"{fused_lat.max():.3f}; {B / fused_p50 * 1e3:.1f} samples/s), unfused p50 "
+          f"{unfused_p50:.3f} ms (min/max {unfused_lat.min():.3f}/{unfused_lat.max():.3f}; "
+          f"{B / unfused_p50 * 1e3:.1f} samples/s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+
+    # one step three ways from one state, batch and noise
+    beta = 0.5
+    zero, ones = torch.zeros(B, device="cuda"), torch.ones(B, device="cuda")
+    rows = torch.arange(B, device="cuda", dtype=torch.int32)
+    lam = torch.linspace(0.3, 1.0, B, device="cuda")
+    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    checks = {"bfloat16": compare_routes(trainer, state, batch, beta, rc, vt, "bf16",
+                                         1e-2, None)}
+    del batch
+    trainer32 = vt.VAETrainer(dataclasses.replace(cfg, dtype="float32"), device="cuda",
+                              seed=args.seed, fused_readout=True)
+    model32 = trainer32.build_model()
+    model32.load_state_dict(state.model.state_dict())
+    state32 = dataclasses.replace(state, model=model32, opt_state=None)
+    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    checks["float32"] = compare_routes(trainer32, state32, batch32, beta, rc, vt,
+                                       "f32, TF32 off", 1e-4, 1e-3)
+    del trainer32, model32, state32, batch32
+    torch.cuda.empty_cache()
+
+    per_kernel, segment = readout_kernel_timings(rc, gg, args.reps, gen, card)
+
+    busy_ms = None
+    if args.profile:
+        state, busy_ms = profile_step(trainer, state, data, fused_p50,
+                                      "chip_smoke_train_fused_profile.txt", "fused train step")
+
+    kernels = [dict(
+        name=name, route="cuda", source=f"simulgen_vae_tpu_torch/ops/csrc/{name}.cu",
+        replaces=READOUT_REPLACES[name], launches=launches[name],
+        launches_per_step=launches[name] / steps, max_abs_err=errs[name]["bfloat16"],
+        max_abs_err_f32=errs[name]["float32"], card=card, **per_kernel[name],
+        unfused_segment_ms=segment["unfused_ms"], fused_segment_ms=segment["fused_ms"])
+        for name in READOUT_REPLACES]
+    result = dict(step_p50_ms=fused_p50, step_ms=fused_lat.tolist(),
+                  samples_per_s=B / fused_p50 * 1e3, unfused_step_p50_ms=unfused_p50,
+                  unfused_step_ms=unfused_lat.tolist(), steps=steps, metrics=metrics,
+                  launches=launches, groupnorm_widths=widths, step_checks=checks,
+                  segment=segment, device_busy_ms=busy_ms,
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     return kernels, result
 
 
@@ -587,6 +961,7 @@ def main(argv=None) -> int:
     from simulgen_vae_tpu_torch.ops import _build
     from simulgen_vae_tpu_torch.ops import gather_augment as ga
     from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
+    from simulgen_vae_tpu_torch.ops import readout_chain as rc
 
     t_start = time.perf_counter()
     card = card_line()
@@ -737,14 +1112,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 5. the train step
-    train_kernels, train = phase_train(args, card, blocks, gg, ga, gen)
+    train_kernels, train, ctx = phase_train(args, card, blocks, gg, ga, gen)
     for k in kernels:  # the forward kernels run in the train step too
         k["launches_train"] = train["launches"][k["name"]]
     kernels += train_kernels
+
+    # 6. the fused-readout train path
+    fused_kernels, fused = phase_fused(args, card, blocks, gg, ga, rc, gen, ctx)
+    for k in kernels:
+        k["launches_fused_train"] = fused["launches"][k["name"]]
+    kernels += fused_kernels
     result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
                   serve_checks=checks, launches=launches, kernels=kernels, train=train,
+                  fused_train=fused,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

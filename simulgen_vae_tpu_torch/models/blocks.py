@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from simulgen_vae_tpu_torch.ops.groupnorm_gelu import group_norm_act
+from simulgen_vae_tpu_torch.ops.readout_chain import readout_chain_loss
 
 
 def group_count(channels: int) -> int:
@@ -223,6 +224,13 @@ class FusedPointwiseNormTanh(nn.Module):
     With spectral norm and ``F <= nodes`` the input is scaled by inv_sigma
     (in f32, then rounded), as the JAX module does, so sigma's backward runs
     on the narrow ``[B, T, F]`` side.
+
+    With ``x_target`` the fused train path runs instead
+    (``ops.readout_chain.readout_chain_loss``): the product with the GroupNorm
+    statistics in its epilogue, then normalize + tanh + loss in one read, and
+    ``(recon_loss, recon_mse)`` means come back in place of ``x_hat``, which
+    is never written. There inv_sigma scales the product's f32 output (no
+    input-side scaling) and the f32 bias is added before the one rounding.
     """
 
     def __init__(self, in_features: int, num_node: int, eps: float = 1e-5,
@@ -237,8 +245,16 @@ class FusedPointwiseNormTanh(nn.Module):
         self.scale = _param((num_node,), device, torch.float32, 1.0)
         self.norm_bias = _param((num_node,), device, torch.float32, 0.0)
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, x_target: torch.Tensor | None = None,
+                lossfun: str = "MSE"):
         cd = self.compute_dtype
+        if x_target is not None:
+            inv = self.inv_sigma
+            if inv is None:
+                inv = torch.ones((), device=h.device, dtype=torch.float32)
+            return readout_chain_loss(h.to(cd), self.kernel, self.bias,
+                                      self.scale, self.norm_bias, x_target, inv,
+                                      self.num_groups, self.eps, lossfun)
         w, b, inv = self.kernel.to(cd), self.bias.to(cd), self.inv_sigma
         h = h.to(cd)
         if inv is not None and w.shape[1] <= w.shape[0]:

@@ -111,8 +111,11 @@ class Decoder(nn.Module):
                 xs: Optional[Sequence[torch.Tensor]] = None,
                 mode: str = "random",
                 frozen_zs: Optional[Sequence[torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None):
-        """Returns ``(x_hat [B, T, nodes], kl_losses, zs)``."""
+                generator: Optional[torch.Generator] = None,
+                x_target: Optional[torch.Tensor] = None, lossfun: str = "MSE"):
+        """Returns ``(x_hat [B, T, nodes], kl_losses, zs)``; with ``x_target``
+        the fused train-path readout returns ``(recon_loss, recon_mse)`` in
+        place of ``x_hat``."""
         kl_losses, zs = [], []
         decoder_out = None
         for i in range(self.n_levels):
@@ -140,4 +143,5 @@ class Decoder(nn.Module):
                 z = reparameterize(mu, std, generator)
             zs.append(z)
 
-        return self.recon(decoder_out), kl_losses, zs
+        out = self.recon(decoder_out, x_target=x_target, lossfun=lossfun)
+        return out, kl_losses, zs

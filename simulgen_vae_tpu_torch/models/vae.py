@@ -36,14 +36,22 @@ class VAE(nn.Module):
         self.decoder = Decoder(latent_dim, hierarchical_dim, num_filter_dec,
                                num_node, num_time, small, device, dtype)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                fused_readout_loss: bool = False):
         """``(x_hat, recon_loss, [kl_main, kl_hier...], recon_loss_mse)`` for
-        ``x`` [B, T, nodes]; losses are f32 scalars."""
+        ``x`` [B, T, nodes]; losses are f32 scalars. ``fused_readout_loss``
+        (train path) takes the losses from the fused readout kernels: ``x_hat``
+        is never written and comes back as None."""
         mu, log_var, xs = self.encode(x)
         log_var = log_var.clamp(-30.0, 30.0)
         z = reparameterize(mu, torch.exp(0.5 * log_var), generator)
-        x_hat, kl_losses, _ = self.decoder(z, xs, generator=generator)
-        recon_loss, recon_loss_mse = make_recon_loss_pair(self.lossfun)(x_hat, x)
+        if fused_readout_loss:
+            (recon_loss, recon_loss_mse), kl_losses, _ = self.decoder(
+                z, xs, generator=generator, x_target=x, lossfun=self.lossfun)
+            x_hat = None
+        else:
+            x_hat, kl_losses, _ = self.decoder(z, xs, generator=generator)
+            recon_loss, recon_loss_mse = make_recon_loss_pair(self.lossfun)(x_hat, x)
         kl_loss = kl(mu.float(), log_var.float())
         return x_hat, recon_loss, [kl_loss] + list(kl_losses), recon_loss_mse
 

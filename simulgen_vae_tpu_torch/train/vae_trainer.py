@@ -20,6 +20,12 @@ State is updated in place: the model's f32 master parameters, the AdamW
 moments and the power-iteration vectors are overwritten by each step
 (PyTorch has no donation; overwriting saves a copy of each).
 
+``fused_readout=True`` (opt-in, as in the JAX trainer) takes the
+reconstruction losses from the fused readout kernels
+(``ops.readout_chain``): the readout map is written once and read once in the
+forward and ``x_hat`` is never written; the readout's ``inv_sigma`` gradient
+comes back from the op and feeds the rank-1 term as every other layer's does.
+
 Not ported yet: checkpointing, preemption, the NaN-rollback guard, streaming
 from the host, the device mesh, multi-epoch dispatch, the bf16 optimizer
 moments with stochastic rounding and the per-epoch spectral-norm cadence.
@@ -64,7 +70,7 @@ class VAETrainState:
 
 class VAETrainer:
     def __init__(self, cfg: VAEConfig, aug: AugmentationConfig = AugmentationConfig(),
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, fused_readout: Optional[bool] = None):
         if cfg.remat:
             raise NotImplementedError("remat (gradient checkpointing) is not ported")
         resolve_perf_stack(cfg)  # raises for the TPU-only stack
@@ -72,6 +78,7 @@ class VAETrainer:
         self.device = resolve_device(device)
         self.dtype = _DTYPES[cfg.dtype]
         self.use_sn = cfg.use_spectral_norm
+        self.fused_readout = bool(fused_readout)  # None: off
         self.opt = FusedAdamW(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01)
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(self.device).manual_seed(seed)
@@ -106,7 +113,8 @@ class VAETrainer:
     def loss_fn(self, model: VAE, batch: torch.Tensor, beta: float,
                 generator: Optional[torch.Generator] = None):
         """``(loss, metrics)``: loss = alpha * recon + beta * sum(KL terms)."""
-        _, recon, kls, recon_mse = model(batch, generator or self.generator)
+        _, recon, kls, recon_mse = model(batch, generator or self.generator,
+                                         fused_readout_loss=self.fused_readout)
         kl_sum = sum(kls)
         alpha = self.cfg.alpha
         loss = alpha * recon + beta * kl_sum
