@@ -50,12 +50,40 @@ Phases, each printing its own lines; any failure exits non-zero:
              gradient and the readout's inv_sigma gradient within rel-L2 1e-3;
              bf16: loss within 1e-2); then per-kernel times beside their
              bounds, the readout segment fused against unfused, and the fused
-             against the unfused step p50, timed in turns.
+             against the unfused step p50, timed in turns;
+7. stack   : the benched train stack. readout_bwd_fused (the backward that
+             never writes dy) against its plain version in bf16 and f32 at the
+             flagship readout shape, three shapes with F = 128 and two ragged
+             ones (dW, dh rel-L2 1e-5 f32 / 1e-2 bf16; d bias 1e-4 / 1e-3;
+             d inv_sigma 2e-3; two runs the same bits), and fused_adamw against
+             the plain AdamW on leaves that include [95008, 1024], a conv
+             weight, an odd vector and a scalar, for f32, round-to-nearest
+             bf16 and stochastically rounded bf16 moments (parameters rel-L2
+             1e-6, moments the same bits, gradient norm rtol 1e-6); phase 5's
+             configuration, data and seed with opt_state_dtype="bfloat16",
+             sn_cadence="epoch", VAETrainer(fused_readout=True,
+             readout_bwd="fused") trained for one epoch (4 steps): finite
+             metrics, one launch per step of each readout kernel on that route
+             and of gather_augment, none of readout_bwd_dy, the counted
+             fused_adamw sweeps, one power iteration in the epoch; fit for 3
+             epochs of 2 steps with a CheckpointManager, a restore into a new
+             trainer and one more epoch, bit-equal to an uninterrupted run; one
+             streamed epoch of 4 steps from pinned host memory; one step from
+             one state, batch and noise with the dy-free backward through its
+             kernel, through its plain version and with the materializing
+             backward (tolerances of phase 6), and the kernel AdamW against the
+             plain one (parameters rel-L2 1e-6); then times in turns: the
+             backward segment dy-free against materializing at every shape
+             (the table behind ops.readout_chain.bwd_flavor), fused_adamw over
+             the model's 403.5M parameters in its three modes beside the plain
+             sweeps, torch's fused AdamW and the byte bounds, and the step p50
+             of four stacks.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
-device time by kernel for three decodes, one train step and one fused train
-step (written under chiprun_out/). Without a CUDA device, or without the package beside it, the
+device time by kernel for three decodes, one train step, one fused train step
+and two steps of the benched stack with either backward (written under
+chiprun_out/). Without a CUDA device, or without the package beside it, the
 script fails.
 """
 
@@ -97,6 +125,11 @@ READOUT_REPLACES = {
     "readout_bwd_stats": "simulgen_vae_tpu/ops/readout_chain.py:206",
     "readout_bwd_dy": "simulgen_vae_tpu/ops/readout_chain.py:309",
 }
+STACK_REPLACES = {
+    "readout_bwd_fused": "simulgen_vae_tpu/ops/readout_chain.py:229",
+    # no Pallas kernel: XLA's one-sweep fusion of FusedAdamW.apply
+    "fused_adamw": "simulgen_vae_tpu/train/optim.py:127",
+}
 # Operations per element, counting erff / tanhf / expf / logf / sincospif as
 # one each.
 NORM_OPS, ACT_OPS, STATS_OPS = 4, {"gelu": 5, "tanh": 1, "none": 0}, 3
@@ -104,7 +137,7 @@ ACT_GRAD_OPS = {"gelu": 9, "tanh": 3, "none": 0}
 BWD_SUM_OPS, BWD_DX_OPS = 8, 4       # four column sums; dx from dxn, m1, m2, inv
 MIX_OPS, NOISE_OPS = 5, 33           # amp + mixup; Philox (25) + Box-Muller (8)
 LOSS_OPS, LOSS_GRAD_OPS = 5, 8       # loss and squared error; dl/do, (1 - o^2), da
-TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 2, 10
+TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 1, 10
 READOUT_F, READOUT_C, READOUT_G = 1024, 95008, 8
 
 
@@ -671,12 +704,13 @@ def check_readout_kernels(rc, gen) -> dict:
 
 @contextlib.contextmanager
 def plain_readout(rc):
-    """Route the fused readout's four kernels through their plain versions, on the card."""
-    real = {name: getattr(rc, name) for name in READOUT_REPLACES}
+    """Route the fused readout's kernels through their plain versions, on the card."""
+    real = {name: getattr(rc, name) for name in (*READOUT_REPLACES, "readout_bwd_fused")}
     rc.readout_matmul_stats = rc.matmul_stats_reference
     rc.readout_loss = rc.loss_reference
     rc.readout_bwd_stats = rc.bwd_stats_reference
     rc.readout_bwd_dy = rc.bwd_dy_reference
+    rc.readout_bwd_fused = rc.bwd_fused_reference
     try:
         yield
     finally:
@@ -818,25 +852,33 @@ def readout_kernel_timings(rc, gg, reps, gen, card) -> dict:
     return rows, seg
 
 
-def profile_step(trainer, state, data, step_p50, name, label):
-    """torch.profiler over one train step: device busy time, idle share
-    against the step's p50, and the table of device time by kernel."""
+def profile_step(trainer, state, data, step_p50, name, label, steps=1, count_mm=None):
+    """torch.profiler over an epoch of ``steps`` train steps: device busy time
+    per step, idle share against the step's p50, and the table of device time
+    by kernel. With ``count_mm`` the third value returned is the number of
+    library matrix products with a dimension of that size (else None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = trainer.train_epoch(state, data, max_steps=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=count_mm is not None) as prof:
+        state, _ = trainer.train_epoch(state, data, max_steps=steps)
         torch.cuda.synchronize()
     events = prof.key_averages()
     busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA) / 1e3
+                  if e.device_type == DeviceType.CUDA) / 1e3 / steps
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     (OUT_DIR / name).write_text(table)
-    print(f"profile: {label} device busy {busy_ms:.3f} ms against the {step_p50:.3f} ms p50 "
-          f"(idle share {1 - busy_ms / step_p50:.3f}); device time by kernel in "
-          f"chiprun_out/{name}")
+    print(f"profile: {label} device busy {busy_ms:.3f} ms per step over {steps} against the "
+          f"{step_p50:.3f} ms p50 (idle share {1 - busy_ms / step_p50:.3f}); device time by "
+          f"kernel in chiprun_out/{name}")
     print("\n".join(table.splitlines()[:24]))
-    return state, busy_ms
+    if count_mm is None:
+        return state, busy_ms
+    wide = sum(e.count for e in prof.key_averages(group_by_input_shape=True)
+               if e.key in ("aten::mm", "aten::addmm", "aten::bmm")
+               and any(count_mm in shape for shape in e.input_shapes))
+    return state, busy_ms, wide
 
 
 def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
@@ -868,8 +910,10 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
         raise AssertionError(f"non-finite fused train metrics: {metrics}")
     if not all(launches[name] == steps for name in (*READOUT_REPLACES, "gather_augment")):
         raise AssertionError(f"fused path: not one launch per step in {steps} steps: {launches}")
-    if not all(n > 0 for n in launches.values()):
+    if not all(n > 0 for name, n in launches.items() if name != "readout_bwd_fused"):
         raise AssertionError(f"a kernel did not run on the fused train path: {launches}")
+    if launches["readout_bwd_fused"]:
+        raise AssertionError("bwd='auto' took the dy-free backward at the flagship shape")
     widths = sorted({c for c, _, _ in calls})
     if READOUT_C in widths:
         raise AssertionError(f"a GroupNorm kernel ran at C = {READOUT_C} on the fused path")
@@ -940,6 +984,504 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
                   launches=launches, groupnorm_widths=widths, step_checks=checks,
                   segment=segment, device_busy_ms=busy_ms,
                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return kernels, result
+
+
+# -- 7. the benched train stack -------------------------------------------------
+
+# (B, T, F, C, G, loss): the flagship readout, the three shapes with F = 128 that
+# the JAX rule's neighbourhood covers, and two ragged ones (C = 300 and 1100 put
+# bf16 rows off 16-byte boundaries; 74 and 150 rows are no multiple of a tile).
+BWD_FUSED_SHAPES = [(2, 37, 64, 300, 6, "Huber"), (3, 50, 64, 1100, 4, "MAE"),
+                    (4, T, 128, 5120, 8, "MSE"), (B, T, 128, 5120, 8, "MSE"),
+                    (B, T, 128, READOUT_C, 8, "MSE"),
+                    (B, T, READOUT_F, READOUT_C, READOUT_G, "MSE")]
+ADAMW_MODES = {"float32": dict(), "bfloat16_rtn": dict(moment_dtype="bfloat16"),
+               "bfloat16": dict(moment_dtype="bfloat16", stochastic_round=True)}
+ADAMW_OPS = 16   # per element: two moment updates, bias corrections, root, quotient, decay
+
+
+def _bwd_inputs(rc, k, g, lossfun, gvec):
+    """y, stats and msums of a readout case, through the forward kernels."""
+    b, t, c = k["x"].shape
+    y, stats = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
+    msums = rc.readout_bwd_stats(y, k["x"], k["scale"], k["nb"], stats, gvec, float(b * t * c),
+                                 g, lossfun)[0]
+    return y, stats, msums
+
+
+def check_bwd_fused(rc, gen, reps, card):
+    """#11 against its plain version in f32 (TF32 off) and bf16 at every shape,
+    two runs bit for bit, and (bf16) the backward segment with it against the
+    materializing one, timed in turns. Returns (max abs errors, segment rows)."""
+    errs, segments = {"float32": 0.0, "bfloat16": 0.0}, []
+    gvec = torch.tensor([1.7, 0.3, 0.8], device="cuda")   # (gl, gm, inv_sigma)
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        prod_tol, sum_tol = (1e-5, 1e-4) if dtype == torch.float32 else (1e-2, 1e-3)
+        for b, t, f, c, g, lossfun in BWD_FUSED_SHAPES:
+            k = _readout_case(b, t, f, c, dtype, gen)
+            n_elem = float(b * t * c)
+            y, stats, msums = _bwd_inputs(rc, k, g, lossfun, gvec)
+            args = (y, k["x"], k["scale"], k["nb"], k["bias"], k["h"], k["w"], stats, msums,
+                    gvec, n_elem, g, lossfun)
+            got = rc.readout_bwd_fused(*args)
+            again = rc.readout_bwd_fused(*args)
+            want = rc.bwd_fused_reference(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+                raise AssertionError(f"readout_bwd_fused C={c} {dname}: two runs differ")
+            rels = [_assert_rel(f"readout_bwd_fused C={c} F={f} {dname} {part}", a, w0, tol)
+                    for part, a, w0, tol in zip(("dW", "dh", "dbias", "dinv_sigma"), got, want,
+                                                (prod_tol, prod_tol, sum_tol, 2e-3))]
+            errs[dname] = max(errs[dname], _err(got[0], want[0]), _err(got[1], want[1]))
+            line = (f"stack kernels: readout_bwd_fused {dname} B={b} T={t} F={f} C={c} G={g} "
+                    f"{lossfun}: rel-L2 dW, dh, dbias, dinv = "
+                    + ", ".join(f"{r:.2g}" for r in rels) + "; two runs equal")
+            if dtype == torch.bfloat16:
+                chain = (k["x"], k["scale"], k["nb"])
+
+                def fused_segment():
+                    ms_ = rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
+                    return rc.readout_bwd_fused(y, *chain, k["bias"], k["h"], k["w"], stats,
+                                                ms_, gvec, n_elem, g, lossfun)
+
+                def materializing_segment():
+                    ms_ = rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
+                    dy = rc.readout_bwd_dy(y, *chain, k["bias"], stats, ms_, gvec, n_elem, g,
+                                           lossfun)[0].reshape(b * t, c)
+                    return (torch.matmul(dy.t(), k["h"].reshape(b * t, f)),
+                            torch.matmul(dy, k["w"]))
+
+                few = max(reps // 4, 3)
+                row = dict(B=b, T=t, F=f, C=c, G=g,
+                           materialize_ms=cuda_ms(materializing_segment, few),
+                           fused_ms=cuda_ms(fused_segment, few),
+                           kernel_ms=cuda_ms(lambda: rc.readout_bwd_fused(*args), few),
+                           fused_ms_again=cuda_ms(fused_segment, few),
+                           materialize_ms_again=cuda_ms(materializing_segment, few),
+                           rule=rc.bwd_flavor(b, t, f, c))
+                row["measured"] = ("fused" if row["fused_ms"] + row["fused_ms_again"]
+                                   <= row["materialize_ms"] + row["materialize_ms_again"]
+                                   else "materialize")
+                segments.append(row)
+                line += (f"; [{card}] backward segment dy-free {row['fused_ms']:.3f} / "
+                         f"{row['fused_ms_again']:.3f} ms (kernel alone {row['kernel_ms']:.3f}) "
+                         f"against materializing {row['materialize_ms']:.3f} / "
+                         f"{row['materialize_ms_again']:.3f} ms -> {row['measured']} "
+                         f"(bwd_flavor: {row['rule']})")
+            print(line)
+            del k, y, got, again, want, args
+            torch.cuda.empty_cache()
+    return errs, segments
+
+
+def _adamw_case(opt, shapes, gen):
+    params = {f"p{i}": 0.1 * torch.randn(s, generator=gen, device="cuda")
+              for i, s in enumerate(shapes)}
+    state = opt.init(params)
+    for name in params:
+        state["mu"][name].copy_(0.01 * torch.randn(params[name].shape, generator=gen,
+                                                   device="cuda"))
+        state["nu"][name].copy_(1e-4 * torch.randn(params[name].shape, generator=gen,
+                                                   device="cuda") ** 2)
+    state["count"] = 3
+    grads = {name: 0.05 * torch.randn(p.shape, generator=gen, device="cuda")
+             for name, p in params.items()}
+    return params, state, grads
+
+
+def _clone_adamw(params, state):
+    return ({k: v.clone() for k, v in params.items()},
+            {"count": state["count"], "mu": {k: v.clone() for k, v in state["mu"].items()},
+             "nu": {k: v.clone() for k, v in state["nu"].items()}})
+
+
+def check_fused_adamw(FusedAdamW, gen) -> dict:
+    """The AdamW kernel against the plain sweeps from the same state, three
+    moment modes: parameters rel-L2 1e-6 (a quotient by a scalar may be a
+    product with its inverse in the plain sweeps), moments the same bits (the
+    kernel keeps the plain version's roundings, the dither included), the
+    gradient norm rtol 1e-6. Returns the max abs error of the parameters."""
+    shapes = [(READOUT_C, READOUT_F), (1024, 512, 5), (1001,), (), (READOUT_C,), (7, 3)]
+    errs = {}
+    for mode, kw in ADAMW_MODES.items():
+        opt = FusedAdamW(**kw)
+        params, state, grads = _adamw_case(opt, shapes, gen)
+        p2, s2 = _clone_adamw(params, state)
+        norm = opt.apply(grads, state, params, 1e-3)
+        norm2 = opt.apply_reference(grads, s2, p2, 1e-3)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for name in params:
+            worst = max(worst, _assert_rel(f"fused_adamw {mode} {name} parameters",
+                                           params[name], p2[name], 1e-6))
+            for part in ("mu", "nu"):
+                if not torch.equal(state[part][name], s2[part][name]):
+                    raise AssertionError(f"fused_adamw {mode}: {part}[{name}] "
+                                         f"{tuple(params[name].shape)} differs from the plain "
+                                         f"version's bits ({_err(state[part][name], s2[part][name]):.3g})")
+        rel_norm = abs(float(norm) - float(norm2)) / float(norm2)
+        if rel_norm > 1e-6:
+            raise AssertionError(f"fused_adamw {mode}: gradient norm {float(norm)} vs {float(norm2)}")
+        errs[mode] = max(_err(params[n], p2[n]) for n in params)
+        print(f"stack kernels: fused_adamw {mode}: {len(shapes)} leaves "
+              f"({', '.join(str(tuple(s)) for s in shapes)}): parameters rel-L2 <= {worst:.2g}, "
+              f"moments bit-equal ({state['mu']['p0'].dtype}), gradient norm rel {rel_norm:.2g}")
+        del params, state, grads, p2, s2
+        torch.cuda.empty_cache()
+    return errs
+
+
+def time_fused_adamw(FusedAdamW, fa, model, reps, card) -> dict:
+    """The sweep over the model's parameters in the three moment modes beside
+    the plain sweeps, torch's fused AdamW (f32 moments only) and the byte bound."""
+    names = [k for k, _ in model.named_parameters()]
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    n = sum(p.numel() for p in model.parameters())
+    rows = {}
+    for mode, kw in ADAMW_MODES.items():
+        opt = FusedAdamW(**kw)
+        params = {k: torch.zeros(s, device="cuda") for k, s in zip(names, shapes)}
+        state = opt.init(params)
+        grads = {k: torch.full_like(p, 1e-3) for k, p in params.items()}
+        fa.reset_launch_counts()
+        opt.apply(grads, state, params, 1e-3)
+        launches = fa.LAUNCHES["fused_adamw"]
+        ms = cuda_ms(lambda: opt.apply(grads, state, params, 1e-3), reps)
+        plain = cuda_ms(lambda: opt.apply_reference(grads, state, params, 1e-3), 2, warmup=1)
+        library = None
+        if mode == "float32":
+            leaves = [torch.nn.Parameter(p) for p in params.values()]
+            for leaf, g in zip(leaves, grads.values()):
+                leaf.grad = g
+            lib_opt = torch.optim.AdamW(leaves, lr=1e-3, fused=True)
+            library = cuda_ms(lib_opt.step, reps)
+            del lib_opt, leaves
+        moment_bytes = 4 if mode == "float32" else 2
+        nbytes = n * (4 * 3 + moment_bytes * 4)     # p, g read, p written; m, v read and written
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n * ADAMW_OPS / F32_OPS_PER_S * 1e3
+        rows[mode] = dict(params=n, leaves=len(names), launches_per_step=launches, ms=ms,
+                          plain_ms=plain, library_ms=library,
+                          library_call="torch.optim.AdamW(fused=True).step() (f32 moments only)",
+                          bound_ms=max(t_bytes, t_ops),
+                          bound_by="bytes" if t_bytes >= t_ops else "operations")
+        lib = "none" if library is None else f"{library:.3f}"
+        print(f"timing: [{card}] fused_adamw {mode}: {n / 1e6:.1f}M parameters in {len(names)} "
+              f"leaves, {launches} sweep launches per step: {ms:.3f} ms (plain sweeps "
+              f"{plain:.3f}, torch fused AdamW {lib}, bound {rows[mode]['bound_ms']:.3f} by "
+              f"{rows[mode]['bound_by']})")
+        del params, state, grads
+        torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def counting_power_iterations(vt, sink: list):
+    real = vt.compute_sigmas
+
+    def counted(*a, **k):
+        sink.append(k.get("update", True))
+        return real(*a, **k)
+
+    vt.compute_sigmas = counted
+    try:
+        yield
+    finally:
+        vt.compute_sigmas = real
+
+
+def _states_equal(a, b) -> bool:
+    pairs = list(zip(a.model.parameters(), b.model.parameters()))
+    for part in ("mu", "nu"):
+        pairs += [(v, b.opt_state[part][k]) for k, v in a.opt_state[part].items()]
+    pairs += [(u, b.sn_u[k]) for k, u in a.sn_u.items()]
+    return (a.epoch == b.epoch and a.opt_state["count"] == b.opt_state["count"]
+            and all(torch.equal(x, y) for x, y in pairs))
+
+
+def timed_steps(trainer, state, data, n):
+    """``n`` steps of one epoch, each from its batch assembly to a
+    synchronise after its optimizer update (ms). The per-epoch power iteration,
+    which runs before the first step, is not in any step's time."""
+    lat, mark = [], []
+    real_batch, real_apply = trainer.assemble_batch, trainer._apply
+
+    def batch(*a, **k):
+        torch.cuda.synchronize()
+        mark.append(time.perf_counter())
+        return real_batch(*a, **k)
+
+    def apply(*a, **k):
+        out = real_apply(*a, **k)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - mark[-1]) * 1e3)
+        return out
+
+    trainer.assemble_batch, trainer._apply = batch, apply
+    try:
+        state, _ = trainer.train_epoch(state, data, max_steps=n)
+    finally:
+        trainer.assemble_batch, trainer._apply = real_batch, real_apply
+    return state, lat
+
+
+def compare_backwards(trainer, state, batch, beta, rc, label, loss_tol, grad_tol):
+    """One loss-and-grads from the same state, batch and noise with the dy-free
+    backward through its kernel, through its plain version, and with the
+    materializing backward."""
+    out = {}
+    for route in ("dy-free kernel", "dy-free plain", "materializing"):
+        gen = torch.Generator("cuda").manual_seed(7)
+        trainer.readout_bwd = "materialize" if route == "materializing" else "fused"
+        ctx = plain_readout(rc) if route == "dy-free plain" else contextlib.nullcontext()
+        with ctx:
+            metrics, _, grads = trainer.loss_and_grads(state, batch, beta, generator=gen)
+        out[route] = (float(metrics["loss"]), {k: g.clone() for k, g in grads.items()})
+    trainer.readout_bwd = "fused"
+    lk, gk = out["dy-free kernel"]
+    result = {"loss_dy_free_kernel": lk}
+    for other in ("dy-free plain", "materializing"):
+        lo, go = out[other]
+        loss_rel = abs(lk - lo) / abs(lo)
+        rels = {k: _grad_rel(gk[k], go[k]) for k in gk}
+        worst = max(rels, key=rels.get)
+        ok = loss_rel <= loss_tol and (grad_tol is None or rels[worst] <= grad_tol)
+        print(f"stack: dy-free kernel vs {other} step, {label}: loss {lk:.6g} vs {lo:.6g} (rel "
+              f"{loss_rel:.3g}), worst gradient rel-L2 {rels[worst]:.3g} ({worst}) -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the dy-free kernel and the {other} route disagree ({label})")
+        result[other.replace(" ", "_").replace("-", "_")] = dict(
+            loss=lo, loss_rel=loss_rel, worst_grad=worst, worst_grad_rel_l2=rels[worst])
+    return result, gk
+
+
+def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
+    """Phase 7: the benched train stack. Returns (per-kernel dicts, result dict)."""
+    import tempfile
+
+    from simulgen_vae_tpu_torch.ops import fused_adamw as fa
+    from simulgen_vae_tpu_torch.train import vae_trainer as vt
+    from simulgen_vae_tpu_torch.train.optim import FusedAdamW
+    from simulgen_vae_tpu_torch.utils.checkpoint import CheckpointManager
+
+    # kernels against their plain versions
+    bwd_errs, segments = check_bwd_fused(rc, gen, args.reps, card)
+    adamw_errs = check_fused_adamw(FusedAdamW, gen)
+
+    stack_cfg = dataclasses.replace(cfg, opt_state_dtype="bfloat16", sn_cadence="epoch")
+
+    def trainer_of(config, **kw):
+        return vt.VAETrainer(config, device="cuda", seed=args.seed, fused_readout=True, **kw)
+
+    # the main path: two warm-up steps, then one epoch through train_epoch, counters from 0
+    trainer = trainer_of(stack_cfg, readout_bwd="fused")
+    state = trainer.init_state(args.seed)
+    n_leaves = sum(1 for _ in state.model.parameters())
+    for _ in range(2):
+        state, _ = trainer.train_epoch(state, data, max_steps=1)
+    torch.cuda.synchronize()
+    for mod in (gg, ga, rc, fa):
+        mod.reset_launch_counts()
+    iterations = []
+    t0 = time.perf_counter()
+    with counting_power_iterations(vt, iterations):
+        state, m = trainer.train_epoch(state, data)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    steps = -(-TRAIN_SAMPLES // B)
+    launches = {**gg.LAUNCHES, **ga.LAUNCHES, **rc.LAUNCHES, **fa.LAUNCHES}
+    metrics = {key: float(m[key]) for key in ("loss", "recon", "kl", "recon_mse", "grad_norm")}
+    sweeps = fa.launches_per_step(n_leaves)
+    once = ("readout_matmul_stats", "readout_loss", "readout_bwd_stats", "readout_bwd_fused",
+            "gather_augment")
+    if not all(np.isfinite(list(metrics.values()))):
+        raise AssertionError(f"non-finite metrics on the stack: {metrics}")
+    if not all(launches[name] == steps for name in once) or launches["readout_bwd_dy"]:
+        raise AssertionError(f"stack path: not one launch per step in {steps} steps, or the "
+                             f"materializing backward ran: {launches}")
+    idle = [name for name, n in launches.items() if n == 0 and name != "readout_bwd_dy"]
+    if idle:
+        raise AssertionError(f"kernels that did not run on the stack path: {idle}")
+    if launches["fused_adamw"] != sweeps * steps:
+        raise AssertionError(f"fused_adamw launched {launches['fused_adamw']} times, expected "
+                             f"{sweeps} x {steps}")
+    if iterations != [True]:
+        raise AssertionError(f"power iterations in one epoch: {iterations}")
+    if not all(v.dtype == torch.bfloat16 for v in state.opt_state["mu"].values()):
+        raise AssertionError("the stack's moments are not bf16")
+    print(f"stack: 1 epoch = {steps} steps in {run_s:.3f} s; {metrics}; launches {launches}; "
+          f"{sweeps} AdamW sweeps per step over {n_leaves} leaves; 1 power iteration in the epoch")
+
+    # one step from one state, batch and noise: the backward three ways, AdamW two ways
+    beta = 0.5
+    zero, ones = torch.zeros(B, device="cuda"), torch.ones(B, device="cuda")
+    rows = torch.arange(B, device="cuda", dtype=torch.int32)
+    lam = torch.linspace(0.3, 1.0, B, device="cuda")
+    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    checks = {}
+    checks["bfloat16"], grads = compare_backwards(trainer, state, batch, beta, rc, "bf16",
+                                                  1e-2, None)
+    del batch
+    live = {k: p.data for k, p in state.model.named_parameters()}
+    (p1, s1), (p2, s2) = _clone_adamw(live, state.opt_state), _clone_adamw(live, state.opt_state)
+    trainer.opt.apply(grads, s1, p1, 1e-3)
+    trainer.opt.apply_reference(grads, s2, p2, 1e-3)
+    worst = max(_assert_rel(f"AdamW step {k}", p1[k], p2[k], 1e-6) for k in live)
+    moments_equal = all(torch.equal(s1[part][k], s2[part][k])
+                        for part in ("mu", "nu") for k in live)
+    print(f"stack: kernel AdamW vs plain AdamW after one step from the trained state (bf16 "
+          f"moments, stochastic rounding): parameters rel-L2 <= {worst:.2g}, moments "
+          f"bit-equal: {moments_equal}")
+    if not moments_equal:
+        raise AssertionError("kernel and plain AdamW store different moments")
+    checks["adamw_step"] = dict(params_rel_l2=worst, moments_bit_equal=moments_equal)
+    del grads, p1, s1, p2, s2, live
+    trainer32 = trainer_of(dataclasses.replace(stack_cfg, dtype="float32"), readout_bwd="fused")
+    model32 = trainer32.build_model()
+    model32.load_state_dict(state.model.state_dict())
+    state32 = dataclasses.replace(state, model=model32, opt_state=None)
+    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    checks["float32"], _ = compare_backwards(trainer32, state32, batch32, beta, rc,
+                                             "f32, TF32 off", 1e-4, 1e-3)
+    del trainer32, model32, state32, batch32
+    torch.cuda.empty_cache()
+
+    # fit with a checkpoint, a restore into a new trainer, one more epoch: bit-equal
+    # to the uninterrupted run (32 samples: 2 steps an epoch, no validation split)
+    few = data[:2 * B]
+    fit_kw = dict(seed=args.seed, val_split=0.0, val_every=50)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, save_interval_epochs=50)
+        first = trainer_of(stack_cfg, readout_bwd="fused")
+        part, _ = first.fit(few, epochs=3, ckpt_manager=mgr, **fit_kw)
+        saved_step = mgr.latest_step()
+        del first, part
+        second = trainer_of(stack_cfg, readout_bwd="fused")
+        restored = mgr.restore(second.init_state(args.seed + 1))
+        resumed, hist = second.fit(few, epochs=1, state=restored, **fit_kw)
+    whole, hist_whole = trainer_of(stack_cfg, readout_bwd="fused").fit(few, epochs=4, **fit_kw)
+    torch.cuda.synchronize()
+    resume_ok = _states_equal(resumed, whole) and saved_step == 3
+    print(f"stack: fit 3 epochs + checkpoint (epoch {saved_step}) + restore + 1 epoch against 4 "
+          f"epochs uninterrupted in {time.perf_counter() - t0:.1f} s: epoch {resumed.epoch}, "
+          f"step count {resumed.opt_state['count']}, last loss {hist['loss'][-1]:.6g} vs "
+          f"{hist_whole['loss'][-1]:.6g}, states bit-equal: {resume_ok}")
+    if not resume_ok:
+        raise AssertionError("the restored run differs from the uninterrupted one")
+    del resumed, whole, restored, second, mgr
+    torch.cuda.empty_cache()
+
+    # one streamed epoch from pinned host memory
+    host = data.float().cpu().numpy()
+    marks = []
+    real_step = trainer.train_step
+    trainer.train_step = lambda *a: marks.append(time.perf_counter()) or real_step(*a)
+    state, sm = trainer.train_epoch_streaming(state, host, max_steps=1)   # pins the buffers
+    torch.cuda.synchronize()
+    marks.clear()
+    state, sm = trainer.train_epoch_streaming(state, host)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    trainer.train_step = real_step
+    stream_ms = np.diff(marks) * 1e3
+    stream_p50 = float(np.percentile(stream_ms, 50))
+    if not np.isfinite(float(sm["loss"])) or len(stream_ms) != steps:
+        raise AssertionError(f"streamed epoch: loss {float(sm['loss'])}, {len(stream_ms)} steps")
+    del host
+    print(f"timing: [{card}] streamed epoch ({steps} steps, f32 host rows gathered into pinned "
+          f"buffers, partners from the dataset): step p50 {stream_p50:.1f} ms, min/max "
+          f"{stream_ms.min():.1f}/{stream_ms.max():.1f} ms, loss {float(sm['loss']):.6g}")
+
+    # times: AdamW over the model's parameters, then four stacks' steps in turns
+    adamw_rows = time_fused_adamw(FusedAdamW, fa, state.model, args.reps, card)
+    stacks = {
+        "A: fused readout, kernel AdamW (f32 moments), SN per step": (cfg, {}),
+        "B: A + bf16 moments, stochastic rounding":
+            (dataclasses.replace(cfg, opt_state_dtype="bfloat16"), {}),
+        "C: B + SN per epoch": (stack_cfg, {}),
+        "D: C + dy-free readout backward": (stack_cfg, dict(readout_bwd="fused")),
+    }
+    runs = {}
+    for name, (config, kw) in stacks.items():
+        tr = trainer if name.startswith("D") else trainer_of(config, **kw)
+        st = state if name.startswith("D") else tr.init_state(args.seed)
+        st, _ = timed_steps(tr, st, data, 2)      # warm-up
+        runs[name] = [tr, st, []]
+    # in turns: A B C D with 3 steps each, then D C B A with 2
+    for name, n in [(k, 3) for k in stacks] + [(k, 2) for k in reversed(stacks)]:
+        tr, st, lat = runs[name]
+        runs[name][1], more = timed_steps(tr, st, data, n)
+        lat.extend(more)
+    step_p50 = {}
+    for name, (_, _, lat) in runs.items():
+        step_p50[name] = float(np.percentile(lat, 50))
+        print(f"timing: [{card}] stack {name}: step p50 {step_p50[name]:.3f} ms over {len(lat)} "
+              f"steps (min/max {min(lat):.3f}/{max(lat):.3f}; "
+              f"{B / step_p50[name] * 1e3:.1f} samples/s)")
+    busy, wide_mm = {}, {}
+    if args.profile:
+        for key in ("C", "D"):
+            name = next(n for n in runs if n.startswith(key))
+            tr, st, _ = runs[name]
+            runs[name][1], busy[key], wide_mm[key] = profile_step(
+                tr, st, data, step_p50[name], f"chip_smoke_stack_{key.lower()}_profile.txt",
+                f"stack {key}", steps=2, count_mm=READOUT_C)
+        # the encoder's embedding keeps its products at this width; the readout's dW
+        # and dh, two a step, are library products only with the materializing backward
+        print(f"profile: library matrix products with a dimension of {READOUT_C} in 2 steps: "
+              f"stack C {wide_mm['C']}, stack D {wide_mm['D']}")
+        if wide_mm["C"] - wide_mm["D"] != 4:
+            raise AssertionError("the dy-free backward did not remove the readout's two "
+                                 f"library products per step: {wide_mm}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del runs
+    torch.cuda.empty_cache()
+
+    flagship = next(r for r in segments if r["F"] == READOUT_F and r["C"] == READOUT_C)
+    few_reps = max(args.reps // 4, 3)
+    k = _readout_case(B, T, READOUT_F, READOUT_C, torch.bfloat16, gen)
+    gvec = torch.tensor([1.0, 0.3, 0.8], device="cuda")
+    n_elem = float(B * T * READOUT_C)
+    y, stats, msums = _bwd_inputs(rc, k, READOUT_G, "MSE", gvec)
+    plain_ms = cuda_ms(lambda: rc.bwd_fused_reference(
+        y, k["x"], k["scale"], k["nb"], k["bias"], k["h"], k["w"], stats, msums, gvec, n_elem,
+        READOUT_G), few_reps, warmup=1)
+    del k, y, stats, msums
+    rows_, mb = B * T, B * T * READOUT_C * 2
+    nbytes = (2 * mb + (rows_ + READOUT_C) * READOUT_F * 2      # y, x, h, W read
+              + (rows_ + READOUT_C) * READOUT_F * 4 + 16 * READOUT_C)   # f32 dW, dh written
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 2 * rows_ * READOUT_C * READOUT_F / BF16_OPS_PER_S * 1e3
+    stack_mode = adamw_rows["bfloat16"]
+    kernels = [
+        dict(name="readout_bwd_fused", route="cuda",
+             source="simulgen_vae_tpu_torch/ops/csrc/readout_bwd_fused.cu",
+             replaces=STACK_REPLACES["readout_bwd_fused"], launches=launches["readout_bwd_fused"],
+             launches_per_step=launches["readout_bwd_fused"] / steps,
+             max_abs_err=bwd_errs["bfloat16"], max_abs_err_f32=bwd_errs["float32"],
+             ms=flagship["kernel_ms"], plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+             library_call="none: no single PyTorch call computes it (see the segments)",
+             shape=f"h [{B}, {T}, {READOUT_F}], W [{READOUT_C}, {READOUT_F}], maps "
+                   f"[{B}, {T}, {READOUT_C}] bf16, G={READOUT_G}",
+             card=card, segments=segments),
+        dict(name="fused_adamw", route="cuda",
+             source="simulgen_vae_tpu_torch/ops/csrc/fused_adamw.cu",
+             replaces=STACK_REPLACES["fused_adamw"], launches=launches["fused_adamw"],
+             launches_per_step=launches["fused_adamw"] / steps,
+             max_abs_err=adamw_errs["bfloat16"], max_abs_err_f32=adamw_errs["float32"],
+             ms=stack_mode["ms"], plain_ms=stack_mode["plain_ms"],
+             bound_ms=stack_mode["bound_ms"], bound_by=stack_mode["bound_by"],
+             library_ms=adamw_rows["float32"]["library_ms"],
+             library_call=stack_mode["library_call"], card=card, modes=adamw_rows),
+    ]
+    result = dict(metrics=metrics, launches=launches, steps=steps, adamw_sweeps_per_step=sweeps,
+                  step_checks=checks, segments=segments, adamw=adamw_rows, step_p50_ms=step_p50,
+                  stream_step_p50_ms=stream_p50, stream_step_ms=stream_ms.tolist(),
+                  device_busy_ms=busy, wide_matmuls_in_2_steps=wide_mm, resume_bit_equal=resume_ok, peak_gb=peak_gb)
     return kernels, result
 
 
@@ -1122,11 +1664,20 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_fused_train"] = fused["launches"][k["name"]]
     kernels += fused_kernels
+
+    # 7. the benched train stack
+    cfg_train, data, data32 = ctx["cfg"], ctx["data"], ctx["data32"]
+    ctx.clear()             # the unfused trainer and its state are done
+    torch.cuda.empty_cache()
+    stack_kernels, stack = phase_stack(args, card, gg, ga, rc, gen, cfg_train, data, data32)
+    for k in kernels:
+        k["launches_stack_train"] = stack["launches"][k["name"]]
+    kernels += stack_kernels
     result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
                   serve_checks=checks, launches=launches, kernels=kernels, train=train,
-                  fused_train=fused,
+                  fused_train=fused, stack_train=stack,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(f"total: {time.perf_counter() - t_start:.1f} s")

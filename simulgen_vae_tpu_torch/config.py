@@ -10,8 +10,6 @@ from __future__ import annotations
 import dataclasses
 from typing import List
 
-import torch
-
 
 @dataclasses.dataclass
 class VAEConfig:
@@ -35,10 +33,11 @@ class VAEConfig:
     # Numerics
     dtype: str = "float32"            # compute dtype: float32 | bfloat16
     use_spectral_norm: bool = True
-    remat: bool = False               # gradient checkpointing (not ported)
-    # AdamW moment storage: "auto" | "float32" ("bfloat16" is TPU-only so far)
+    remat: bool = False               # checkpoint each decoder residual block
+    # AdamW moment storage: "auto" | "float32" | "bfloat16" (stochastic
+    # rounding) | "bfloat16_rtn" (round to nearest)
     opt_state_dtype: str = "auto"
-    # Spectral-norm power-iteration refresh: "auto" | "step" ("epoch" not ported)
+    # Spectral-norm power-iteration refresh: "auto" | "step" | "epoch"
     sn_cadence: str = "auto"
 
     @property
@@ -53,22 +52,28 @@ class VAEConfig:
 
 
 def resolve_perf_stack(cfg: VAEConfig) -> dict:
-    """The card's optimizer stack: ``{"moment_dtype", "sn_per_epoch"}``.
+    """The trainer's optimizer stack from the config's knobs:
+    ``{"moment_dtype", "nu_dtype", "stochastic_round", "sn_per_epoch"}``
+    (dtypes as names, "" for f32, as the JAX function returns them).
 
     "auto" resolves to what the JAX package runs off a TPU: f32 AdamW moments
-    and one power iteration every step (torch parity). The TPU stack (bf16
-    moments with stochastic rounding, per-epoch spectral norm) is not ported
-    yet and raises.
+    and one power iteration every step (torch parity). The benched stack is
+    asked for by name: ``opt_state_dtype="bfloat16"`` (bf16 moments with
+    stochastic rounding; ``"bfloat16_rtn"`` rounds to nearest) and
+    ``sn_cadence="epoch"`` (one power iteration per epoch).
     """
     osd = "float32" if cfg.opt_state_dtype == "auto" else cfg.opt_state_dtype
-    if osd != "float32":
-        raise NotImplementedError(f"opt_state_dtype {cfg.opt_state_dtype!r}: only "
-                                  "float32 moments are ported")
+    if osd == "float32":
+        opt = {"moment_dtype": "", "nu_dtype": "", "stochastic_round": False}
+    elif osd in ("bfloat16", "bfloat16_rtn"):
+        opt = {"moment_dtype": "bfloat16", "nu_dtype": "bfloat16",
+               "stochastic_round": osd == "bfloat16"}
+    else:
+        raise ValueError(f"opt_state_dtype: {osd!r}")
     cadence = "step" if cfg.sn_cadence == "auto" else cfg.sn_cadence
-    if cadence != "step":
-        raise NotImplementedError(f"sn_cadence {cfg.sn_cadence!r}: only the per-step "
-                                  "power iteration is ported")
-    return {"moment_dtype": torch.float32, "sn_per_epoch": False}
+    if cadence not in ("step", "epoch"):
+        raise ValueError(f"sn_cadence: {cfg.sn_cadence!r}")
+    return {**opt, "sn_per_epoch": cadence == "epoch"}
 
 
 @dataclasses.dataclass

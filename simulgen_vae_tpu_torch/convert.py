@@ -172,8 +172,10 @@ def sn_u_state(tree) -> State:
 
 
 def adamw_state(opt_state) -> dict:
-    """A JAX ``FusedAdamWState`` (``count``, ``mu``, ``nu``; f32 moments) ->
-    the port's ``{"count", "mu", "nu"}`` keyed by parameter name."""
+    """A JAX ``FusedAdamWState`` (``count``, ``mu``, ``nu``) -> the port's
+    ``{"count", "mu", "nu"}`` keyed by parameter name, as f32 numpy arrays.
+    numpy has no bf16: bf16 moments come over as their f32 values, which are
+    exact in bf16, and :func:`train_state_from_jax` casts them back."""
     return {"count": int(np.asarray(opt_state.count)),
             "mu": vae_state(opt_state.mu), "nu": vae_state(opt_state.nu)}
 
@@ -226,12 +228,14 @@ def _tensors(state: State, device) -> Dict[str, torch.Tensor]:
 
 def train_state_from_jax(trainer, jax_state):
     """A JAX ``VAETrainState`` as numpy (``params``, ``opt_state``, ``sn_u``,
-    ``epoch``) -> the port's ``VAETrainState`` for ``trainer``."""
+    ``epoch``) -> the port's ``VAETrainState`` for ``trainer``, the moments in
+    the dtypes of the trainer's optimizer."""
     from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainState
 
     model = load_state(trainer.build_model(), vae_state(jax_state.params))
     opt = adamw_state(jax_state.opt_state)
-    opt["mu"], opt["nu"] = (_tensors(opt[k], trainer.device) for k in ("mu", "nu"))
+    for part, dtype in (("mu", trainer.opt.moment_dtype), ("nu", trainer.opt.nu_dtype)):
+        opt[part] = {k: v.to(dtype) for k, v in _tensors(opt[part], trainer.device).items()}
     sn_u = _tensors(sn_u_state(jax_state.sn_u), trainer.device) if jax_state.sn_u else {}
     return VAETrainState(model, opt, sn_u, int(np.asarray(jax_state.epoch)))
 

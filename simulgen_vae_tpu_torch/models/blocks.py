@@ -81,6 +81,27 @@ def _scaled(y: torch.Tensor, inv_sigma, bias: torch.Tensor) -> torch.Tensor:
     return y * inv_sigma.to(y.dtype) + bias
 
 
+def linear_f32_bias(h: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``round(h @ w^T + bias)`` in h's (low-precision) dtype with the f32
+    bias added inside the product's f32 accumulation, so the sum is rounded
+    once, as the JAX readout rounds it. The bias is split into
+    ``hi = round(bias)`` and ``lo = round(bias - hi)`` in h's dtype, appended
+    to ``w`` as two columns against two columns of ones appended to ``h`` (the
+    depth padded to a multiple of 8 with zeros): one matmul accumulates
+    ``h . w + hi + lo`` in f32. ``hi + lo`` carries 16 mantissa bits of the
+    bias, not 24. ``h`` [..., F], ``w`` [C, F], ``bias`` [C] f32."""
+    dt = h.dtype
+    b32 = bias.float()
+    hi = b32.to(dt)
+    lo = (b32 - hi.float()).to(dt)
+    f = w.shape[1]
+    pad = -(f + 2) % 8
+    w_ext = torch.cat([w, hi[:, None], lo[:, None], w.new_zeros((w.shape[0], pad))], dim=1)
+    ones = h.new_ones((*h.shape[:-1], 2))
+    h_ext = torch.cat([h, ones, h.new_zeros((*h.shape[:-1], pad))], dim=-1)
+    return F.linear(h_ext, w_ext)
+
+
 class NormAct(nn.Module):
     """GroupNorm (+ fused activation) over [B, T, C]; ``act`` in
     {'gelu', 'tanh', 'none'}."""
@@ -216,10 +237,10 @@ class FusedPointwiseNormTanh(nn.Module):
     """Readout: k=1 conv [B, T, F] -> [B, T, nodes], then GroupNorm + Tanh.
 
     The direct path of the JAX module (``analytic=False``): one matmul in the
-    compute dtype with f32 accumulation and the bias added in its epilogue,
-    one rounding to the compute dtype, then ``group_norm_act(..., act='tanh')``.
-    In bf16 the bias is rounded to bf16 before the add (the JAX module adds it
-    in f32); in f32 the two agree exactly.
+    compute dtype with f32 accumulation, the f32 bias added before the one
+    rounding to the compute dtype, then ``group_norm_act(..., act='tanh')``.
+    In bf16 the bias rides inside the product's f32 accumulation
+    (:func:`linear_f32_bias`), which keeps 16 of its 24 mantissa bits.
 
     With spectral norm and ``F <= nodes`` the input is scaled by inv_sigma
     (in f32, then rounded), as the JAX module does, so sigma's backward runs
@@ -230,7 +251,9 @@ class FusedPointwiseNormTanh(nn.Module):
     statistics in its epilogue, then normalize + tanh + loss in one read, and
     ``(recon_loss, recon_mse)`` means come back in place of ``x_hat``, which
     is never written. There inv_sigma scales the product's f32 output (no
-    input-side scaling) and the f32 bias is added before the one rounding.
+    input-side scaling) and the f32 bias is added before the one rounding;
+    ``readout_bwd`` picks its backward (``"auto"``, ``"fused"``,
+    ``"materialize"``).
     """
 
     def __init__(self, in_features: int, num_node: int, eps: float = 1e-5,
@@ -246,7 +269,7 @@ class FusedPointwiseNormTanh(nn.Module):
         self.norm_bias = _param((num_node,), device, torch.float32, 0.0)
 
     def forward(self, h: torch.Tensor, x_target: torch.Tensor | None = None,
-                lossfun: str = "MSE"):
+                lossfun: str = "MSE", readout_bwd: str = "auto"):
         cd = self.compute_dtype
         if x_target is not None:
             inv = self.inv_sigma
@@ -254,12 +277,17 @@ class FusedPointwiseNormTanh(nn.Module):
                 inv = torch.ones((), device=h.device, dtype=torch.float32)
             return readout_chain_loss(h.to(cd), self.kernel, self.bias,
                                       self.scale, self.norm_bias, x_target, inv,
-                                      self.num_groups, self.eps, lossfun)
-        w, b, inv = self.kernel.to(cd), self.bias.to(cd), self.inv_sigma
+                                      self.num_groups, self.eps, lossfun, readout_bwd)
+        w, inv = self.kernel.to(cd), self.inv_sigma
         h = h.to(cd)
         if inv is not None and w.shape[1] <= w.shape[0]:
             h, inv = (h.float() * inv).to(cd), None
-        y = F.linear(h, w, b) if inv is None else _scaled(F.linear(h, w), inv, b)
+        if inv is not None:
+            y = _scaled(F.linear(h, w), inv, self.bias.to(cd))
+        elif cd == torch.float32:
+            y = F.linear(h, w, self.bias.float())
+        else:
+            y = linear_f32_bias(h, w, self.bias)
         return group_norm_act(y, self.scale, self.norm_bias, self.num_groups,
                               eps=self.eps, act="tanh")
 

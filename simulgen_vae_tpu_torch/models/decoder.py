@@ -25,6 +25,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from simulgen_vae_tpu_torch.losses import kl_2
 from simulgen_vae_tpu_torch.models.blocks import (
@@ -84,11 +85,13 @@ class _ConditionHead(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, z_dim: int, hierarchical_dim: int,
                  num_filter_dec: Sequence[int], num_node: int, num_time: int,
-                 small: bool = True, device=None, dtype=torch.float32):
+                 small: bool = True, device=None, dtype=torch.float32,
+                 remat: bool = False):
         super().__init__()
         f = list(num_filter_dec)
         n = len(f) - 1
         self.n_levels = n
+        self.remat = remat  # recompute each residual block in the backward
         self.sequence_start = _LatentInjector(z_dim, f[0], num_time, device, dtype)
         self.dec_block = nn.ModuleList(
             DecoderBlock(f[i], f[i + 1], device, dtype) for i in range(n))
@@ -112,15 +115,21 @@ class Decoder(nn.Module):
                 mode: str = "random",
                 frozen_zs: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
-                x_target: Optional[torch.Tensor] = None, lossfun: str = "MSE"):
+                x_target: Optional[torch.Tensor] = None, lossfun: str = "MSE",
+                readout_bwd: str = "auto"):
         """Returns ``(x_hat [B, T, nodes], kl_losses, zs)``; with ``x_target``
         the fused train-path readout returns ``(recon_loss, recon_mse)`` in
-        place of ``x_hat``."""
+        place of ``x_hat``, with the backward ``readout_bwd`` names."""
         kl_losses, zs = [], []
         decoder_out = None
         for i in range(self.n_levels):
             z_sample = self.sequence_start(z) if i == 0 else decoder_out + z
-            decoder_out = self.dec_res[i](self.dec_block[i](z_sample))
+            decoder_out = self.dec_block[i](z_sample)
+            if self.remat and torch.is_grad_enabled():
+                # no noise is drawn inside a residual block: both passes agree
+                decoder_out = checkpoint(self.dec_res[i], decoder_out, use_reentrant=False)
+            else:
+                decoder_out = self.dec_res[i](decoder_out)
             if i == self.n_levels - 1:
                 break
 
@@ -143,5 +152,6 @@ class Decoder(nn.Module):
                 z = reparameterize(mu, std, generator)
             zs.append(z)
 
-        out = self.recon(decoder_out, x_target=x_target, lossfun=lossfun)
+        out = self.recon(decoder_out, x_target=x_target, lossfun=lossfun,
+                         readout_bwd=readout_bwd)
         return out, kl_losses, zs

@@ -14,6 +14,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from simulgen_vae_tpu_torch.models.blocks import (
     ConvBlock,
@@ -26,10 +27,11 @@ from simulgen_vae_tpu_torch.models.blocks import (
 class Encoder(nn.Module):
     def __init__(self, z_dim: int, hierarchical_dim: int, num_filter_enc: Sequence[int],
                  num_node: int, num_time: int, small: bool = True, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         f = list(num_filter_enc)
         self.z_dim = z_dim
+        self.remat = remat  # recompute each conv and residual block in the backward
         self.enc_block = nn.ModuleList(
             ConvBlock(c_in, c, small, device, dtype)
             for c_in, c in zip([num_node] + f[:-1], f))
@@ -43,7 +45,11 @@ class Encoder(nn.Module):
         """``(mu, log_var, xs)`` for ``x`` [B, T, nodes]."""
         xs = []
         for block, res, head in zip(self.enc_block, self.enc_res, self.xs_linear):
-            x = res(block(x))
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(res, x, use_reentrant=False)
+            else:
+                x = res(block(x))
             xs.append(head(flatten_channels_first(x)))
         last = self.last_x_linear(flatten_channels_first(x))
         return last[:, :self.z_dim], last[:, self.z_dim:], xs[:-1][::-1]

@@ -107,6 +107,37 @@ def compute_sigmas(model: nn.Module, state: Dict[str, torch.Tensor],
     return inv_sigmas, new_u
 
 
+@torch.no_grad()
+def spectral_normalize(model: nn.Module, state: Dict[str, torch.Tensor],
+                       update: bool = False,
+                       compute_dtype: Optional[torch.dtype] = None):
+    """``(normed, new_state)``: every spectrally normalised kernel divided by
+    its leading singular value (the JAX ``spectral_normalize``), keyed by
+    kernel name and shaped as the parameter; the model is not touched.
+    ``update=False`` reuses the stored ``u`` (eval, torch's semantics):
+    ``sigma = |M u|``; ``update=True`` runs one power iteration first. With
+    ``compute_dtype`` the matvecs run on the kernel cast to that dtype and the
+    normalised kernels come out in it."""
+    normed, new_u = {}, {}
+    for name, mod in sn_layers(model).items():
+        kernel = _kernel(mod).detach()
+        w = _out_rest(mod).detach()
+        w = w.to(compute_dtype if compute_dtype is not None else torch.float32)
+        u = state[name]
+        if update:
+            v = (u.to(w.dtype) @ w).float()
+            v = v / (torch.linalg.vector_norm(v) + EPS)
+            u = (w @ v.to(w.dtype)).float()
+            u = u / (torch.linalg.vector_norm(u) + EPS)
+        mu = (u.to(w.dtype) @ w).float()                          # M u, [rest]
+        v = mu / (torch.linalg.vector_norm(mu) + EPS)
+        sigma = v @ mu
+        out_dtype = compute_dtype if compute_dtype is not None else kernel.dtype
+        normed[name] = (w / sigma.to(out_dtype)).to(out_dtype).reshape(kernel.shape)
+        new_u[name] = u
+    return normed, new_u
+
+
 @contextlib.contextmanager
 def attach_inv_sigmas(model: nn.Module, inv_sigmas: Dict[str, torch.Tensor]):
     """Hand each layer its ``inv_sigma`` for the duration of the block."""

@@ -5,7 +5,9 @@ training passes ``num_filter_enc`` and calls :meth:`VAE.forward`: encode,
 clamp log_var to +-30, reparameterize (std clamped to [1e-8, 10]), decode
 with the hierarchical latents, then the reconstruction loss in the
 configured flavor, the always-on MSE monitor and the KL terms. Noise comes
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``. ``remat=True`` recomputes the encoder's
+and decoder's residual blocks in the backward (``torch.utils.checkpoint``);
+none of them draws noise, so both passes see the same values.
 """
 
 from __future__ import annotations
@@ -25,29 +27,31 @@ class VAE(nn.Module):
                  num_filter_dec: Sequence[int], num_node: int, num_time: int,
                  small: bool = True, device=None, dtype=torch.float32,
                  num_filter_enc: Optional[Sequence[int]] = None,
-                 lossfun: str = "MSE"):
+                 lossfun: str = "MSE", remat: bool = False):
         super().__init__()
         self.num_node, self.num_time = num_node, num_time
         self.lossfun = lossfun
         self.encoder = None
         if num_filter_enc is not None:
             self.encoder = Encoder(latent_dim, hierarchical_dim, num_filter_enc,
-                                   num_node, num_time, small, device, dtype)
+                                   num_node, num_time, small, device, dtype, remat)
         self.decoder = Decoder(latent_dim, hierarchical_dim, num_filter_dec,
-                               num_node, num_time, small, device, dtype)
+                               num_node, num_time, small, device, dtype, remat)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                fused_readout_loss: bool = False):
+                fused_readout_loss: bool = False, readout_bwd: str = "auto"):
         """``(x_hat, recon_loss, [kl_main, kl_hier...], recon_loss_mse)`` for
         ``x`` [B, T, nodes]; losses are f32 scalars. ``fused_readout_loss``
         (train path) takes the losses from the fused readout kernels: ``x_hat``
-        is never written and comes back as None."""
+        is never written and comes back as None; ``readout_bwd`` picks their
+        backward (``ops.readout_chain.readout_chain_loss``)."""
         mu, log_var, xs = self.encode(x)
         log_var = log_var.clamp(-30.0, 30.0)
         z = reparameterize(mu, torch.exp(0.5 * log_var), generator)
         if fused_readout_loss:
             (recon_loss, recon_loss_mse), kl_losses, _ = self.decoder(
-                z, xs, generator=generator, x_target=x, lossfun=self.lossfun)
+                z, xs, generator=generator, x_target=x, lossfun=self.lossfun,
+                readout_bwd=readout_bwd)
             x_hat = None
         else:
             x_hat, kl_losses, _ = self.decoder(z, xs, generator=generator)

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 KERNELS = ("gn_act_onepass", "gn_stats", "gn_apply", "gn_bwd_onepass", "gn_bwd_stats",
            "gn_bwd_apply", "gather_augment", "readout_matmul_stats", "readout_loss",
-           "readout_bwd_stats", "readout_bwd_dy")
+           "readout_bwd_stats", "readout_bwd_dy", "readout_bwd_fused", "fused_adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

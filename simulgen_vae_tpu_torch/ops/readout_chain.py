@@ -12,17 +12,21 @@ forward
   2. ``readout_loss``: reads y and the target once; normalize, affine, tanh,
      and the sums of the configured loss and of the squared error.
 
-backward (``bwd_flavor``: the materializing one)
+backward
   3. ``readout_bwd_stats``: recomputes xn, o, da from y and the target;
      per-(sample, group) means of dxn and dxn * xn, per-column sums over T of
      da (d norm_bias) and da * xn (d scale);
-  4. ``readout_bwd_dy``: the same recomputation, writes ``dy`` in the map's
-     dtype, per-column sums of dy (d bias) and the partials of
-     ``sum(dy * (y - bias) / inv_sigma)`` (d inv_sigma).
-
-``dW = dy^T h * inv_sigma`` and ``dh = dy W * inv_sigma`` stay ``torch.matmul``,
-as the JAX package leaves them to XLA. The backward that contracts dy into dW
-and dh inside the pass (the JAX ``_bwd_fused_dw_kernel``) is not ported yet.
+  then one of two flavors (``bwd="materialize" | "fused"``; ``"auto"`` asks
+  :func:`bwd_flavor`):
+  4a. ``readout_bwd_dy`` (materialize): the same recomputation, writes ``dy``
+     in the map's dtype, per-column sums of dy (d bias) and the partials of
+     ``sum(dy * (y - bias) / inv_sigma)`` (d inv_sigma); ``dW = dy^T h *
+     inv_sigma`` and ``dh = dy W * inv_sigma`` are then ``torch.matmul``, as
+     the JAX package leaves them to XLA;
+  4b. ``readout_bwd_fused`` (fused, the JAX ``_bwd_fused_dw_kernel``): dy is
+     recomputed tile by tile, rounded to the map's dtype and contracted at
+     once into the f32 ``dW`` and ``dh`` inside the kernel, with d bias and
+     d inv_sigma from the f32 dy; the ``[B, T, C]`` dy map is never written.
 
 Layouts: ``h`` ``[B, T, F]``, ``kernel`` ``[C, F]`` (the port's dense layout;
 JAX's is ``[F, C]``), maps ``[B, T, C]``, per-column vectors ``[C]`` f32,
@@ -57,7 +61,8 @@ from simulgen_vae_tpu_torch.ops.groupnorm_gelu import (
 )
 
 LAUNCHES = {"readout_matmul_stats": 0, "readout_loss": 0, "readout_bwd_stats": 0,
-            "readout_bwd_dy": 0}
+            "readout_bwd_dy": 0, "readout_bwd_fused": 0}
+BWD_FLAVORS = ("fused", "materialize")
 
 # smoothL1 (beta = 1) and Huber (delta = 1) are one function.
 _LOSS_CODES = {"MSE": 0, "MAE": 1, "smoothL1": 2, "Huber": 2}
@@ -71,11 +76,48 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+# Recomputations of a dy element up to which the dy-free backward is ahead.
+FUSED_BWD_MAX_RECOMPUTED = 2e6
+
+
 def bwd_flavor(b: int, t: int, f: int, c: int) -> str:
-    """Which backward a geometry runs. Only the materializing backward (dy
-    written once, dW and dh as matmuls) is ported, so that is the answer for
-    every geometry; the dy-free backward will bring its own engage rule."""
-    return "materialize"
+    """Which backward ``bwd="auto"`` runs at a geometry: ``"fused"`` (dy never
+    written, ``readout_bwd_fused``) or ``"materialize"`` (``readout_bwd_dy``
+    and two ``torch.matmul``s).
+
+    The rule is this card's, written from the backward segment's times in
+    ``chip_smoke.py`` phase 7 (``readout_bwd_stats`` + ``readout_bwd_fused``
+    against ``readout_bwd_stats`` + ``readout_bwd_dy`` + the two products, bf16,
+    two turns each, NVIDIA H100 80GB HBM3, 700 W):
+
+        (B, T, F, C)              dy-free ms       materializing ms
+        (2, 37, 64, 300)          0.297 / 0.271    0.363 / 0.274
+        (3, 50, 64, 1100)         0.275 / 0.275    0.319 / 0.645
+        (4, 200, 128, 5120)       0.376 / 0.368    0.403 / 0.308
+        (16, 200, 128, 5120)      0.490 / 0.490    0.470 / 0.469
+        (16, 200, 128, 95008)     3.697 / 3.721    1.918 / 1.918
+        (16, 200, 1024, 95008)    16.07 / 15.79    3.125 / 3.133
+
+    The dy-free kernel recomputes dy once per F tile in each of its two
+    passes, ``2 * ceil(F / tile) * B * T * C`` element recomputations at about
+    160 G a second, where the materializing segment moves each element four
+    times at the memory's rate: the dy-free backward is level or ahead only
+    on maps so small that launches, not work, set both times, which is while
+    its recomputations stay under ``FUSED_BWD_MAX_RECOMPUTED``. At the flagship geometry the answer is
+    "materialize", as the JAX rule's is. The bf16 products take F a multiple
+    of 64."""
+    if f % BF16_K_STEP:
+        return "materialize"
+    f_tiles = -(-f // (256 if f % 256 == 0 else 128))
+    return "fused" if 2 * f_tiles * b * t * c <= FUSED_BWD_MAX_RECOMPUTED else "materialize"
+
+
+def _resolve_bwd(bwd: str, b: int, t: int, f: int, c: int) -> str:
+    if bwd == "auto":
+        return bwd_flavor(b, t, f, c)
+    if bwd not in BWD_FLAVORS:
+        raise ValueError(f"bwd must be 'auto', 'fused' or 'materialize', got {bwd!r}")
+    return bwd
 
 
 # -- elementwise losses -------------------------------------------------------
@@ -182,6 +224,30 @@ def bwd_dy_reference(y, x, scale, norm_bias, bias, stats, msums, g, n_elem: floa
           - xn * _expand(msums[:, 1], c)) * _expand(stats[:, 1], c)
     yr = (y.float() - bias.float()) / g[2]
     return dy.to(y.dtype), dy.sum(dim=1), (dy * yr).sum(dim=(1, 2))
+
+
+def bwd_fused_reference(y, x, scale, norm_bias, bias, h, kernel, stats, msums, g,
+                        n_elem: float, num_groups: int, lossfun: str = "MSE"):
+    """Plain version of ``readout_bwd_fused`` (the JAX ``_bwd_fused_dw_kernel``):
+    ``(dW_p [C, F] f32, dh_p [B, T, F] f32, d bias [C] f32, d inv_sigma 0-d
+    f32)``, dW_p and dh_p before the ``inv_sigma`` scaling. As in the kernel,
+    dy is rounded to the map's dtype before both products (which accumulate in
+    f32), while d bias and d inv_sigma sum the f32 dy. ``g`` is (cotangent of
+    loss, of mse, inv_sigma)."""
+    b, t, c = y.shape
+    f = h.shape[2]
+    xn, da = _bwd_terms(y, x, scale, norm_bias, stats, g, n_elem, lossfun)
+    dy = (da * scale.float() - _expand(msums[:, 0], c)
+          - xn * _expand(msums[:, 1], c)) * _expand(stats[:, 1], c)
+    del xn, da
+    dbias = dy.sum(dim=(0, 1))
+    # summed in f64, as the kernel's threads do: the terms cancel to a small rest
+    dinv = (dy.double() * ((y.float() - bias.float()) / g[2])).sum().float()
+    dy_lo = dy.to(y.dtype).float().reshape(b * t, c)
+    del dy
+    dw_p = torch.matmul(dy_lo.t(), h.float().reshape(b * t, f))
+    dh_p = torch.matmul(dy_lo, kernel.float()).reshape(b, t, f)
+    return dw_p, dh_p, dbias, dinv
 
 
 def readout_chain_loss_reference(h, kernel, bias, scale, norm_bias, x_target,
@@ -355,6 +421,59 @@ def readout_bwd_dy(y, x, scale, norm_bias, bias, stats, msums, g, n_elem: float,
     return dy, dbias_p, dinv_p.sum(dim=1)
 
 
+def readout_bwd_fused(y, x, scale, norm_bias, bias, h, kernel, stats, msums, g,
+                      n_elem: float, num_groups: int, lossfun: str = "MSE"):
+    """Backward phase B without dy (kernel ``readout_bwd_fused``): ``(dW_p
+    [C, F], dh_p [B, T, F], d bias [C], d inv_sigma 0-d)``, all f32, dW_p and
+    dh_p before the ``inv_sigma`` scaling. ``h`` [B, T, F] and ``kernel``
+    [C, F] are in the map's dtype; ``g`` is the f32 device vector (cotangent
+    of loss, of mse, inv_sigma). In bf16 both products run on the tensor cores
+    with f32 accumulation and need F to be a multiple of 64; in f32 they
+    accumulate with plain f32 FMAs (never TF32)."""
+    if y.device.type == "cpu":
+        return bwd_fused_reference(y, x, scale, norm_bias, bias, h, kernel, stats, msums,
+                                   g, n_elem, num_groups, lossfun)
+    _check_chain(y, x, scale, norm_bias, stats, num_groups)
+    b, t, c = y.shape
+    _check_vec(bias, y, "bias")
+    _check_stats(msums, y, num_groups, "msums")
+    _check_f32(g, (3,), y.device, "g")
+    if (h.device != y.device or h.dtype != y.dtype or h.dim() != 3
+            or tuple(h.shape[:2]) != (b, t) or not h.is_contiguous()):
+        raise ValueError(f"h must be a contiguous {y.dtype} [{b}, {t}, F] tensor on "
+                         f"{y.device}, got {h.dtype} {tuple(h.shape)}")
+    f = h.shape[2]
+    if (kernel.device != y.device or kernel.dtype != y.dtype
+            or tuple(kernel.shape) != (c, f) or not kernel.is_contiguous()):
+        raise ValueError(f"kernel must be a contiguous {y.dtype} [{c}, {f}] tensor on "
+                         f"{y.device}, got {kernel.dtype} {tuple(kernel.shape)}")
+    if y.dtype == torch.bfloat16 and f % BF16_K_STEP:
+        raise ValueError(f"the bf16 products take F a multiple of {BF16_K_STEP}, got "
+                         f"h {tuple(h.shape)}, kernel {tuple(kernel.shape)}")
+    _check_aligned("h, kernel, scale, norm_bias and bias", h, kernel, scale, norm_bias, bias)
+    code = _DTYPE_CODES[y.dtype]
+    geom = (b, t, f, c, code)
+    tiles = _fn("readout_bwd_fused", "readout_bwd_fused_tiles", [_I] * 5)(*geom)
+    scratch_floats = _fn("readout_bwd_fused", "readout_bwd_fused_scratch", [_I] * 5)(*geom)
+    fn = _fn("readout_bwd_fused", "readout_bwd_fused",
+             [_P] * 15 + [_F] + [_I] * 7 + [_P])
+    dw_p = torch.empty((c, f), device=y.device, dtype=torch.float32)
+    dh_p = torch.empty((b, t, f), device=y.device, dtype=torch.float32)
+    dbias = torch.empty((c,), device=y.device, dtype=torch.float32)
+    dinv_p = torch.empty((tiles,), device=y.device, dtype=torch.float32)
+    # partial outputs of the passes whose loop is cut into slabs (none at
+    # the flagship dW pass; [2, B*T, F] for its dh pass)
+    scratch = torch.empty((max(scratch_floats, 1),), device=y.device, dtype=torch.float32)
+    with torch.cuda.device(y.device):
+        err = fn(_ptr(y), _ptr(x), _ptr(scale), _ptr(norm_bias), _ptr(bias), _ptr(h),
+                 _ptr(kernel), _ptr(stats), _ptr(msums), _ptr(g), _ptr(dw_p), _ptr(dh_p),
+                 _ptr(dbias), _ptr(dinv_p), _ptr(scratch), float(n_elem), b, t, f, c,
+                 num_groups, code, _loss_code(lossfun), _stream(y))
+    _raise_on(err, "readout_bwd_fused")
+    LAUNCHES["readout_bwd_fused"] += 1
+    return dw_p, dh_p, dbias, dinv_p.sum()
+
+
 # -- the op -------------------------------------------------------------------
 
 class ReadoutChainLoss(torch.autograd.Function):
@@ -364,7 +483,7 @@ class ReadoutChainLoss(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, kernel, bias, scale, norm_bias, x_target, inv_sigma,
-                num_groups, eps, lossfun):
+                num_groups, eps, lossfun, bwd):
         h = h.contiguous()
         w = kernel.to(h.dtype)
         x = x_target.to(h.dtype).contiguous()
@@ -372,41 +491,53 @@ class ReadoutChainLoss(torch.autograd.Function):
         y, stats = readout_matmul_stats(h, w, bias, inv, num_groups, eps)
         sums = readout_loss(y, x, scale, norm_bias, stats, num_groups, lossfun)
         ctx.save_for_backward(h, w, bias, scale, norm_bias, x, inv, y, stats)
-        ctx.cfg = (num_groups, lossfun, kernel.dtype)
+        ctx.cfg = (num_groups, lossfun, kernel.dtype, bwd)
         means = sums / float(y.numel())
         return means[0], means[1]
 
     @staticmethod
     def backward(ctx, gl, gm):
         h, w, bias, scale, norm_bias, x, inv, y, stats = ctx.saved_tensors
-        num_groups, lossfun, kernel_dtype = ctx.cfg
+        num_groups, lossfun, kernel_dtype, bwd = ctx.cfg
         b, t, f = h.shape
         c = w.shape[0]
         n_elem = float(y.numel())
         g = torch.stack([gl.float(), gm.float(), inv])
         msums, dscale_p, dnb_p = readout_bwd_stats(y, x, scale, norm_bias, stats, g,
                                                    n_elem, num_groups, lossfun)
-        dy, dbias_p, dinv_p = readout_bwd_dy(y, x, scale, norm_bias, bias, stats, msums,
-                                             g, n_elem, num_groups, lossfun)
         # dy is the gradient of yr * inv + bias: inv scales the products' outputs
         # ([C, F] and [B, T, F]), not the [B, T, C] map.
-        dy2 = dy.reshape(b * t, c)
-        d_kernel = torch.matmul(dy2.t(), h.reshape(b * t, f)).to(kernel_dtype) * inv
-        dh = (torch.matmul(dy2, w).float() * inv).to(h.dtype).reshape(b, t, f)
-        return (dh, d_kernel, dbias_p.sum(dim=0), dscale_p.sum(dim=0), dnb_p.sum(dim=0),
-                None, dinv_p.sum(), None, None, None)
+        if bwd == "fused":
+            dw_p, dh_p, dbias, dinv = readout_bwd_fused(y, x, scale, norm_bias, bias, h, w,
+                                                        stats, msums, g, n_elem, num_groups,
+                                                        lossfun)
+            d_kernel = (dw_p * inv).to(kernel_dtype)
+            dh = (dh_p * inv).to(h.dtype)
+        else:
+            dy, dbias_p, dinv_p = readout_bwd_dy(y, x, scale, norm_bias, bias, stats, msums,
+                                                 g, n_elem, num_groups, lossfun)
+            dy2 = dy.reshape(b * t, c)
+            d_kernel = torch.matmul(dy2.t(), h.reshape(b * t, f)).to(kernel_dtype) * inv
+            dh = (torch.matmul(dy2, w).float() * inv).to(h.dtype).reshape(b, t, f)
+            dbias, dinv = dbias_p.sum(dim=0), dinv_p.sum()
+        return (dh, d_kernel, dbias, dscale_p.sum(dim=0), dnb_p.sum(dim=0),
+                None, dinv, None, None, None, None)
 
 
 def readout_chain_loss(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                        scale: torch.Tensor, norm_bias: torch.Tensor,
                        x_target: torch.Tensor, inv_sigma: torch.Tensor,
-                       num_groups: int, eps: float = 1e-5, lossfun: str = "MSE"):
+                       num_groups: int, eps: float = 1e-5, lossfun: str = "MSE",
+                       bwd: str = "auto"):
     """Fused train-path readout: ``(recon_loss, recon_mse)`` means as 0-d f32
     tensors, ``x_hat`` never written. ``h`` [B, T, F] sets the compute dtype
     (``kernel`` [C, F] and ``x_target`` are cast to it); bias, scale and
-    norm_bias are f32 ``[C]``; ``inv_sigma`` is a 0-d f32 tensor."""
+    norm_bias are f32 ``[C]``; ``inv_sigma`` is a 0-d f32 tensor. ``bwd``
+    picks the backward: ``"fused"`` (dy never written), ``"materialize"``, or
+    ``"auto"`` (:func:`bwd_flavor` of the geometry)."""
     _loss_code(lossfun)
     if h.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no readout kernel for device {h.device}")
+    flavor = _resolve_bwd(bwd, h.shape[0], h.shape[1], h.shape[2], kernel.shape[0])
     return ReadoutChainLoss.apply(h, kernel, bias, scale, norm_bias, x_target,
-                                  inv_sigma, num_groups, eps, lossfun)
+                                  inv_sigma, num_groups, eps, lossfun, flavor)

@@ -12,7 +12,7 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "simulgen_vae_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "simulgen_vae_tpu", "scripts")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "simulgen_vae_tpu", "scripts")
 
 
 def _modules():
@@ -56,6 +56,13 @@ def test_no_forbidden_import_in_source(path):
         else:
             continue
         assert not set(roots) & set(FORBIDDEN), f"{path}:{node.lineno} imports {roots}"
+
+
+def test_the_stack_modules_are_among_those_checked():
+    names = {name for _, name in _modules()}
+    for mod in ("ops.fused_adamw", "train.nan_guard", "train.optim", "utils.checkpoint",
+                "utils.preemption", "train.vae_trainer"):
+        assert f"simulgen_vae_tpu_torch.{mod}" in names
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):

@@ -97,11 +97,17 @@ def test_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_tpu_only_stack_is_refused():
-    assert resolve_perf_stack(_cfg()) == {"moment_dtype": torch.float32,
-                                          "sn_per_epoch": False}
-    for kw in (dict(opt_state_dtype="bfloat16"), dict(sn_cadence="epoch"),
-               dict(remat=True)):
-        with pytest.raises(NotImplementedError):
+    """Nothing of the benched stack is refused any more: "auto" still resolves
+    to f32 moments and the per-step cadence, every named option builds a
+    trainer, and only an unknown value raises (ValueError, as in the JAX
+    package)."""
+    assert resolve_perf_stack(_cfg()) == {"moment_dtype": "", "nu_dtype": "",
+                                          "stochastic_round": False, "sn_per_epoch": False}
+    for kw in (dict(opt_state_dtype="bfloat16"), dict(opt_state_dtype="bfloat16_rtn"),
+               dict(sn_cadence="epoch"), dict(remat=True)):
+        VAETrainer(_cfg(**kw), device="cpu")
+    for kw in (dict(opt_state_dtype="float64"), dict(sn_cadence="always")):
+        with pytest.raises(ValueError):
             VAETrainer(_cfg(**kw), device="cpu")
 
 
