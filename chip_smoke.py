@@ -2,14 +2,21 @@
 """Drive the PyTorch/CUDA port (simulgen_vae_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--reps 20] [--profile]
+    python3 chip_smoke.py --onepass-ab TREE [TREE ...]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. build   : compile ops/csrc/*.cu with nvcc (one process per source, all at
-             once) and print the card's name and power limit;
+             once) and print the card's name and power limit; the built
+             readout_matmul_stats library's SASS must hold HGMMA (wgmma) and
+             UTMALDG (TMA loads);
 2. kernels : each GroupNorm forward kernel against its plain PyTorch version
              on the card, at the serving decode's shapes (B=16, T=200), f32
              within atol 2e-5 and bf16 within atol 1e-2, rtol 1e-2;
+             gn_act_onepass gives the same bits on two calls and agrees at
+             the engage rule's edge (f32, T = 1, C = 19360, G = 16), and a
+             profiler trace of its launch shows >= 64 blocks, >= 2 a
+             sample, launched by cudaLaunchKernelEx;
 3. serve   : the flagship serving decode (200 x 95008 field, decoder filters
              128 256 512 1024, MLP conditioner on 484 inputs) with random
              weights from --seed in the JAX trees' layout, carried over by
@@ -20,7 +27,10 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. timing  : p50 of a batch-16 decode and, per kernel at each main-path
              shape, its time beside its plain version, one PyTorch library
              call and the card's bound (HBM bytes at 3.35 TB/s, or
-             operations at 67 TFLOP/s f32, whichever is larger);
+             operations at 67 TFLOP/s f32, whichever is larger); for
+             gn_act_onepass and its library call also the device time alone
+             (calls replayed from a CUDA graph), beside PR 4's time of its
+             earlier design (a constant);
 5. train   : the flagship VAE train step (bench.py's configuration: 64
              resident samples of 200 x 95008 made on the card from --seed,
              encoder filters 1024 512 256 128, batch 16, bf16 compute, f32
@@ -41,7 +51,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              each of its four kernels (readout_matmul_stats, readout_loss,
              readout_bwd_stats, readout_bwd_dy) against its plain version in
              f32 and bf16 at the flagship readout shape (B=16, T=200, F=1024,
-             C=95008, G=8) and two small ragged ones; the same configuration,
+             C=95008, G=8) and two small ragged ones (readout_matmul_stats:
+             two calls the same bits); the same configuration,
              data and seed as phase 5 trained for one epoch (4 steps) with
              finite losses, each new kernel launched once per step and no
              GroupNorm kernel launched at C = 95008; one step from one state,
@@ -49,13 +60,19 @@ Phases, each printing its own lines; any failure exits non-zero:
              unfused route; f32 with TF32 off: loss within 1e-4, every
              gradient and the readout's inv_sigma gradient within rel-L2 1e-3;
              bf16: loss within 1e-2); then per-kernel times beside their
-             bounds, the readout segment fused against unfused, and the fused
-             against the unfused step p50, timed in turns;
+             bounds (readout_matmul_stats also with its product alone, from a
+             build without the epilogue, its epilogue's share, TFLOP/s and
+             PR 4's time of its earlier design, a constant), the
+             readout segment
+             fused against unfused, and the fused against the unfused step
+             p50, timed in turns;
 7. stack   : the benched train stack. readout_bwd_fused (the backward that
              never writes dy) against its plain version in bf16 and f32 at the
              flagship readout shape, three shapes with F = 128 and two ragged
              ones (dW, dh rel-L2 1e-5 f32 / 1e-2 bf16; d bias 1e-4 / 1e-3;
-             d inv_sigma 2e-3; two runs the same bits), and fused_adamw against
+             d inv_sigma 2e-3; two runs the same bits; readout_matmul_stats,
+             which makes its inputs, held against its plain version at each
+             of these shapes on the way), and fused_adamw against
              the plain AdamW on leaves that include [95008, 1024], a conv
              weight, an odd vector and a scalar, for f32, round-to-nearest
              bf16 and stochastically rounded bf16 moments (parameters rel-L2
@@ -85,6 +102,14 @@ device time by kernel for three decodes, one train step, one fused train step
 and two steps of the benched stack with either backward (written under
 chiprun_out/). Without a CUDA device, or without the package beside it, the
 script fails.
+
+--onepass-ab runs none of this: for each TREE (a directory holding a
+simulgen_vae_tpu_torch package, e.g. an unpacked git archive of another
+commit), in its own process and in the order given, it checks gn_act_onepass
+against its plain version and times one decode's launches of it (C = 128 x1,
+256 x3, 512 x4; bf16, B = 16, T = 200) from a replayed CUDA graph, beside
+F.group_norm + gelu timed the same way: one JSON line per tree, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -93,6 +118,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +165,11 @@ MIX_OPS, NOISE_OPS = 5, 33           # amp + mixup; Philox (25) + Box-Muller (8)
 LOSS_OPS, LOSS_GRAD_OPS = 5, 8       # loss and squared error; dl/do, (1 - o^2), da
 TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 1, 10
 READOUT_F, READOUT_C, READOUT_G = 1024, 95008, 8
+# PR 4's times of the two kernels' earlier designs (one block per sample; an
+# mma.sync tile fed by cp.async) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# the kernel table), per decode and per step, back to back: constants,
+# printed beside this run's times on the timing lines and nowhere else.
+PR4_MS = {"gn_act_onepass": 0.331, "readout_matmul_stats": 3.723}
 
 
 def card_line() -> str:
@@ -160,6 +191,104 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph and replayed, so the host's launch cost drops out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def sass_check(_build) -> dict:
+    """The built readout_matmul_stats library's SASS holds the Hopper
+    instructions its design rests on: HGMMA (wgmma) and UTMALDG (TMA loads)."""
+    lib = _build.library_path("readout_matmul_stats")
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    print(f"build: readout_matmul_stats SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
+          f"UTMALDG -> {'ok' if all(counts.values()) else 'FAIL'}")
+    if not all(counts.values()):
+        raise AssertionError(f"readout_matmul_stats was not built with wgmma and TMA: {counts}")
+    return counts
+
+
+def product_alone_ms(rc, call, reps: int) -> float:
+    """Time of ``call`` (a bf16 ``readout_matmul_stats``) with the library built
+    with READOUT_PRODUCT_ONLY in place of the real one: the product without
+    the epilogue and the finalize (y and the statistics are left unwritten)."""
+    from simulgen_vae_tpu_torch.ops import _build
+
+    real = _build.load("readout_matmul_stats")
+    _build._LIBS["readout_matmul_stats"] = _build.load("readout_matmul_stats_product")
+    try:
+        return cuda_ms(call, reps)
+    finally:
+        _build._LIBS["readout_matmul_stats"] = real
+
+
+def onepass_launch(gg, gen) -> dict:
+    """gn_act_onepass's launch as a profiler trace records it, at the decode's
+    C = 512 (bf16, B = 16): the grid must hold >= 64 blocks and >= 2 per
+    sample, launched through cudaLaunchKernelEx (the call that takes a
+    cluster dimension). Where the trace records the cluster size it must be
+    >= 2; where it does not, the kernel's agreement with its plain version
+    stands for it, as the kernel finds its sample from the cluster size it
+    reads from the hardware, and its rows from its rank."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, scale, bias = _map(512, torch.bfloat16, gen)
+    gg.gn_act_onepass(x, scale, bias, 8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gg.gn_act_onepass(x, scale, bias, 8)
+        torch.cuda.synchronize()
+    trace = OUT_DIR / "gn_act_onepass_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernel = [e for e in events if e.get("cat") == "kernel"
+              and "gn_act_onepass_kernel" in e.get("name", "")]
+    if len(kernel) != 1 or "grid" not in kernel[0].get("args", {}):
+        raise AssertionError(f"the trace holds {len(kernel)} gn_act_onepass launches with a grid")
+    args = kernel[0]["args"]
+    api = [e["name"] for e in events if e.get("cat") == "cuda_runtime"
+           and e.get("args", {}).get("correlation") == args.get("correlation")]
+    blocks = int(np.prod(args["grid"]))
+    cluster = {k: v for k, v in args.items() if "cluster" in k.lower()}
+    launch = dict(grid=args["grid"], block=args["block"], api=api, blocks_per_sample=blocks / B,
+                  cluster=cluster or None)
+    ok = (blocks >= 64 and blocks % B == 0 and blocks // B >= 2
+          and any("LaunchKernelEx" in a for a in api)
+          and all(int(np.prod(v)) >= 2 for v in cluster.values() if isinstance(v, (int, list))))
+    print(f"kernels: gn_act_onepass launch (profiler trace, B={B}, C=512): grid {args['grid']}, "
+          f"block {args['block']}, {blocks // B} blocks per sample, through {api}; cluster "
+          + (f"{cluster}" if cluster else "not recorded by the trace (the agreement above needs "
+             f"clusters of {blocks // B})") + f" -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"gn_act_onepass launch {launch}: wanted >= 64 blocks, >= 2 per "
+                             "sample, as clusters")
+    return launch
 
 
 def _map(c: int, dtype, gen):
@@ -191,11 +320,13 @@ def phase_kernels(gg, widths, gen) -> dict:
             x, scale, bias = _map(c, dtype, gen)
             if gg.onepass_fits(T, c, g, x.element_size()):
                 got = gg.gn_act_onepass(x, scale, bias, g, act=act)
+                if not torch.equal(got, gg.gn_act_onepass(x, scale, bias, g, act=act)):
+                    raise AssertionError(f"gn_act_onepass C={c} ({dtype}): two calls differ")
                 want = gg.group_norm_act_reference(x, scale, bias, g, act=act)
                 _assert_close(f"gn_act_onepass C={c}", got, want, dtype)
                 errs["gn_act_onepass"][dname] = max(errs["gn_act_onepass"][dname],
                                                     _err(got, want))
-                route = "gn_act_onepass"
+                route = "gn_act_onepass (two calls the same bits)"
             else:
                 stats = gg.gn_stats(x, g)
                 want_stats = gg.group_stats_reference(x, g)
@@ -214,6 +345,20 @@ def phase_kernels(gg, widths, gen) -> dict:
                 route = "gn_stats+gn_apply"
             torch.cuda.synchronize()
             print(f"kernels: {dname} C={c} G={g} act={act} -> {route} ok")
+    # the rule's edge: f32, T = 1, the widest C with G = 16 that onepass_fits
+    # takes, where a block needs all the shared memory the rule counts
+    c = 16
+    while gg.onepass_fits(1, c + 16, 16, 4):
+        c += 16
+    x = torch.randn((2, 1, c), generator=gen, device="cuda")
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    bias = torch.zeros(c, device="cuda")
+    got = gg.gn_act_onepass(x, scale, bias, 16)
+    _assert_close(f"gn_act_onepass T=1 C={c}", got,
+                  gg.group_norm_act_reference(x, scale, bias, 16), torch.float32)
+    print(f"kernels: float32 T=1 C={c} G=16 (the engage rule's edge, "
+          f"{gg.onepass_smem_bytes(1, c, 16, 4)} of {gg.ONEPASS_SMEM_LIMIT} bytes) -> "
+          "gn_act_onepass ok")
     return errs
 
 
@@ -269,12 +414,18 @@ def kernel_timings(gg, calls, reps, gen, card) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations"))
 
         if gg.onepass_fits(T, c, g, x.element_size()):
-            row("gn_act_onepass",
-                cuda_ms(lambda: gg.gn_act_onepass(x, scale, bias, g, act=act), reps),
+            def kernel():
+                return gg.gn_act_onepass(x, scale, bias, g, act=act)
+
+            row("gn_act_onepass", cuda_ms(kernel, reps),
                 cuda_ms(lambda: gg.group_norm_act_reference(x, scale, bias, g, act=act),
                         reps),
                 lib_gn, 2 * xb + 8 * c, elems * (STATS_OPS + NORM_OPS + ACT_OPS[act]),
                 "F.group_norm + activation")
+            per_shape["gn_act_onepass"][-1].update(
+                device_ms=graph_ms(kernel, reps),
+                library_device_ms=graph_ms(
+                    lambda: act_fn(F.group_norm(xt, g, s16, b16, 1e-5)), reps))
         else:
             stats = gg.gn_stats(x, g)
             cg = c // g
@@ -292,6 +443,10 @@ def kernel_timings(gg, calls, reps, gen, card) -> dict:
             f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.4f}, library "
             f"{v[-1]['library_ms']:.4f}, bound {v[-1]['bound_ms']:.4f})"
             for k, v in per_shape.items() if v and v[-1]["C"] == c))
+        r = per_shape["gn_act_onepass"][-1] if per_shape["gn_act_onepass"] else {}
+        if r.get("C") == c:
+            print(f"timing: [{card}] C={c} gn_act_onepass device only (CUDA graph): "
+                  f"{r['device_ms']:.4f} ms, library {r['library_device_ms']:.4f} ms")
     return per_shape
 
 
@@ -645,6 +800,24 @@ def _assert_rel(name, got, want, tol) -> float:
     return rel
 
 
+def check_matmul_stats(rc, k, g, tag):
+    """#8 on one case: two calls give the same bits (y and stats), and they
+    agree with the plain version (y: f32 atol 2e-5, bf16 atol/rtol 1e-2;
+    stats: rel-L2 1e-4 f32, 1e-3 bf16). Returns the kernel's (y, stats), the
+    plain version's, the max abs error of y and the rel-L2 of the stats."""
+    dtype = k["h"].dtype
+    y, stats = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
+    y2, stats2 = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
+    if not (torch.equal(y, y2) and torch.equal(stats, stats2)):
+        raise AssertionError(f"readout_matmul_stats {tag}: two calls differ")
+    del y2, stats2
+    y0, stats0 = rc.matmul_stats_reference(k["h"], k["w"], k["bias"], k["inv"], g)
+    _assert_close(f"readout_matmul_stats {tag} y", y, y0, dtype)
+    rel = _assert_rel(f"readout_matmul_stats {tag} stats", stats, stats0,
+                      1e-4 if dtype == torch.float32 else 1e-3)
+    return (y, stats), (y0, stats0), _err(y, y0), rel
+
+
 def check_readout_kernels(rc, gen) -> dict:
     """#8, #9, #10, #12 against their plain versions, f32 (TF32 off) and bf16.
     y: f32 atol 2e-5, bf16 atol/rtol 1e-2. Statistics, group means and the loss
@@ -663,13 +836,10 @@ def check_readout_kernels(rc, gen) -> dict:
             k = _readout_case(b, t, f, c, dtype, gen)
             n_elem, tag = float(b * t * c), f"C={c} {dname}"
             chain = (k["x"], k["scale"], k["nb"])
-            y, stats = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
-            y0, stats0 = rc.matmul_stats_reference(k["h"], k["w"], k["bias"], k["inv"], g)
-            _assert_close(f"readout_matmul_stats {tag} y", y, y0, dtype)
-            rels = [_assert_rel(f"readout_matmul_stats {tag} stats", stats, stats0, sum_tol)]
+            _, (y0, stats0), y_err, stats_rel = check_matmul_stats(rc, k, g, tag)
+            rels = [stats_rel]
             errs["readout_matmul_stats"][dname] = max(errs["readout_matmul_stats"][dname],
-                                                      _err(y, y0))
-            del y
+                                                      y_err)
             sums = rc.readout_loss(y0, *chain, stats0, g, lossfun)
             sums0 = rc.loss_reference(y0, *chain, stats0, g, lossfun)
             rels.append(_assert_rel(f"readout_loss {tag}", sums, sums0, sum_tol))
@@ -694,7 +864,8 @@ def check_readout_kernels(rc, gen) -> dict:
                                                 _err(got[0], want[0]))
             torch.cuda.synchronize()
             print(f"fused kernels: {dname} B={b} F={f} C={c} G={g} {lossfun}: y max abs "
-                  f"{errs['readout_matmul_stats'][dname]:.3g}; rel-L2 stats, loss sums, "
+                  f"{errs['readout_matmul_stats'][dname]:.3g} (two calls the same bits); "
+                  f"rel-L2 stats, loss sums, "
                   f"msums, dscale, dnorm_bias, dy, dbias, dinv = "
                   + ", ".join(f"{r:.2g}" for r in rels) + " -> ok")
             del k, y0, got, want, chain
@@ -808,6 +979,18 @@ def readout_kernel_timings(rc, gg, reps, gen, card) -> dict:
         cuda_ms(lambda: rc.matmul_stats_reference(k["h"], k["w"], k["bias"], k["inv"], g), few),
         cuda_ms(library_matmul_stats, reps), "F.linear + torch.var_mean",
         (b * t * f + c * f) * 2 + mb + 4 * c + 8 * b * g, 2 * b * t * f * c, BF16_OPS_PER_S)
+    r = rows["readout_matmul_stats"]
+    flops = 2 * b * t * f * c
+    r.update(product_ms=product_alone_ms(
+                 rc, lambda: rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g),
+                 reps),
+             linear_ms=cuda_ms(lambda: F.linear(k["h"], k["w"], b16), reps))
+    print(f"timing: [{card}] fused readout readout_matmul_stats (wgmma + TMA): {r['ms']:.4f} ms "
+          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s; PR 4's constant for the mma.sync design: "
+          f"{PR4_MS['readout_matmul_stats']:.3f} ms); the product alone {r['product_ms']:.4f} ms "
+          f"({flops / r['product_ms'] / 1e9:.1f} TFLOP/s), epilogue share "
+          f"{1.0 - r['product_ms'] / r['ms']:.3f}; F.linear {r['linear_ms']:.4f} ms; below "
+          f"F.linear + torch.var_mean: {r['ms'] < r['library_ms']}")
     none = "none: no single PyTorch call computes it (see the segment times)"
     row("readout_loss", cuda_ms(lambda: rc.readout_loss(y, *chain, stats, g), reps),
         cuda_ms(lambda: rc.loss_reference(y, *chain, stats, g), few), None, none,
@@ -1002,9 +1185,14 @@ ADAMW_OPS = 16   # per element: two moment updates, bias corrections, root, quot
 
 
 def _bwd_inputs(rc, k, g, lossfun, gvec):
-    """y, stats and msums of a readout case, through the forward kernels."""
+    """y, stats and msums of a readout case, through the forward kernels;
+    readout_matmul_stats is held against its plain version on the way."""
     b, t, c = k["x"].shape
-    y, stats = rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g)
+    f = k["h"].shape[2]
+    (y, stats), _, y_err, stats_rel = check_matmul_stats(
+        rc, k, g, f"B={b} T={t} F={f} C={c} {str(k['h'].dtype).split('.')[1]}")
+    print(f"stack kernels: readout_matmul_stats B={b} T={t} F={f} C={c} G={g}: y max abs "
+          f"{y_err:.3g}, stats rel-L2 {stats_rel:.2g}; two calls the same bits")
     msums = rc.readout_bwd_stats(y, k["x"], k["scale"], k["nb"], stats, gvec, float(b * t * c),
                                  g, lossfun)[0]
     return y, stats, msums
@@ -1485,16 +1673,78 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     return kernels, result
 
 
+# -- --onepass-ab: two versions of gn_act_onepass on one card ------------------
+
+# (C, launches per decode) of the serving decode's one-pass GroupNorms (G = 8,
+# gelu, bf16; phase 3 records them).
+DECODE_ONEPASS = ((128, 1), (256, 3), (512, 4))
+
+
+def onepass_ab(trees, seed: int, reps: int) -> int:
+    """Run :func:`onepass_tree` for each tree in a process of its own, in the
+    order given (parent, change, change, parent compares two commits)."""
+    for tree in trees:
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+                              "--reps", str(reps), "--onepass-tree", str(Path(tree).resolve())],
+                             capture_output=True, text=True, timeout=600)
+        print(out.stdout, end="")
+        if out.returncode:
+            print(out.stderr, file=sys.stderr)
+            return out.returncode
+    print(f"card: {card_line()}")
+    return 0
+
+
+def onepass_tree(tree: str, seed: int, reps: int) -> int:
+    """The device time of one decode's gn_act_onepass launches (CUDA graph
+    replay) with the package found in ``tree``, beside F.group_norm + gelu
+    timed the same way, after a check against the plain version. One JSON
+    line."""
+    import hashlib
+
+    sys.path.insert(0, tree)
+    from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
+
+    src = Path(tree) / "simulgen_vae_tpu_torch/ops/csrc/gn_act_onepass.cu"
+    if Path(gg.__file__).resolve() != (src.parent.parent / "groupnorm_gelu.py").resolve():
+        raise AssertionError(f"imported {gg.__file__}, not the package in {tree}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c, n in DECODE_ONEPASS:
+        x, scale, bias = _map(c, torch.bfloat16, gen)
+        xt, s16, b16 = x.transpose(1, 2).contiguous(), scale.to(x.dtype), bias.to(x.dtype)
+        _assert_close(f"gn_act_onepass C={c}", gg.gn_act_onepass(x, scale, bias, 8),
+                      gg.group_norm_act_reference(x, scale, bias, 8), x.dtype)
+        rows.append(dict(C=c, per_decode=n,
+                         device_ms=graph_ms(lambda: gg.gn_act_onepass(x, scale, bias, 8), reps),
+                         library_device_ms=graph_ms(
+                             lambda: F.gelu(F.group_norm(xt, 8, s16, b16, 1e-5)), reps)))
+    print(json.dumps(dict(
+        tree=tree, source_sha256=hashlib.sha256(src.read_bytes()).hexdigest()[:12],
+        device_ms_per_decode=sum(r["device_ms"] * r["per_decode"] for r in rows),
+        library_device_ms_per_decode=sum(r["library_device_ms"] * r["per_decode"] for r in rows),
+        shapes=rows)))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20, help="timed calls per measurement")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--onepass-ab", nargs="+", metavar="TREE",
+                    help="only time gn_act_onepass per decode (device only) with the package "
+                         "of each TREE, in turn")
+    ap.add_argument("--onepass-tree", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.onepass_tree:
+        return onepass_tree(args.onepass_tree, args.seed, args.reps)
+    if args.onepass_ab:
+        return onepass_ab(args.onepass_ab, args.seed, args.reps)
     from simulgen_vae_tpu_torch import convert
     from simulgen_vae_tpu_torch import generate as tgen
     from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
@@ -1513,12 +1763,13 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. build
-    seconds = _build.build()
+    seconds = _build.build((*_build.KERNELS, *_build.VARIANTS))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
-    print(f"build: {max(seconds.values()):.1f} s for {len(seconds)} kernels "
+    print(f"build: {max(seconds.values()):.1f} s for {len(seconds)} libraries "
           f"({', '.join(f'{k} {v:.1f}' for k, v in seconds.items())})")
+    sass = sass_check(_build)
 
     # 3a. the flagship pipeline (built before phase 2 to learn the shapes)
     cfg = VAEConfig(num_time=T, num_node=95008, latent_dim_end=32, latent_dim=8,
@@ -1552,6 +1803,7 @@ def main(argv=None) -> int:
     # 2. each kernel against its plain version
     gen = torch.Generator("cuda").manual_seed(args.seed)
     errs = phase_kernels(gg, widths, gen)
+    onepass = onepass_launch(gg, gen)
 
     # 3b. serve 40 requests through the kernels
     gg.reset_launch_counts()
@@ -1650,6 +1902,17 @@ def main(argv=None) -> int:
             else "operations",
             library_ms=total("library_ms"), per_decode_sum=True, card=card,
             shapes=rows))
+        if name == "gn_act_onepass":
+            k = kernels[-1]
+            k.update(device_ms=total("device_ms"), library_device_ms=total("library_device_ms"))
+            print(f"timing: [{card}] gn_act_onepass per decode ({k['launches_per_decode']} "
+                  f"launches): {k['ms']:.4f} ms (PR 4's constant for the one-block design: "
+                  f"{PR4_MS[name]:.3f} ms), device only "
+                  f"{k['device_ms']:.4f} ms; library {k['library_ms']:.4f} ms, device only "
+                  f"{k['library_device_ms']:.4f} ms; plain {k['plain_ms']:.4f} ms; bound "
+                  f"{k['bound_ms']:.4f} ms; below the library call: "
+                  f"{k['ms'] < k['library_ms']} (both timings), "
+                  f"{k['device_ms'] < k['library_device_ms']} (device only)")
     del pipe, fn, batch
     torch.cuda.empty_cache()
 
@@ -1677,6 +1940,7 @@ def main(argv=None) -> int:
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
                   serve_checks=checks, launches=launches, kernels=kernels, train=train,
+                  readout_sass=sass, onepass_launch=onepass,
                   fused_train=fused, stack_train=stack,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -244,7 +244,10 @@ class FusedPointwiseNormTanh(nn.Module):
 
     With spectral norm and ``F <= nodes`` the input is scaled by inv_sigma
     (in f32, then rounded), as the JAX module does, so sigma's backward runs
-    on the narrow ``[B, T, F]`` side.
+    on the narrow ``[B, T, F]`` side. With ``F > nodes`` the output is
+    scaled: the product of the rounded operands is taken in f32, scaled
+    and biased in f32 and rounded once, as the JAX module does; that
+    geometry has few nodes, so the f32 product costs little.
 
     With ``x_target`` the fused train path runs instead
     (``ops.readout_chain.readout_chain_loss``): the product with the GroupNorm
@@ -283,7 +286,10 @@ class FusedPointwiseNormTanh(nn.Module):
         if inv is not None and w.shape[1] <= w.shape[0]:
             h, inv = (h.float() * inv).to(cd), None
         if inv is not None:
-            y = _scaled(F.linear(h, w), inv, self.bias.to(cd))
+            # products of the rounded operands summed in f32, scaled and
+            # biased in f32, rounded once (the JAX module's order)
+            y = (torch.matmul(h.float(), w.float().t()) * inv.float()
+                 + self.bias.float()).to(cd)
         elif cd == torch.float32:
             y = F.linear(h, w, self.bias.float())
         else:

@@ -27,6 +27,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# Measurement builds: a kernel's source with extra flags, loaded by no
+# wrapper. chip_smoke.py times readout_matmul_stats' product without its
+# epilogue with the first.
+VARIANTS = {"readout_matmul_stats_product": ("readout_matmul_stats", ("-DREADOUT_PRODUCT_ONLY",))}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
@@ -43,13 +47,20 @@ def nvcc_path() -> str:
     return found
 
 
+def _source(name: str) -> tuple[Path, tuple[str, ...]]:
+    """The source of kernel or variant ``name`` and its flags."""
+    src, extra = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", (*NVCC_FLAGS, *extra)
+
+
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives for the current sources and flags."""
+    source, flags = _source(name)
     h = hashlib.sha256()
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    for src in [source, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -66,7 +77,8 @@ def build(names=KERNELS) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, flags = _source(name)
+        cmd = [nvcc, *flags, "-o", str(tmp), str(source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

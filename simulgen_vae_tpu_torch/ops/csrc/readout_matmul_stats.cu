@@ -14,39 +14,501 @@
 // B = 16, T = 200, F = 1024, C = 95008: 0.63 ms at 989 TFLOP/s; the bytes
 // (h, W read once, y written once: 0.81 GB) would take 0.24 ms.
 //
-// Design. The product is computed here, not by a library. bf16: one block per
-// 128 x 128 tile of one sample's y, 8 warps of 64 x 32 each on the tensor
-// cores (mma.sync through nvcuda::wmma, f32 accumulators), operands staged
-// through a 3-stage cp.async ring in shared memory, 64 deep. f32: a 64 x 64
-// tile with a 4 x 4 micro-tile per thread and plain fmaf accumulation (full
-// f32, never TF32): slow, kept for the f32 checks. Both leave their tile in
-// shared memory as f32 and share one epilogue.
-//  * Row tiles never straddle samples (T = 200 is no multiple of the tile):
-//    tiles are cut within a sample and the ragged last one is zero-filled on
-//    load and masked on store, so a block's sums belong to one sample.
-//  * Column tiles cross group boundaries (11876-wide groups): the epilogue
-//    keeps per-column sums and one warp per group adds its columns in a fixed
-//    order into per-(sample, row tile, column tile, group) partials. A second
-//    small launch adds the partials of the tiles each group spans, in order,
-//    and writes (mean, inv_std). No atomics: two runs give the same bits.
-//  * The last column tile (C = 742 * 128 + 32) is zero-filled on the loads of
-//    W and masked on the loads of bias and the stores of y.
-//  * Row tiles are the fast grid axis, so the blocks that share a W tile run
-//    together and W streams from device memory about once; h (6.5 MB) stays
-//    in L2.
-#include <mma.h>
+// Design of the bf16 path (Hopper: wgmma fed by TMA). The earlier design, an
+// mma.sync tile whose operands came through cp.async with a block barrier and
+// fragment reloads from unswizzled shared memory at every k-step, ran at a
+// fifth of the tensor cores' rate (3.7 ms on an H100 SXM at 700 W); this one
+// keeps them fed:
+//  * Rows are the B*T rows of h viewed as [M, F]: 128-row tiles run across
+//    sample boundaries (M = 3200 = 25 tiles at the flagship shape, no padding
+//    rows), columns in 256-wide tiles. A persistent grid of one block per SM
+//    walks the tiles row tile fastest, so the blocks in flight share a few
+//    W column tiles through L2 and W streams from memory about once.
+//  * One producer thread issues TMA loads (cp.async.bulk.tensor) of a 128 x 64
+//    h tile and a 256 x 64 W tile per stage into a 4-stage ring with 128-byte
+//    swizzle, full and empty mbarriers between it and the consumers. TMA
+//    zero-fills rows past M and past C (the last W tile holds 32 columns).
+//  * Two consumer warpgroups (setmaxnreg moves registers to them) each own
+//    64 rows of the 128 x 256 tile and issue wgmma m64n256k16 with both
+//    operands read from the swizzled stages: 128 f32 accumulators a thread,
+//    one wgmma group kept in flight while the stage before it is released.
+//  * The epilogue works from the accumulator registers, with the tile's bias
+//    (read before the product) in shared memory: scale, bias, round, then y
+//    leaves through a warp's staging rows as 16-byte stores where C % 8 == 0
+//    (element stores otherwise: C = 300 or 1100 rows are not 16-byte
+//    aligned), and the rounded values feed the statistics. The store path is
+//    chosen once per tile, so the unrolled loop has no branch and does not
+//    spill. Per group the tile's columns touch: each thread sums its two
+//    rows, the four lanes of a row add by shuffles, rows meet in shared
+//    memory, and one warp per sample slot adds the slot's rows in order into
+//    a partial of (row tile, column tile, sample slot, 2, G). A 128-row tile
+//    touches at most ceil(127 / T) + 1 samples. The caller gives the slots as
+//    a table of (sample, first row, end row) per (row tile, slot): the Python
+//    wrapper's slot_table, which the epilogue and the finalize both read. A
+//    second small launch adds, per sample and group, the partials of the
+//    (row tile, slot)s that hold its rows, row tile outer, and of the column
+//    tiles the group spans, in a fixed order. No atomics: two runs give the
+//    same bits.
+//  * What bounds it now (H100 SXM, 700 W; chip_smoke.py phase 6): the product
+//    alone runs at ~910 TFLOP/s, the whole kernel at ~600: the epilogue, about
+//    a third of the time, does not overlap the tensor cores, since both
+//    warpgroups reach it together.
+// The f32 path (plain FMA, never TF32) is kept for the f32 checks; its tiles
+// stay within a sample and it has its own finalize.
+//
+// Built with -DREADOUT_PRODUCT_ONLY (a measurement build, never the one the
+// wrappers load) the bf16 path runs the product alone, without the epilogue
+// and the finalize, so that the epilogue's share of the time can be taken.
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 
 #include "readout_common.cuh"
 
 namespace {
 
-using namespace nvcuda;
+// -- bf16: wgmma from a TMA ring ---------------------------------------------------
 
-// Scale, bias, round, store and take the statistics of one BM x BN tile held
+constexpr int kBM = 128, kBN = 256, kBK = 64, kStages = 4;
+constexpr int kConsumers = 2;                       // warpgroups of 64 rows each
+constexpr int kThreads = 128 * (kConsumers + 1);    // warpgroup 0 produces
+constexpr int kTileA = kBM * kBK * 2, kTileB = kBN * kBK * 2;
+constexpr int kStageBytes = kTileA + kTileB;
+constexpr int kBarOffset = kStages * kStageBytes;   // full[kStages], empty[kStages]
+constexpr int kRowOffset = kBarOffset + 2 * kStages * 8;
+constexpr int kBiasOffset = kRowOffset + kBM * 8;
+constexpr int kYStageOffset = kBiasOffset + kBN * 4;
+// A consumer warp stages 16 rows x 64 columns of y at a time: 32 words of
+// bf16 pairs a row, padded to 36 so that the eight rows a store touches fall
+// in different banks.
+constexpr int kStageWords = 36;
+constexpr int kSmemBytes =
+    kYStageOffset + 4 * kConsumers * 16 * kStageWords * 4 + 1024;  // + alignment of the ring
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box at (inner, outer) = (depth offset, row offset) of `map` into
+// shared memory, completion counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int inner, int outer,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle: rows
+// of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma (the registers are "written" here).
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D8(b)                                                                          \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),         \
+      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// d[64 x 256] += A[64 x 16] * B[256 x 16]^T, both K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56),
+        WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88), WG_D8(96), WG_D8(104), WG_D8(112),
+        WG_D8(120)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+#undef WG_D8
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+}
+
+struct Flat {
+  int rows;       // M = B * T
+  int per;        // T: rows per sample
+  int cols;       // C
+  int groups;     // G
+  int k_tiles, m_tiles, n_tiles, slots;
+};
+
+// Shared memory of the consumers besides the ring.
+struct EpilogueSmem {
+  float2* rowbuf;         // [kBM]: (s, q) of each row of the tile for one group
+  float* biasbuf;         // [kBN]: the tile's bias
+  uint32_t* ystage;       // [8 warps][16 rows][kStageWords]: y pairs on their way out
+};
+
+// One group's per-row sums -> one partial per sample slot: the four lanes of a
+// row add by shuffles, rows meet in shared memory, one warp per slot adds the
+// slot's rows (from the tile's rows of the slot table) in order.
+__device__ __forceinline__ void slot_partials(float sa, float qa, float sb, float qb, int g,
+                                              const Flat& f, int m0, const int* tile_slots,
+                                              int rl, int lane, int cwarp, float* tile_part,
+                                              float2* rowbuf) {
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    sa += __shfl_xor_sync(0xffffffffu, sa, off);
+    qa += __shfl_xor_sync(0xffffffffu, qa, off);
+    sb += __shfl_xor_sync(0xffffffffu, sb, off);
+    qb += __shfl_xor_sync(0xffffffffu, qb, off);
+  }
+  if ((lane & 3) == 0) {
+    rowbuf[rl] = make_float2(sa, qa);
+    rowbuf[rl + 8] = make_float2(sb, qb);
+  }
+  consumers_sync();
+  for (int s = cwarp; s < f.slots; s += 4 * kConsumers) {
+    const int r_lo = tile_slots[3 * s + 1] - m0, r_hi = tile_slots[3 * s + 2] - m0;
+    float ss = 0.0f, qq = 0.0f;
+    for (int r = r_lo + lane; r < r_hi; r += 32) {
+      ss += rowbuf[r].x;
+      qq += rowbuf[r].y;
+    }
+    ss = gn::warp_sum(ss);
+    qq = gn::warp_sum(qq);
+    if (lane == 0) {
+      tile_part[(size_t)s * 2 * f.groups + g] = ss;
+      tile_part[(size_t)s * 2 * f.groups + f.groups + g] = qq;
+    }
+  }
+  consumers_sync();  // rowbuf (and biasbuf) are free again
+}
+
+// Scale, bias, round and store one tile's y from the accumulators, which are
+// left holding the rounded values (0 outside the map); returns the sums of
+// the two rows of this thread in sa, qa (row rl) and sb, qb (row rl + 8).
+// STAGED (C % 8 == 0): every 8-column block is wholly in or out of the map and
+// y leaves through the warp's staging rows as 16-byte stores, 64 columns at a
+// time; else plain element stores.
+template <bool STAGED>
+__device__ __forceinline__ void round_store(float (&acc)[128], const Flat& f, int m0, int n0,
+                                            int rl, int lane, float inv, const float* biasbuf,
+                                            uint32_t* ws, __nv_bfloat16* __restrict__ y,
+                                            float& sa, float& qa, float& sb, float& qb) {
+  const int ra = m0 + rl, rb = ra + 8;
+  const bool va = ra < f.rows, vb = rb < f.rows;
+  const int q2 = 2 * (lane % 4);
+  const int wrow0 = m0 + (rl & ~15);  // first row of this warp's 16
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int c = n0 + 8 * j + q2;
+    const bool ok0 = STAGED ? n0 + 8 * j < f.cols : c < f.cols;
+    const bool ok1 = STAGED ? ok0 : c + 1 < f.cols;
+    const float2 bb = *reinterpret_cast<const float2*>(biasbuf + 8 * j + q2);
+    const __nv_bfloat162 pa = __floats2bfloat162_rn(acc[4 * j] * inv + bb.x,
+                                                    acc[4 * j + 1] * inv + bb.y);
+    const __nv_bfloat162 pb = __floats2bfloat162_rn(acc[4 * j + 2] * inv + bb.x,
+                                                    acc[4 * j + 3] * inv + bb.y);
+    if constexpr (STAGED) {
+      const int w = (lane / 4) * kStageWords + 4 * (j % 8) + lane % 4;
+      ws[w] = *reinterpret_cast<const uint32_t*>(&pa);
+      ws[w + 8 * kStageWords] = *reinterpret_cast<const uint32_t*>(&pb);
+      if (j % 8 == 7) {  // 16 rows x 64 columns staged: out as whole 16-byte pieces
+        __syncwarp();
+        const int col = n0 + 64 * (j / 8) + 8 * (lane & 7);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int rr = (lane >> 3) + 4 * i, row = wrow0 + rr;
+          const uint4 v = *reinterpret_cast<const uint4*>(ws + rr * kStageWords + 4 * (lane & 7));
+          if (row < f.rows && col < f.cols)
+            *reinterpret_cast<uint4*>(y + (size_t)row * f.cols + col) = v;
+        }
+        __syncwarp();
+      }
+    } else {
+      __nv_bfloat16* ya = y + (size_t)ra * f.cols;
+      __nv_bfloat16* yb = y + (size_t)rb * f.cols;
+      if (va && ok0) ya[c] = pa.x;
+      if (va && ok1) ya[c + 1] = pa.y;
+      if (vb && ok0) yb[c] = pb.x;
+      if (vb && ok1) yb[c + 1] = pb.y;
+    }
+    const float2 fa = __bfloat1622float2(pa), fb = __bfloat1622float2(pb);
+    acc[4 * j] = va && ok0 ? fa.x : 0.0f;
+    acc[4 * j + 1] = va && ok1 ? fa.y : 0.0f;
+    acc[4 * j + 2] = vb && ok0 ? fb.x : 0.0f;
+    acc[4 * j + 3] = vb && ok1 ? fb.y : 0.0f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {  // the statistics of a tile within one group
+      sa += acc[4 * j + e];
+      qa = fmaf(acc[4 * j + e], acc[4 * j + e], qa);
+      sb += acc[4 * j + 2 + e];
+      qb = fmaf(acc[4 * j + 2 + e], acc[4 * j + 2 + e], qb);
+    }
+  }
+}
+
+// The epilogue of one tile for one consumer thread. Accumulator layout of
+// wgmma m64nNk16: warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8);
+// d[4 j + 2 h + e] is row (+ 8 h), column 8 j + 2 (lane % 4) + e.
+// `bias_reg` is bias[n0 + ct], loaded before the tile's product.
+__device__ __forceinline__ void epilogue(float (&acc)[128], const Flat& f, int mt, int nt,
+                                         int cw, int warp, int lane, int ct, float bias_reg,
+                                         float inv, __nv_bfloat16* __restrict__ y,
+                                         float* __restrict__ partials,
+                                         const int* __restrict__ slot_tab,
+                                         const EpilogueSmem& sm) {
+  const int m0 = mt * kBM, n0 = nt * kBN;
+  const int rl = cw * 64 + warp * 16 + lane / 4;  // local row of d[.. 2 h = 0]
+  sm.biasbuf[ct] = bias_reg;
+  consumers_sync();
+  float sa = 0.0f, qa = 0.0f, sb = 0.0f, qb = 0.0f;
+  if (f.cols % 8 == 0)
+    round_store<true>(acc, f, m0, n0, rl, lane, inv, sm.biasbuf,
+                      sm.ystage + (cw * 4 + warp) * 16 * kStageWords, y, sa, qa, sb, qb);
+  else
+    round_store<false>(acc, f, m0, n0, rl, lane, inv, sm.biasbuf, nullptr, y, sa, qa, sb, qb);
+
+  // statistics of the rounded values per group the tile's columns touch
+  const int cg = f.cols / f.groups;
+  const int g_lo = n0 / cg, g_hi = (min(n0 + kBN, f.cols) - 1) / cg;
+  const int cwarp = ct >> 5;  // 0 .. 4 * kConsumers - 1
+  float* tile_part = partials + ((size_t)mt * f.n_tiles + nt) * f.slots * 2 * f.groups;
+  const int* tile_slots = slot_tab + (size_t)mt * f.slots * 3;
+  if (g_lo == g_hi) {
+    slot_partials(sa, qa, sb, qb, g_lo, f, m0, tile_slots, rl, lane, cwarp, tile_part,
+                  sm.rowbuf);
+    return;
+  }
+  const int cq = n0 + 2 * (lane % 4);
+  for (int g = g_lo; g <= g_hi; ++g) {  // a tile across group boundaries: column by column
+    const int lo = g * cg, hi = lo + cg;
+    sa = qa = sb = qb = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = cq + 8 * j + e;
+        const bool in = c >= lo && c < hi;
+        const float xa = in ? acc[4 * j + e] : 0.0f;
+        const float xb = in ? acc[4 * j + 2 + e] : 0.0f;
+        sa += xa;
+        qa = fmaf(xa, xa, qa);
+        sb += xb;
+        qb = fmaf(xb, xb, qb);
+      }
+    }
+    slot_partials(sa, qa, sb, qb, g, f, m0, tile_slots, rl, lane, cwarp, tile_part,
+                  sm.rowbuf);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
+                          const __grid_constant__ CUtensorMap map_w,
+                          const float* __restrict__ bias, const float* __restrict__ inv_sigma,
+                          __nv_bfloat16* __restrict__ y, float* __restrict__ partials,
+                          const int* __restrict__ slot_tab, Flat f) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled stages need 1024-byte alignment; an offset from the array
+  // (not a cast through an integer) keeps the accesses in the shared space
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* empty = full + kStages;
+  const EpilogueSmem sm{reinterpret_cast<float2*>(smem + kRowOffset),
+                        reinterpret_cast<float*>(smem + kBiasOffset),
+                        reinterpret_cast<uint32_t*>(smem + kYStageOffset)};
+  auto stage_a = [&](int s) { return smem + s * kStageBytes; };
+  auto stage_b = [&](int s) { return smem + s * kStageBytes + kTileA; };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tiles = f.m_tiles * f.n_tiles;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: one thread keeps the ring full -----------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int mt = tile % f.m_tiles, nt = tile / f.m_tiles;
+        for (int kt = 0; kt < f.k_tiles; ++kt, ++it) {
+          const int s = it % kStages;
+          mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+          mbar_expect_tx(&full[s], kStageBytes);
+          tma_load(stage_a(s), &map_h, kt * kBK, mt * kBM, &full[s]);
+          tma_load(stage_b(s), &map_w, kt * kBK, nt * kBN, &full[s]);
+        }
+      }
+    }
+  } else {
+    // -- consumers: wgmma, then the epilogue from registers --------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int ct = threadIdx.x - 128;  // 0 .. 128 * kConsumers - 1
+    const int cw = ct / 128, warp = (ct % 128) / 32, lane = ct % 32;
+    const float inv = *inv_sigma;
+    float acc[128];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int mt = tile % f.m_tiles, nt = tile / f.m_tiles;
+      const int cb = nt * kBN + ct;  // this thread's bias column, read behind the product
+      const float bias_reg = cb < f.cols ? bias[cb] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      fence_acc(acc);
+      for (int kt = 0; kt < f.k_tiles; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+        const uint64_t da = sw128_desc(stage_a(s) + cw * 64 * kBK * 2);
+        const uint64_t db = sw128_desc(stage_b(s));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)  // 16 deep = 32 bytes = 2 descriptor units
+          wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        if (kt > 0) {  // the group before this one is done: free its stage
+          wgmma_wait<1>();
+          if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
+#ifndef READOUT_PRODUCT_ONLY
+      epilogue(acc, f, mt, nt, cw, warp, lane, ct, bias_reg, inv, y, partials, slot_tab, sm);
+#endif
+    }
+  }
+}
+
+// Adds, per sample and group, the partials of the (row tile, slot)s the slot
+// table gives to the sample and of the column tiles the group spans, row tile
+// outer, column tile inner; writes (mean, inv_std).
+__global__ void matmul_stats_finalize_flat_kernel(const float* __restrict__ partials,
+                                                  const int* __restrict__ slot_tab,
+                                                  float* __restrict__ stats, Flat f, float eps) {
+  const int b = blockIdx.x;
+  const int cg = f.cols / f.groups;
+  const float denom = (float)f.per * (float)cg;
+  for (int grp = threadIdx.x; grp < f.groups; grp += blockDim.x) {
+    const int t0 = (grp * cg) / kBN, t1 = ((grp + 1) * cg - 1) / kBN;
+    float s = 0.0f, q = 0.0f;
+    for (int i = 0; i < f.m_tiles * f.slots; ++i) {
+      if (slot_tab[3 * i] != b) continue;
+      const int rt = i / f.slots, slot = i % f.slots;
+      for (int t = t0; t <= t1; ++t) {
+        const float* p =
+            partials + (((size_t)rt * f.n_tiles + t) * f.slots + slot) * 2 * f.groups;
+        s += p[grp];
+        q += p[f.groups + grp];
+      }
+    }
+    float* o = stats + (size_t)b * 2 * f.groups;
+    gn::finalize(s, q, denom, eps, &o[grp], &o[f.groups + grp]);
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up at run time: nothing links
+// against libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [rows, depth] bf16 row-major tensor read in boxes of box_rows x kBK.
+bool encode_map(CUtensorMap* map, const void* base, int rows, int depth, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)depth, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)depth * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// f32 path: scale, bias, round, store and take the statistics of one BM x BN tile held
 // as f32 in shared memory (ctile, row stride ldc). Thread (slice, col) walks
 // BM / SLICES rows of one column, so stores are coalesced along C.
 template <typename T, int BM, int BN, int THREADS>
-__device__ __forceinline__ void epilogue(const float* ctile, int ldc,
+__device__ __forceinline__ void smem_tile_epilogue(const float* ctile, int ldc,
                                          const float* __restrict__ bias, float inv_sigma,
                                          T* __restrict__ y, float* __restrict__ part, int b,
                                          int row0, int col0, int rows, int cols,
@@ -86,127 +548,6 @@ __device__ __forceinline__ void epilogue(const float* ctile, int ldc,
   }
   __syncthreads();
   ro::group_partials(col_s[0][0], col_s[1][0], col0, BN, cols, groups, part);
-}
-
-// -- bf16: tensor cores ---------------------------------------------------------
-
-// 64 deep: measured 3.6 ms at the flagship shape against 4.2 ms at 32 (half
-// the barriers per product); 256-wide column tiles and a fourth stage gained
-// nothing.
-constexpr int kBM = 128, kBN = 128, kBK = 64, kStages = 3, kThreads = 256;
-constexpr int kWnFrags = kBN / 64;  // 16-column fragments per warp: 2 x 4 warps of 64 x (kBN / 4)
-constexpr int kChunks = kBK / 8;    // 16-byte chunks per operand row of a stage
-constexpr int kLds = kBK + 8;   // operand row stride in shared memory (bf16 elements)
-constexpr int kLdc = kBN + 4;   // f32 tile row stride
-constexpr int kStageElems = (kBM + kBN) * kLds;
-constexpr int kSmemBytes =
-    kStages * kStageElems * 2 > kBM * kLdc * 4 ? kStages * kStageElems * 2 : kBM * kLdc * 4;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  const int bytes = pred ? 16 : 0;  // 0: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__global__ void __launch_bounds__(kThreads)
-matmul_stats_bf16_kernel(const __nv_bfloat16* __restrict__ h,
-                         const __nv_bfloat16* __restrict__ w,
-                         const float* __restrict__ bias, const float* __restrict__ inv_sigma,
-                         __nv_bfloat16* __restrict__ y, float* __restrict__ partials,
-                         int rows, int depth, int cols, int groups, int row_tiles) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  float* ctile = reinterpret_cast<float*>(smem_raw);
-
-  const int b = blockIdx.x / row_tiles, rt = blockIdx.x % row_tiles, ct = blockIdx.y;
-  const int row0 = rt * kBM, col0 = ct * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x (kBN / 4)
-  const __nv_bfloat16* h_b = h + (size_t)b * rows * depth;
-
-  // A stage holds kBM rows of h and kBN rows of W, kChunks 16-byte chunks each.
-  auto load_stage = [&](int stage, int kt) {
-    __nv_bfloat16* as = stages + (size_t)stage * kStageElems;
-    __nv_bfloat16* bs = as + kBM * kLds;
-    const int k0 = kt * kBK;
-#pragma unroll
-    for (int i = 0; i < kBM * kChunks / kThreads; ++i) {
-      const int q = threadIdx.x + i * kThreads;
-      const int r = q / kChunks, kc = (q % kChunks) * 8;
-      const bool ok = row0 + r < rows;
-      cp_async16(as + r * kLds + kc, h_b + (size_t)(ok ? row0 + r : 0) * depth + k0 + kc, ok);
-    }
-#pragma unroll
-    for (int i = 0; i < kBN * kChunks / kThreads; ++i) {
-      const int q = threadIdx.x + i * kThreads;
-      const int r = q / kChunks, kc = (q % kChunks) * 8;
-      const bool ok = col0 + r < cols;
-      cp_async16(bs + r * kLds + kc, w + (size_t)(ok ? col0 + r : 0) * depth + k0 + kc, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][kWnFrags];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kWnFrags; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  // 16-row fragments of this warp that hold any valid row (warp-uniform)
-  const int live = min(4, max(0, (rows - row0 - wm * 64 + 15) / 16));
-
-  const int k_tiles = depth / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile kt has landed; the stage of tile kt - 1 is free
-    const int next = kt + kStages - 1;
-    if (next < k_tiles) load_stage(next % kStages, next);
-    cp_async_commit();
-
-    const __nv_bfloat16* as = stages + (size_t)(kt % kStages) * kStageElems;
-    const __nv_bfloat16* bs = as + kBM * kLds;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb[kWnFrags];
-#pragma unroll
-      for (int j = 0; j < kWnFrags; ++j)
-        wmma::load_matrix_sync(fb[j], bs + (wn * (kBN / 4) + j * 16) * kLds + kk, kLds);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if (i < live) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, as + (wm * 64 + i * 16) * kLds + kk, kLds);
-#pragma unroll
-          for (int j = 0; j < kWnFrags; ++j) wmma::mma_sync(acc[i][j], fa, fb[j], acc[i][j]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the operand stages: reuse them for the tile
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kWnFrags; ++j)
-      wmma::store_matrix_sync(ctile + (wm * 64 + i * 16) * kLdc + wn * (kBN / 4) + j * 16, acc[i][j],
-                              kLdc, wmma::mem_row_major);
-  __syncthreads();
-  const size_t tile_index = ((size_t)b * row_tiles + rt) * gridDim.y + ct;
-  epilogue<__nv_bfloat16, kBM, kBN, kThreads>(ctile, kLdc, bias, *inv_sigma, y,
-                                              partials + tile_index * 2 * groups, b, row0,
-                                              col0, rows, cols, groups);
 }
 
 // -- f32: plain FMA ---------------------------------------------------------------
@@ -262,7 +603,7 @@ matmul_stats_f32_kernel(const float* __restrict__ h, const float* __restrict__ w
     for (int j = 0; j < 4; ++j) ctile[ty * 4 + i][tx * 4 + j] = acc[i][j];
   __syncthreads();
   const size_t tile_index = ((size_t)b * row_tiles + rt) * gridDim.y + ct;
-  epilogue<float, kFM, kFN, kFThreads>(&ctile[0][0], kFLd, bias, *inv_sigma, y,
+  smem_tile_epilogue<float, kFM, kFN, kFThreads>(&ctile[0][0], kFLd, bias, *inv_sigma, y,
                                        partials + tile_index * 2 * groups, b, row0, col0,
                                        rows, cols, groups);
 }
@@ -291,10 +632,13 @@ __global__ void matmul_stats_finalize_kernel(const float* __restrict__ partials,
   }
 }
 
+
 }  // namespace
 
-// Tile height (which = 0) or width (which = 1) for a dtype code: the wrapper
-// allocates partials of [B, row tiles, column tiles, 2, G].
+// Tile height (which = 0) or width (which = 1) for a dtype code. bf16: rows
+// over the flattened B*T rows, partials [row tiles, column tiles, sample
+// slots, 2, G]; f32: rows within a sample, partials [B, row tiles, column
+// tiles, 2, G].
 extern "C" int readout_matmul_stats_tile(int dtype, int which) {
   if (dtype == gn::kBF16) return which == 0 ? kBM : kBN;
   return which == 0 ? kFM : kFN;
@@ -302,11 +646,15 @@ extern "C" int readout_matmul_stats_tile(int dtype, int which) {
 
 // h: [B, T, F]; w: [C, F]; bias: [C] f32; inv_sigma: one f32 on the device;
 // y: [B, T, C]; stats: [B, 2, G] f32. bf16 needs F % 64 == 0 and 16-byte
-// aligned h and w. Returns a cudaError_t code.
+// aligned h and w, and `slot_table` on the device: int32 [row tiles, slots,
+// 3] of (sample or -1, first flattened row, end row) for each sample slot of
+// each 128-row tile, with `slots` at least the samples a tile touches. f32
+// takes neither. Returns a cudaError_t code.
 extern "C" int readout_matmul_stats(const void* h, const void* w, const void* bias,
                                     const void* inv_sigma, void* y, void* partials,
                                     void* stats, int batch, int rows, int depth, int cols,
-                                    int groups, float eps, int dtype, void* stream) {
+                                    int groups, float eps, int dtype, int slots,
+                                    const void* slot_table, void* stream) {
   if (batch <= 0 || rows <= 0 || depth <= 0 || cols <= 0 || groups <= 0 ||
       cols % groups != 0)
     return (int)cudaErrorInvalidValue;
@@ -314,34 +662,47 @@ extern "C" int readout_matmul_stats(const void* h, const void* w, const void* bi
   auto* bi = static_cast<const float*>(bias);
   auto* inv = static_cast<const float*>(inv_sigma);
   auto* part = static_cast<float*>(partials);
-  int row_tiles, col_tiles, tile_cols;
   if (dtype == gn::kBF16) {
-    if (depth % kBK != 0) return (int)cudaErrorInvalidValue;
-    row_tiles = (rows + kBM - 1) / kBM;
-    col_tiles = (cols + kBN - 1) / kBN;
-    tile_cols = kBN;
-    if (col_tiles > 65535) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        matmul_stats_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    const long long m = (long long)batch * rows;
+    auto* tab = static_cast<const int*>(slot_table);
+    if (depth % kBK != 0 || m > 0x7fffffff || slots < 1 || tab == nullptr)
+      return (int)cudaErrorInvalidValue;
+    Flat f{(int)m, rows, cols, groups, depth / kBK, (int)((m + kBM - 1) / kBM),
+           (cols + kBN - 1) / kBN, slots};
+    CUtensorMap map_h, map_w;
+    if (!encode_map(&map_h, h, f.rows, depth, kBM) || !encode_map(&map_w, w, cols, depth, kBN))
+      return (int)cudaErrorInvalidValue;
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(matmul_stats_wgmma_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return (int)err;
-    matmul_stats_bf16_kernel<<<dim3(batch * row_tiles, col_tiles), kThreads, kSmemBytes, st>>>(
-        static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(w), bi, inv,
-        static_cast<__nv_bfloat16*>(y), part, rows, depth, cols, groups, row_tiles);
-  } else if (dtype == gn::kF32) {
-    row_tiles = (rows + kFM - 1) / kFM;
-    col_tiles = (cols + kFN - 1) / kFN;
-    tile_cols = kFN;
-    if (col_tiles > 65535) return (int)cudaErrorInvalidValue;
-    matmul_stats_f32_kernel<<<dim3(batch * row_tiles, col_tiles), kFThreads, 0, st>>>(
-        static_cast<const float*>(h), static_cast<const float*>(w), bi, inv,
-        static_cast<float*>(y), part, rows, depth, cols, groups, row_tiles);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    const long long tiles = (long long)f.m_tiles * f.n_tiles;
+    const int grid = tiles < sms ? (int)tiles : sms;
+    matmul_stats_wgmma_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+        map_h, map_w, bi, inv, static_cast<__nv_bfloat16*>(y), part, tab, f);
+    err = cudaGetLastError();
+#ifndef READOUT_PRODUCT_ONLY
+    if (err != cudaSuccess) return (int)err;
+    matmul_stats_finalize_flat_kernel<<<batch, 32, 0, st>>>(part, tab, static_cast<float*>(stats),
+                                                            f, eps);
+    err = cudaGetLastError();
+#endif
+    return (int)err;
   }
+  if (dtype != gn::kF32) return (int)cudaErrorInvalidValue;
+  const int row_tiles = (rows + kFM - 1) / kFM;
+  const int col_tiles = (cols + kFN - 1) / kFN;
+  if (col_tiles > 65535) return (int)cudaErrorInvalidValue;
+  matmul_stats_f32_kernel<<<dim3(batch * row_tiles, col_tiles), kFThreads, 0, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(w), bi, inv,
+      static_cast<float*>(y), part, rows, depth, cols, groups, row_tiles);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   matmul_stats_finalize_kernel<<<batch, 32, 0, st>>>(part, static_cast<float*>(stats), rows,
-                                                     cols, groups, row_tiles, col_tiles,
-                                                     tile_cols, eps);
+                                                     cols, groups, row_tiles, col_tiles, kFN,
+                                                     eps);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,9 @@ dtype. Hand-written kernels (``ops/csrc/``) compute it on the card.
 
 Forward:
 
-* ``gn_act_onepass``: the whole sample in shared memory, for maps that fit
-  (:func:`onepass_fits`);
+* ``gn_act_onepass``: each sample in the shared memory of one thread-block
+  cluster of :data:`ONEPASS_CLUSTER` blocks (:func:`cluster_rows`), for maps
+  whose whole sample would fit one block (:func:`onepass_fits`);
 * ``gn_stats`` then ``gn_apply``: two passes for wider maps, such as the
   95008-channel readout with 11876-wide groups.
 
@@ -33,6 +34,7 @@ kernel to the plain version. Each kernel wrapper counts its launches in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +46,9 @@ LAUNCHES = {"gn_act_onepass": 0, "gn_stats": 0, "gn_apply": 0,
 
 # Largest dynamic shared memory one block may opt into on an H100 (227 KB).
 ONEPASS_SMEM_LIMIT = 232448
+# Blocks in the cluster that holds one sample in gn_act_onepass (8 is the
+# portable cluster size: 128 blocks at B = 16).
+ONEPASS_CLUSTER = 8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"none": 0, "gelu": 1, "tanh": 2}
@@ -182,8 +187,12 @@ def gn_bwd_apply_reference(x, scale, bias, grad, stats, msums, num_groups: int,
 # -- kernel wrappers ----------------------------------------------------------
 
 def onepass_smem_bytes(t: int, c: int, num_groups: int, elem_bytes: int) -> int:
-    """Shared memory of one ``gn_act_onepass`` block (mirrors the kernel's
-    ``stage_offset`` plus the staged sample)."""
+    """Shared memory the whole sample takes in one block, with its column and
+    group statistics: the measure of the engage rule, which sends a map to
+    the one-pass route where this fits one block. A ``gn_act_onepass`` block
+    holds the same head (the kernel's ``stage_offset``) and only its rank's
+    rows (:func:`cluster_rows`), so it never needs more than this; the rule
+    is narrower than the kernel needs (ROADMAP.md, Queue 2)."""
     head = (2 * c + 2 * num_groups) * 4
     return ((head + 15) // 16) * 16 + t * c * elem_bytes
 
@@ -215,8 +224,8 @@ def bwd_onepass_engages(t: int, c: int, num_groups: int, elem_bytes: int) -> boo
 
 def onepass_fits(t: int, c: int, num_groups: int, elem_bytes: int) -> bool:
     """Engage rule of the one-pass kernel: the sample, staged in its own
-    dtype, plus column and group statistics fit one block's shared memory.
-    At T = 200: C <= 256 in f32, C <= 512 in bf16."""
+    dtype, plus column and group statistics would fit one block's shared
+    memory. At T = 200: C <= 256 in f32, C <= 512 in bf16."""
     return onepass_smem_bytes(t, c, num_groups, elem_bytes) <= ONEPASS_SMEM_LIMIT
 
 
@@ -287,10 +296,28 @@ def _fn(lib_name: str, fn_name: str, argtypes):
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def cluster_rows(t: int, k: int = ONEPASS_CLUSTER) -> list[range]:
+    """The rows of a sample that each of the ``k`` blocks of its cluster
+    stages in ``gn_act_onepass``: ``ceil(t / k)`` contiguous rows per rank,
+    clipped to ``t`` (ranks past the end hold none). The kernel takes this
+    split as it is (:func:`_rank_begin`)."""
+    per = -(-t // k)
+    return [range(min(t, r * per), min(t, (r + 1) * per)) for r in range(k)]
+
+
+@functools.lru_cache(maxsize=64)
+def _rank_begin(t: int, k: int):
+    """:func:`cluster_rows` as the kernel's argument: the first row of each
+    rank, then ``t``."""
+    return (ctypes.c_int * (k + 1))(*[r.start for r in cluster_rows(t, k)], t)
+
+
 def gn_act_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    num_groups: int, eps: float = 1e-5,
                    act: str = "gelu") -> torch.Tensor:
-    """One-pass GroupNorm + activation (kernel ``gn_act_onepass``)."""
+    """One-pass GroupNorm + activation (kernel ``gn_act_onepass``): one
+    cluster of :data:`ONEPASS_CLUSTER` blocks per sample, the statistics
+    shared through distributed shared memory."""
     if x.device.type == "cpu":
         return group_norm_act_reference(x, scale, bias, num_groups, eps, act)
     _check_map(x, num_groups)
@@ -300,12 +327,12 @@ def gn_act_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if not onepass_fits(t, c, num_groups, x.element_size()):
         raise ValueError(f"[T={t}, C={c}] {x.dtype} does not fit one block")
     fn = _fn("gn_act_onepass", "gn_act_onepass",
-             [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P])
+             [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, ctypes.POINTER(_I), _I, _P])
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(out), b, t, c,
                  num_groups, eps, _DTYPE_CODES[x.dtype], _act_code(act),
-                 _stream(x))
+                 _rank_begin(t, ONEPASS_CLUSTER), ONEPASS_CLUSTER, _stream(x))
     _raise_on(err, "gn_act_onepass")
     LAUNCHES["gn_act_onepass"] += 1
     return out

@@ -68,6 +68,8 @@ BWD_FLAVORS = ("fused", "materialize")
 _LOSS_CODES = {"MSE": 0, "MAE": 1, "smoothL1": 2, "Huber": 2}
 # Depth of one shared-memory stage of the bf16 product (readout_matmul_stats.cu).
 BF16_K_STEP = 64
+# Output tile of the bf16 product: rows over the flattened B*T rows, columns over C.
+BF16_TILE_M, BF16_TILE_N = 128, 256
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -288,12 +290,58 @@ def _check_chain(y, x, scale, norm_bias, stats, num_groups) -> None:
     _check_stats(stats, y, num_groups, "stats")
 
 
+def flat_tiles(b: int, t: int, c: int, tile_m: int = BF16_TILE_M,
+               tile_n: int = BF16_TILE_N) -> tuple[int, int, int]:
+    """``(row tiles, column tiles, sample slots)`` of the bf16 product, whose
+    row tiles run over the ``b * t`` rows across sample boundaries: a tile of
+    ``tile_m`` rows touches at most ``ceil((tile_m - 1) / t) + 1`` samples
+    (and no more than ``b``), and its partials keep one slot for each."""
+    return (-(-(b * t) // tile_m), -(-c // tile_n),
+            min(b, -(-(tile_m - 1) // t) + 1))
+
+
+def slot_rows(tile: int, slot: int, b: int, t: int, tile_m: int = BF16_TILE_M) -> range:
+    """The flattened rows whose statistics go to ``(tile, slot)``: the rows
+    of sample ``tile * tile_m // t + slot`` inside the tile (none where the
+    tile ends first)."""
+    m0 = tile * tile_m
+    sample = m0 // t + slot
+    rows = range(max(sample * t, m0), min((sample + 1) * t, m0 + tile_m, b * t))
+    return rows if len(rows) else range(m0, m0)
+
+
+def slot_table(b: int, t: int, tile_m: int = BF16_TILE_M) -> torch.Tensor:
+    """int32 ``[row tiles, slots, 3]``: (sample, first row, end row) of the
+    flattened rows each sample slot of each row tile holds (:func:`slot_rows`),
+    sample -1 where it holds none. The bf16 kernel reads it as it is: its
+    epilogue adds each slot's rows into the slot's partial, its finalize adds
+    per sample the partials of the slots that name it."""
+    row_tiles, _, slots = flat_tiles(b, t, 1, tile_m)
+    table = [[[rows.start // t if len(rows) else -1, rows.start, rows.stop]
+              for rows in (slot_rows(tile, slot, b, t, tile_m) for slot in range(slots))]
+             for tile in range(row_tiles)]
+    return torch.tensor(table, dtype=torch.int32)
+
+
+_SLOT_TABLES: dict = {}
+
+
+def _slot_table_on(device: torch.device, b: int, t: int, tile_m: int) -> torch.Tensor:
+    """:func:`slot_table` on the card, copied there once per shape."""
+    key = (device, b, t, tile_m)
+    if key not in _SLOT_TABLES:
+        _SLOT_TABLES[key] = slot_table(b, t, tile_m).to(device)
+    return _SLOT_TABLES[key]
+
+
 def readout_matmul_stats(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
                          inv_sigma: torch.Tensor, num_groups: int, eps: float = 1e-5):
     """``(y, stats)`` from ``h`` [B, T, F] and ``kernel`` [C, F], both in the
     compute dtype (kernel ``readout_matmul_stats``). In bf16 the product runs
-    on the tensor cores with f32 accumulation and needs F to be a multiple of
-    64; in f32 it accumulates with plain f32 FMAs (never TF32)."""
+    on the tensor cores (wgmma fed by TMA) with f32 accumulation over row
+    tiles of the flattened B*T rows (:func:`flat_tiles`, :func:`slot_table`)
+    and needs F to be a multiple of 64; in f32 it accumulates with plain f32
+    FMAs (never TF32)."""
     if h.device.type == "cpu":
         return matmul_stats_reference(h, kernel, bias, inv_sigma, num_groups, eps)
     if h.device.type != "cuda":
@@ -309,28 +357,33 @@ def readout_matmul_stats(h: torch.Tensor, kernel: torch.Tensor, bias: torch.Tens
     c = kernel.shape[0]
     if num_groups <= 0 or c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
+    code = _DTYPE_CODES[h.dtype]
+    tile = _fn("readout_matmul_stats", "readout_matmul_stats_tile", [_I, _I])
     if h.dtype == torch.bfloat16:
         if f % BF16_K_STEP:
             raise ValueError(f"the bf16 product takes F a multiple of {BF16_K_STEP}, got "
                              f"h {tuple(h.shape)}, kernel {tuple(kernel.shape)}")
         _check_aligned("h and kernel", h, kernel)
+        row_tiles, col_tiles, slots = flat_tiles(b, t, c, tile(code, 0), tile(code, 1))
+        part_shape = (row_tiles, col_tiles, slots, 2, num_groups)
+        table = _ptr(_slot_table_on(h.device, b, t, tile(code, 0)))
+    else:
+        row_tiles, col_tiles, slots = -(-t // tile(code, 0)), -(-c // tile(code, 1)), 1
+        if col_tiles > 65535:
+            raise ValueError(f"C = {c} gives {col_tiles} column tiles, above 65535")
+        part_shape = (b, row_tiles, col_tiles, 2, num_groups)
+        table = None
     _check_f32(bias, (c,), h.device, "bias")
     _check_f32(inv_sigma, (), h.device, "inv_sigma")
-    code = _DTYPE_CODES[h.dtype]
-    tile = _fn("readout_matmul_stats", "readout_matmul_stats_tile", [_I, _I])
-    row_tiles, col_tiles = -(-t // tile(code, 0)), -(-c // tile(code, 1))
-    if col_tiles > 65535:
-        raise ValueError(f"C = {c} gives {col_tiles} column tiles, above 65535")
     fn = _fn("readout_matmul_stats", "readout_matmul_stats",
-             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P])
+             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P])
     y = torch.empty((b, t, c), device=h.device, dtype=h.dtype)
-    partials = torch.empty((b, row_tiles, col_tiles, 2, num_groups), device=h.device,
-                           dtype=torch.float32)
+    partials = torch.empty(part_shape, device=h.device, dtype=torch.float32)
     stats = torch.empty((b, 2, num_groups), device=h.device, dtype=torch.float32)
     with torch.cuda.device(h.device):
         err = fn(_ptr(h), _ptr(kernel), _ptr(bias), _ptr(inv_sigma), _ptr(y),
-                 _ptr(partials), _ptr(stats), b, t, f, c, num_groups, eps, code,
-                 _stream(h))
+                 _ptr(partials), _ptr(stats), b, t, f, c, num_groups, eps, code, slots,
+                 table, _stream(h))
     _raise_on(err, "readout_matmul_stats")
     LAUNCHES["readout_matmul_stats"] += 1
     return y, stats

@@ -294,3 +294,52 @@ def test_bf16_direct_readout_bias_rounding_against_jax(bias_scale):
     assert np.abs(got - want).max() <= 2.0 ** -8
     assert port_frac <= 0.01 < old_frac
     np.testing.assert_allclose(got32, want32, atol=1e-6)
+
+
+def test_bf16_direct_readout_output_side_sigma_rounds_once_against_jax():
+    """With spectral norm and F > nodes the DIRECT readout scales its output
+    by inv_sigma: the JAX module takes the product in f32, multiplies by
+    inv_sigma, adds the f32 bias and rounds once. The port does the same
+    (an f32 product of the rounded operands). Same inputs through both, bf16:
+    at most 1% of the tanh outputs differ from JAX's, none by more than one
+    bf16 ulp of tanh's range (2^-8). Rounding the product to bf16 before the
+    scale, as the port did before, leaves more of them off; f32 agrees."""
+    from simulgen_vae_tpu.models.blocks import FusedPointwiseNormTanh as JaxReadout
+    from simulgen_vae_tpu_torch.models.blocks import FusedPointwiseNormTanh
+    from simulgen_vae_tpu_torch.ops.groupnorm_gelu import group_norm_act_reference
+
+    b, t, f, c = 4, 12, 300, 16
+    rng = np.random.default_rng(0)
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    h = f32(rng.standard_normal((b, t, f)) * 0.5)
+    params = dict(kernel=f32(rng.standard_normal((f, c)) / 4),
+                  bias=f32(rng.standard_normal(c) * 0.1),
+                  scale=f32(1 + 0.1 * rng.standard_normal(c)),
+                  norm_bias=f32(0.1 * rng.standard_normal(c)))
+    inv = np.float32(0.37)
+    jvars = {"params": {k: jnp.asarray(v) for k, v in params.items()},
+             "sn_sigma": {"inv_sigma": jnp.asarray(inv)}}
+    want = np.asarray(JaxReadout(c, dtype=jnp.bfloat16).apply(
+        jvars, jnp.asarray(h).astype(jnp.bfloat16)).astype(jnp.float32))
+    want32 = np.asarray(JaxReadout(c).apply(jvars, jnp.asarray(h)))
+
+    mod, mod32 = FusedPointwiseNormTanh(f, c, dtype=torch.bfloat16), FusedPointwiseNormTanh(f, c)
+    with torch.no_grad():
+        for m in (mod, mod32):
+            m.kernel.copy_(torch.from_numpy(params["kernel"].T.copy()))
+            for k in ("bias", "scale", "norm_bias"):
+                getattr(m, k).copy_(torch.from_numpy(params[k]))
+            m.inv_sigma = torch.tensor(inv)
+        hb = torch.from_numpy(h).bfloat16()
+        got = mod(hb).float().numpy()
+        y = (torch.nn.functional.linear(hb, mod.kernel.bfloat16()) * mod.inv_sigma.bfloat16()
+             + mod.bias.bfloat16())
+        rounded_twice = group_norm_act_reference(y, mod.scale, mod.norm_bias, mod.num_groups,
+                                                 1e-5, "tanh").float().numpy()
+        got32 = mod32(torch.from_numpy(h)).numpy()
+    port_frac, old_frac = (got != want).mean(), (rounded_twice != want).mean()
+    print(f"differing {port_frac:.5f}, max abs {np.abs(got - want).max():.3g}; "
+          f"with the product rounded first {old_frac:.4f}")
+    assert np.abs(got - want).max() <= 2.0 ** -8
+    assert port_frac <= 0.01 < old_frac
+    np.testing.assert_allclose(got32, want32, atol=1e-6)
