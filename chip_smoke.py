@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (simulgen_vae_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--reps 20] [--profile]
-    python3 chip_smoke.py --onepass-ab TREE [TREE ...]
+    python3 chip_smoke.py --ab {onepass,gn-bwd} TREE [TREE ...]
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -24,13 +24,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              kernel's launch count must rise; the same batch through the
              plain GroupNorm on the card agrees within rel-L2 1e-2 (bf16) and
              max-abs 1e-4 (f32, TF32 off);
-4. timing  : p50 of a batch-16 decode and, per kernel at each main-path
-             shape, its time beside its plain version, one PyTorch library
-             call and the card's bound (HBM bytes at 3.35 TB/s, or
-             operations at 67 TFLOP/s f32, whichever is larger); for
-             gn_act_onepass and its library call also the device time alone
-             (calls replayed from a CUDA graph), beside PR 4's time of its
-             earlier design (a constant);
+4. timing  : p50 of a batch-16 decode; bf16 torch.erfc, gelu and its
+             gradient on the card against the CPU on 4096 values (at most 1%
+             differing); the
+             decode's p50, device time and kernel launches with the bf16
+             layers before and after the two rounding repairs (the bias added
+             after the product, gelu rounded per operation), in turns; per
+             kernel at each main-path shape, its time beside its plain
+             version, one PyTorch library call and the card's bound (HBM
+             bytes at 3.35 TB/s, or operations at 67 TFLOP/s f32, whichever
+             is larger); for gn_act_onepass and its library call also the
+             device time alone (calls replayed from a CUDA graph), beside the
+             time of its earlier design (a constant);
 5. train   : the flagship VAE train step (bench.py's configuration: 64
              resident samples of 200 x 95008 made on the card from --seed,
              encoder filters 1024 512 256 128, batch 16, bf16 compute, f32
@@ -38,7 +43,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              default augmentation) through VAETrainer.train_epoch: two
              warm-up steps, then each train kernel (gather_augment,
              gn_bwd_onepass, gn_bwd_stats, gn_bwd_apply) against its plain
-             version at every shape the step gives it, in f32 and bf16; two
+             version at every shape the step gives it, in f32 and bf16
+             (gn_bwd_onepass and gn_bwd_stats: two calls the same bits;
+             gn_bwd_onepass also at its engage rule's edge, f32, T = 1, G =
+             16), and profiler traces of both: B x 8 blocks launched by
+             cudaLaunchKernelEx, gn_bwd_stats one kernel a call; two
              epochs (8 steps) whose loss and gradient norm must be finite and
              in which every train kernel must launch (gather_augment once per
              step); one step's loss and gradients through the kernels against
@@ -46,7 +55,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              loss within 1e-2 relative; f32 with TF32 off: loss within 1e-4,
              every gradient within rel-L2 1e-3); then the step's p50 and each
              train kernel's time per step beside its bound, plain and library
-             times;
+             times (gn_bwd_onepass and gn_bwd_stats also device only from a
+             replayed CUDA graph, their kernels' own time in a profiler trace
+             beside the library backward's measured the same way, and the
+             times of their earlier designs, constants);
 6. fused   : the fused-readout train path (VAETrainer(fused_readout=True)):
              each of its four kernels (readout_matmul_stats, readout_loss,
              readout_bwd_stats, readout_bwd_dy) against its plain version in
@@ -62,7 +74,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              bf16: loss within 1e-2); then per-kernel times beside their
              bounds (readout_matmul_stats also with its product alone, from a
              build without the epilogue, its epilogue's share, TFLOP/s and
-             PR 4's time of its earlier design, a constant), the
+             the time of its earlier design, a constant), the
              readout segment
              fused against unfused, and the fused against the unfused step
              p50, timed in turns;
@@ -103,13 +115,16 @@ and two steps of the benched stack with either backward (written under
 chiprun_out/). Without a CUDA device, or without the package beside it, the
 script fails.
 
---onepass-ab runs none of this: for each TREE (a directory holding a
+--ab MODE runs none of this: for each TREE (a directory holding a
 simulgen_vae_tpu_torch package, e.g. an unpacked git archive of another
-commit), in its own process and in the order given, it checks gn_act_onepass
-against its plain version and times one decode's launches of it (C = 128 x1,
-256 x3, 512 x4; bf16, B = 16, T = 200) from a replayed CUDA graph, beside
-F.group_norm + gelu timed the same way: one JSON line per tree, then the
-card's name and power limit.
+commit), in its own process and in the order given, it checks one family of
+kernels against its plain version and times it from a replayed CUDA graph:
+one JSON line per tree, then the card's name and power limit. MODE onepass:
+one decode's gn_act_onepass launches (C = 128 x1, 256 x3, 512 x4; bf16, B =
+16, T = 200) beside F.group_norm + gelu timed the same way. MODE gn-bwd: one
+train step's GroupNorm backwards (bf16, B = 16, T = 200, G = 8: C = 128 x3,
+256 x5, 512 x6, 1024 x4, 1280 x2, 2560 x2, 5120 x2, 95008 x1 with tanh),
+each on that tree's own route, whole and kernel by kernel.
 """
 
 from __future__ import annotations
@@ -122,6 +137,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -134,6 +150,11 @@ BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
 B, T = 16, 200
 DECODE_CALLS = 40             # p75 is then the highest percentile with 10 samples beyond
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
+TRACE_ATTEMPTS = 4            # profiler sessions tried where one records no kernel (traced)
+PROFILER_MARGIN_S = 0.05      # host idle around a profiler session's warm-up and run (traced)
+WARM_KERNELS = 16             # spin kernels that open each profiler session (traced)
+WARM_KERNEL = "spin_kernel"   # their name, left out of every kernel row read (kernel_rows)
+PROFILER_SESSIONS = {"sessions": 0, "taken_again": 0}
 REPLACES = {
     "gn_act_onepass": "simulgen_vae_tpu/ops/groupnorm_gelu.py:109",
     "gn_stats": "simulgen_vae_tpu/ops/groupnorm_gelu.py:352",
@@ -165,11 +186,16 @@ MIX_OPS, NOISE_OPS = 5, 33           # amp + mixup; Philox (25) + Box-Muller (8)
 LOSS_OPS, LOSS_GRAD_OPS = 5, 8       # loss and squared error; dl/do, (1 - o^2), da
 TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 1, 10
 READOUT_F, READOUT_C, READOUT_G = 1024, 95008, 8
-# PR 4's times of the two kernels' earlier designs (one block per sample; an
-# mma.sync tile fed by cp.async) on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
+# The times of four kernels' earlier designs (one block per sample; an
+# mma.sync tile fed by cp.async; one thread a column and a second launch) on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
 # the kernel table), per decode and per step, back to back: constants,
 # printed beside this run's times on the timing lines and nowhere else.
-PR4_MS = {"gn_act_onepass": 0.331, "readout_matmul_stats": 3.723}
+EARLIER_MS = {"gn_act_onepass": 0.331, "readout_matmul_stats": 3.723, "gn_bwd_onepass": 0.514,
+          "gn_bwd_stats": 2.014}
+# The launches per step those two earlier times cover: #3 at C = 128 and 256;
+# #6 from C = 512 up (the C = 512 maps take #3 now).
+EARLIER_LAUNCHES = {"gn_bwd_onepass": 8, "gn_bwd_stats": 17}
 
 
 def card_line() -> str:
@@ -219,6 +245,61 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / (3 * reps)
 
 
+def traced(run, cpu: bool = True, expect: str | None = None, **kwargs):
+    """A torch.profiler session around ``run()`` (then a synchronize), as
+    (profiler, what ``run`` returned). On the card a session now and then
+    loses the records of its first two or three kernels, though they ran and
+    their results are right. So each session opens with WARM_KERNELS spin
+    kernels (``torch.cuda._sleep``; ``kernel_rows`` and ``cluster_launch``
+    leave them out) and a synchronize, and idles PROFILER_MARGIN_S on the
+    host before the warm-up, before ``run`` and after it (the trace's kernel
+    timestamps also stand up to milliseconds off the host's launch calls:
+    see ``cluster_launch``). A session that still records no kernel (none
+    whose name holds ``expect``, where given) is taken again, up to
+    TRACE_ATTEMPTS times, and a run that no session records fails.
+    PROFILER_SESSIONS counts the sessions and those taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        PROFILER_SESSIONS["sessions"] += 1
+        with profile(activities=activities, **kwargs) as prof:
+            time.sleep(PROFILER_MARGIN_S)
+            for _ in range(WARM_KERNELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_MARGIN_S)
+            out = run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_MARGIN_S)
+        if any(expect is None or expect in e.key for e in kernel_rows(prof)):
+            return prof, out
+        PROFILER_SESSIONS["taken_again"] += 1
+        print(f"profiler: session {attempt} of {TRACE_ATTEMPTS} recorded no kernel"
+              + (f" named {expect}" if expect else "") + "; tracing again")
+    raise AssertionError(f"no kernel{' named ' + expect if expect else ''} recorded in "
+                         f"{TRACE_ATTEMPTS} profiler sessions")
+
+
+def kernel_rows(prof) -> list:
+    """The kernel rows of a ``traced`` session's ``key_averages()``, without
+    its warm-up kernels."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and WARM_KERNEL not in e.key]
+
+
+def profiled_device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: its kernels' own time in a profiler
+    trace of ``reps`` calls, for calls a CUDA graph cannot capture (autograd's
+    backward of a library call)."""
+    fn()
+    torch.cuda.synchronize()
+    prof, _ = traced(lambda: [fn() for _ in range(reps)], cpu=False)
+    return sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / reps
+
+
 def sass_check(_build) -> dict:
     """The built readout_matmul_stats library's SASS holds the Hopper
     instructions its design rests on: HGMMA (wgmma) and UTMALDG (TMA loads)."""
@@ -248,46 +329,50 @@ def product_alone_ms(rc, call, reps: int) -> float:
         _build._LIBS["readout_matmul_stats"] = real
 
 
-def onepass_launch(gg, gen) -> dict:
-    """gn_act_onepass's launch as a profiler trace records it, at the decode's
-    C = 512 (bf16, B = 16): the grid must hold >= 64 blocks and >= 2 per
-    sample, launched through cudaLaunchKernelEx (the call that takes a
-    cluster dimension). Where the trace records the cluster size it must be
-    >= 2; where it does not, the kernel's agreement with its plain version
-    stands for it, as the kernel finds its sample from the cluster size it
-    reads from the hardware, and its rows from its rank."""
-    from torch.profiler import ProfilerActivity, profile
-
-    x, scale, bias = _map(512, torch.bfloat16, gen)
-    gg.gn_act_onepass(x, scale, bias, 8)
+def cluster_launch(name: str, call, what: str, alone: bool = True) -> dict:
+    """``name``'s launch as a profiler trace records it for one ``call`` (at
+    B = 16): the call launches ``name``'s kernel once (and no other kernel
+    where ``alone``), with a grid of >= 64 blocks and >= 2 per sample,
+    through cudaLaunchKernelEx (the call that takes a cluster dimension).
+    Where the trace records the cluster size it must be >= 2; where it does
+    not, the kernel's agreement with its plain version stands for it, as the
+    kernel finds its sample from the cluster size it reads from the
+    hardware, and its rows or columns from its rank. Also given: the
+    kernel's start in the trace less its launch call's (negative where the
+    trace's GPU clock stands behind the host's)."""
+    call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        gg.gn_act_onepass(x, scale, bias, 8)
-        torch.cuda.synchronize()
-    trace = OUT_DIR / "gn_act_onepass_trace.json"
+    prof, _ = traced(call, expect=f"{name}_kernel")
+    trace = OUT_DIR / f"{name}_trace.json"
     prof.export_chrome_trace(str(trace))
     events = json.loads(trace.read_text())["traceEvents"]
-    kernel = [e for e in events if e.get("cat") == "kernel"
-              and "gn_act_onepass_kernel" in e.get("name", "")]
+    launched = [e for e in events
+                if e.get("cat") == "kernel" and WARM_KERNEL not in e.get("name", "")]
+    kernel = [e for e in launched if f"{name}_kernel" in e.get("name", "")]
     if len(kernel) != 1 or "grid" not in kernel[0].get("args", {}):
-        raise AssertionError(f"the trace holds {len(kernel)} gn_act_onepass launches with a grid")
+        raise AssertionError(f"the trace holds {len(kernel)} {name} launches with a grid")
     args = kernel[0]["args"]
-    api = [e["name"] for e in events if e.get("cat") == "cuda_runtime"
-           and e.get("args", {}).get("correlation") == args.get("correlation")]
+    api_events = [e for e in events if e.get("cat") == "cuda_runtime"
+                  and e.get("args", {}).get("correlation") == args.get("correlation")]
+    api = [e["name"] for e in api_events]
+    lead_us = (float(kernel[0]["ts"]) - float(api_events[0]["ts"])) if api_events else None
     blocks = int(np.prod(args["grid"]))
     cluster = {k: v for k, v in args.items() if "cluster" in k.lower()}
     launch = dict(grid=args["grid"], block=args["block"], api=api, blocks_per_sample=blocks / B,
-                  cluster=cluster or None)
-    ok = (blocks >= 64 and blocks % B == 0 and blocks // B >= 2
+                  cluster=cluster or None, kernels_per_call=len(launched),
+                  kernel_less_launch_us=lead_us)
+    ok = ((len(launched) == 1 or not alone) and blocks >= 64 and blocks % B == 0 and blocks // B >= 2
           and any("LaunchKernelEx" in a for a in api)
           and all(int(np.prod(v)) >= 2 for v in cluster.values() if isinstance(v, (int, list))))
-    print(f"kernels: gn_act_onepass launch (profiler trace, B={B}, C=512): grid {args['grid']}, "
-          f"block {args['block']}, {blocks // B} blocks per sample, through {api}; cluster "
+    print(f"{what}: {name} launch (profiler trace, B={B}): {len(launched)} kernel(s) per call, "
+          f"grid {args['grid']}, block {args['block']}, {blocks // B} blocks per sample, "
+          f"through {api} (kernel start less launch call: "
+          + (f"{lead_us:.1f} us" if lead_us is not None else "no launch call") + "); cluster "
           + (f"{cluster}" if cluster else "not recorded by the trace (the agreement above needs "
              f"clusters of {blocks // B})") + f" -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"gn_act_onepass launch {launch}: wanted >= 64 blocks, >= 2 per "
-                             "sample, as clusters")
+        raise AssertionError(f"{name} launch {launch}: wanted one kernel a call, >= 64 blocks, "
+                             ">= 2 per sample, as clusters")
     return launch
 
 
@@ -371,6 +456,67 @@ def plain_group_norm(blocks, gg):
         yield
     finally:
         blocks.group_norm_act = real
+
+
+@contextlib.contextmanager
+def pre_repair_layers(blocks):
+    """The bf16 layers as they were before the two rounding repairs: the bias
+    inside the product of a layer without spectral norm, and one fused
+    ``F.gelu`` (for the before/after decode timing only)."""
+    from simulgen_vae_tpu_torch.models import conditioner_mlp, decoder
+
+    def fused_bias(product, x, w, b, inv_sigma):
+        if inv_sigma is None:
+            return product(x, w, b)
+        return blocks._scaled(product(x, w), inv_sigma, b)
+
+    patched = [(blocks, "_biased", fused_bias)] + [
+        (m, "gelu", F.gelu) for m in (blocks, decoder, conditioner_mlp)]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in patched]
+    for m, name, fn in patched:
+        setattr(m, name, fn)
+    try:
+        yield
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+
+
+def decode_device(fn, batch, calls: int = 3) -> dict:
+    """Device time and kernel launches per decode from a profiler trace of
+    ``calls`` decodes (kernel rows only)."""
+    prof, _ = traced(lambda: [fn(batch) for _ in range(calls)])
+    rows = kernel_rows(prof)
+    return dict(device_ms=sum(e.self_device_time_total for e in rows) / 1e3 / calls,
+                kernels=sum(e.count for e in rows) / calls)
+
+
+def erfc_bits(blocks, gen, n: int = 4096) -> dict:
+    """bf16 ``torch.erfc``, the port's bf16 ``gelu`` and its gradient on the
+    card against the CPU's on ``n`` values ~ 3 N(0, 1) with a cotangent ~ N(0,
+    1): the count of outputs whose bits differ (the repaired gelu rounds as
+    JAX's only if the card's erfc and exp round as the CPU's, where the CPU
+    tests hold it to JAX)."""
+    x = (3.0 * torch.randn(n, generator=gen, device="cuda")).to(torch.bfloat16)
+    ct = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+    xc = x.cpu()
+
+    def grad(v, w):
+        v = v.detach().requires_grad_()
+        blocks.gelu(v).backward(w)
+        return v.grad
+
+    out = dict(values=n,
+               erfc_differ=int((torch.erfc(x).cpu() != torch.erfc(xc)).sum()),
+               gelu_differ=int((blocks.gelu(x).cpu() != blocks.gelu(xc)).sum()),
+               gelu_grad_differ=int((grad(x, ct).cpu() != grad(xc, ct.cpu())).sum()))
+    ok = max(out["erfc_differ"], out["gelu_differ"], out["gelu_grad_differ"]) <= n // 100
+    print(f"serve: bf16 erfc on the card vs the CPU over {n} values: {out['erfc_differ']} "
+          f"differ; bf16 gelu {out['gelu_differ']}, its gradient {out['gelu_grad_differ']} "
+          f"differ -> {'ok' if ok else 'FAIL'} (at most 1%)")
+    if not ok:
+        raise AssertionError(f"bf16 erfc / gelu on the card round unlike the CPU: {out}")
+    return out
 
 
 @contextlib.contextmanager
@@ -464,9 +610,18 @@ def _assert_sums_close(name, got, want, tol):
             raise AssertionError(f"{name} {part}: max abs err {_err(a, b):.3g}")
 
 
+def _same_bits(name, call):
+    """Two calls of ``call`` give the same bits in every output."""
+    a, b = call(), call()
+    if not all(torch.equal(u, v) for u, v in zip(a, b)):
+        raise AssertionError(f"{name}: two calls differ")
+    return a
+
+
 def check_train_gn_kernels(gg, shapes, gen) -> dict:
     """#3, #6, #7 against their plain versions at every (C, G, act) of the
-    step, on the route the step takes there, in f32 and bf16."""
+    step, on the route the step takes there, in f32 and bf16; #3 and #6 give
+    the same bits on two calls; #3 also at its engage rule's edge."""
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in TRAIN_REPLACES if k != "gather_augment"}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -476,33 +631,68 @@ def check_train_gn_kernels(gg, shapes, gen) -> dict:
             route = ("onepass" if gg.bwd_onepass_engages(T, c, g, x.element_size())
                      else "two_phase")
             if route == "onepass":
-                got = gg.gn_bwd_onepass(x, scale, bias, grad, g, act=act)
+                got = _same_bits(f"gn_bwd_onepass C={c} ({dtype})",
+                                 lambda: gg.gn_bwd_onepass(x, scale, bias, grad, g, act=act))
                 want = gg.group_norm_act_backward_reference(x, scale, bias, grad, g, act=act)
                 _assert_close(f"gn_bwd_onepass C={c} dx", got[0], want[0], dtype)
                 _assert_sums_close(f"gn_bwd_onepass C={c}", got[1:], want[1:], vec_tol)
-                errs["gn_bwd_onepass"][dname] = max(errs["gn_bwd_onepass"][dname],
-                                                    *(_err(a, b) for a, b in zip(got, want)))
+                here = {"gn_bwd_onepass": max(_err(a, b) for a, b in zip(got, want))}
             else:
                 stats = gg.group_stats_reference(x, g)
-                got = gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act)
+                got = _same_bits(f"gn_bwd_stats C={c} ({dtype})",
+                                 lambda: gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act))
                 want = gg.gn_bwd_stats_reference(x, scale, bias, grad, stats, g, act)
                 if not torch.allclose(got[0], want[0], atol=1e-6, rtol=1e-4):
                     raise AssertionError(f"gn_bwd_stats C={c} msums: {_err(got[0], want[0]):.3g}")
                 _assert_sums_close(f"gn_bwd_stats C={c}", got[1:], want[1:], vec_tol)
-                errs["gn_bwd_stats"][dname] = max(errs["gn_bwd_stats"][dname],
-                                                  *(_err(a, b) for a, b in zip(got, want)))
+                here = {"gn_bwd_stats": max(_err(a, b) for a, b in zip(got, want))}
                 dx = gg.gn_bwd_apply(x, scale, bias, grad, stats, want[0], g, act)
                 dx_want = gg.gn_bwd_apply_reference(x, scale, bias, grad, stats, want[0], g, act)
                 _assert_close(f"gn_bwd_apply C={c}", dx, dx_want, dtype)
-                errs["gn_bwd_apply"][dname] = max(errs["gn_bwd_apply"][dname], _err(dx, dx_want))
+                here["gn_bwd_apply"] = _err(dx, dx_want)
                 both = gg.gn_bwd_apply(x, scale, bias, grad, gg.gn_stats(x, g), got[0], g, act)
                 _assert_close(f"gn_stats+gn_bwd_stats+gn_bwd_apply C={c}", both,
                               gg.group_norm_act_backward_reference(
                                   x, scale, bias, grad, g, act=act)[0], dtype)
             torch.cuda.synchronize()
-            print(f"train kernels: {dname} C={c} G={g} act={act} -> {route} backward ok")
+            for k, e in here.items():
+                errs[k][dname] = max(errs[k][dname], e)
+            print(f"train kernels: {dname} C={c} G={g} act={act} -> {route} backward ok "
+                  "(two calls the same bits); max abs err against the plain version: "
+                  + ", ".join(f"{k} {e:.3g}" for k, e in here.items()))
             del x, grad
+    # #3 at its rule's edge: f32, T = 1, the widest C with G = 16 that
+    # onepass_bwd_fits takes, where rank 0 needs all the shared memory the
+    # rule counts
+    c = 16
+    while gg.onepass_bwd_fits(1, c + 16, 16, 4):
+        c += 16
+    x = torch.randn((2, 1, c), generator=gen, device="cuda")
+    grad = torch.randn((2, 1, c), generator=gen, device="cuda")
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    bias = torch.zeros(c, device="cuda")
+    got = gg.gn_bwd_onepass(x, scale, bias, grad, 16)
+    want = gg.group_norm_act_backward_reference(x, scale, bias, grad, 16)
+    _assert_close(f"gn_bwd_onepass T=1 C={c} dx", got[0], want[0], torch.float32)
+    _assert_sums_close(f"gn_bwd_onepass T=1 C={c}", got[1:], want[1:], 1e-4)
+    print(f"train kernels: float32 T=1 C={c} G=16 (the one-pass backward rule's edge, "
+          f"{gg.onepass_bwd_smem_bytes(1, c, 16, 4)} of {gg.ONEPASS_SMEM_LIMIT} bytes) -> "
+          "gn_bwd_onepass ok")
     return errs
+
+
+def gn_bwd_launches(gg, gen) -> dict:
+    """#3 and #6 as profiler traces record them: B x 8 blocks through
+    cudaLaunchKernelEx, and #6 one kernel a call (no finalize launch)."""
+    x, grad, scale, bias = _bwd_case(512, torch.bfloat16, gen)
+    out = {"gn_bwd_onepass": cluster_launch(
+        "gn_bwd_onepass", lambda: gg.gn_bwd_onepass(x, scale, bias, grad, 8), "train kernels",
+        alone=False)}  # the wrapper's batch sums of dscale, dbias follow it
+    x, grad, scale, bias = _bwd_case(1024, torch.bfloat16, gen)
+    stats = gg.group_stats_reference(x, 8)
+    out["gn_bwd_stats"] = cluster_launch(
+        "gn_bwd_stats", lambda: gg.gn_bwd_stats(x, scale, bias, grad, stats, 8), "train kernels")
+    return out
 
 
 def check_gather_augment(ga, data, gen) -> float:
@@ -593,23 +783,37 @@ def train_kernel_timings(gg, ga, shapes, data, reps, gen, card) -> dict:
                                                   retain_graph=True), reps)
         lib_call = "autograd backward of F.group_norm + activation on [B, C, T]"
         kw = dict(C=c, G=g, act=act)
+        lib_device = profiled_device_ms(lambda: torch.autograd.grad(
+            lib_out, (xt, w16, b16), gt, retain_graph=True), reps)
         if gg.bwd_onepass_engages(T, c, g, x.element_size()):
             ops = elems * (STATS_OPS + NORM_OPS + ACT_GRAD_OPS[act] + BWD_SUM_OPS + BWD_DX_OPS)
-            row("gn_bwd_onepass", n,
-                cuda_ms(lambda: gg.gn_bwd_onepass(x, scale, bias, grad, g, act=act), reps),
+
+            def kernel():
+                return gg.gn_bwd_onepass(x, scale, bias, grad, g, act=act)
+
+            row("gn_bwd_onepass", n, cuda_ms(kernel, reps),
                 cuda_ms(lambda: gg.group_norm_act_backward_reference(
                     x, scale, bias, grad, g, act=act), reps),
                 lib, 3 * xb + 8 * c + 8 * B * c, ops, lib_call, **kw)
+            per_shape["gn_bwd_onepass"][-1].update(
+                device_ms=graph_ms(kernel, reps), profiled_ms=profiled_device_ms(kernel, reps),
+                library_device_ms=lib_device)
         else:
             stats = gg.gn_stats(x, g)
             msums = gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act)[0]
-            row("gn_bwd_stats", n,
-                cuda_ms(lambda: gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act), reps),
+
+            def kernel():
+                return gg.gn_bwd_stats(x, scale, bias, grad, stats, g, act)
+
+            row("gn_bwd_stats", n, cuda_ms(kernel, reps),
                 cuda_ms(lambda: gg.gn_bwd_stats_reference(x, scale, bias, grad, stats, g,
                                                           act), reps),
                 lib, 2 * xb + 8 * c + 8 * B * c + 16 * B * g,
                 elems * (NORM_OPS + ACT_GRAD_OPS[act] + BWD_SUM_OPS),
                 lib_call + " (whole backward)", **kw)
+            per_shape["gn_bwd_stats"][-1].update(
+                device_ms=graph_ms(kernel, reps), profiled_ms=profiled_device_ms(kernel, reps),
+                library_device_ms=lib_device)
             row("gn_bwd_apply", n,
                 cuda_ms(lambda: gg.gn_bwd_apply(x, scale, bias, grad, stats, msums, g,
                                                 act), reps),
@@ -620,7 +824,10 @@ def train_kernel_timings(gg, ga, shapes, data, reps, gen, card) -> dict:
                 lib_call + " (whole backward)", **kw)
         print(f"timing: [{card}] train C={c} G={g} act={act} x{n}/step: " + ", ".join(
             f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.4f}, library "
-            f"{v[-1]['library_ms']:.4f}, bound {v[-1]['bound_ms']:.4f})"
+            f"{v[-1]['library_ms']:.4f}, bound {v[-1]['bound_ms']:.4f}"
+            + (f"; device only {v[-1]['device_ms']:.4f}; kernels' own time in a profiler "
+               f"trace {v[-1]['profiled_ms']:.4f}, library {v[-1]['library_device_ms']:.4f}"
+               if "device_ms" in v[-1] else "") + ")"
             for k, v in per_shape.items() if v and v[-1].get("C") == c))
         del x, grad, xt, lib_out, gt
 
@@ -683,6 +890,7 @@ def phase_train(args, card, blocks, gg, ga, gen):
 
     # each train kernel against its plain version
     errs = check_train_gn_kernels(gg, sorted(shapes), gen)
+    traces = gn_bwd_launches(gg, gen)
     errs["gather_augment"] = {"bfloat16": check_gather_augment(ga, data, gen)}
     data32 = data[:20].float().contiguous()
     errs["gather_augment"]["float32"] = check_gather_augment(ga, data32, gen)
@@ -767,9 +975,22 @@ def phase_train(args, card, blocks, gg, ga, gen):
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in krows)
             else "operations",
             library_ms=lib, per_step_sum=True, card=card, shapes=krows))
+        if name in EARLIER_MS:
+            k = kernels[-1]
+            k.update(device_ms=total("device_ms"), profiled_ms=total("profiled_ms"),
+                     library_device_ms=total("library_device_ms"))
+            print(f"timing: [{card}] {name} per step ({k['launches_per_step']:.0f} launches at C "
+                  f"= {sorted({r['C'] for r in krows})}): {k['ms']:.4f} ms back to back (the "
+                  f"constant for its earlier design: {EARLIER_MS[name]:.3f} ms, "
+                  f"{EARLIER_LAUNCHES[name]} launches), device only {k['device_ms']:.4f} ms "
+                  f"(CUDA graph); library {k['library_ms']:.4f} ms back to back; kernels' own "
+                  f"time in a profiler trace {k['profiled_ms']:.4f} ms against the library's "
+                  f"{k['library_device_ms']:.4f} ms: below the library call "
+                  f"{k['profiled_ms'] < k['library_device_ms']}; bound {k['bound_ms']:.4f} ms")
     result = dict(step_p50_ms=step_p50, step_ms=lat.tolist(),
                   samples_per_s=B / step_p50 * 1e3, steps=steps, epoch_losses=losses,
                   epoch_grad_norms=norms, launches=launches, step_checks=checks,
+                  gn_bwd_launches=traces,
                   params=n_params, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     return kernels, result, dict(cfg=cfg, trainer=trainer, state=state, data=data,
                                  data32=data32)
@@ -986,8 +1207,8 @@ def readout_kernel_timings(rc, gg, reps, gen, card) -> dict:
                  reps),
              linear_ms=cuda_ms(lambda: F.linear(k["h"], k["w"], b16), reps))
     print(f"timing: [{card}] fused readout readout_matmul_stats (wgmma + TMA): {r['ms']:.4f} ms "
-          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s; PR 4's constant for the mma.sync design: "
-          f"{PR4_MS['readout_matmul_stats']:.3f} ms); the product alone {r['product_ms']:.4f} ms "
+          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s; the constant for the mma.sync design: "
+          f"{EARLIER_MS['readout_matmul_stats']:.3f} ms); the product alone {r['product_ms']:.4f} ms "
           f"({flops / r['product_ms'] / 1e9:.1f} TFLOP/s), epilogue share "
           f"{1.0 - r['product_ms'] / r['ms']:.3f}; F.linear {r['linear_ms']:.4f} ms; below "
           f"F.linear + torch.var_mean: {r['ms'] < r['library_ms']}")
@@ -1040,16 +1261,10 @@ def profile_step(trainer, state, data, step_p50, name, label, steps=1, count_mm=
     per step, idle share against the step's p50, and the table of device time
     by kernel. With ``count_mm`` the third value returned is the number of
     library matrix products with a dimension of that size (else None)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=count_mm is not None) as prof:
-        state, _ = trainer.train_epoch(state, data, max_steps=steps)
-        torch.cuda.synchronize()
+    prof, (state, _) = traced(lambda: trainer.train_epoch(state, data, max_steps=steps),
+                              record_shapes=count_mm is not None)
     events = prof.key_averages()
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    busy_ms = sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / steps
     table = events.table(sort_by="self_device_time_total", row_limit=40)
     (OUT_DIR / name).write_text(table)
     print(f"profile: {label} device busy {busy_ms:.3f} ms per step over {steps} against the "
@@ -1673,41 +1888,17 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     return kernels, result
 
 
-# -- --onepass-ab: two versions of gn_act_onepass on one card ------------------
+# -- --ab: two versions of a kernel family on one card -------------------------
 
 # (C, launches per decode) of the serving decode's one-pass GroupNorms (G = 8,
 # gelu, bf16; phase 3 records them).
 DECODE_ONEPASS = ((128, 1), (256, 3), (512, 4))
 
 
-def onepass_ab(trees, seed: int, reps: int) -> int:
-    """Run :func:`onepass_tree` for each tree in a process of its own, in the
-    order given (parent, change, change, parent compares two commits)."""
-    for tree in trees:
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
-                              "--reps", str(reps), "--onepass-tree", str(Path(tree).resolve())],
-                             capture_output=True, text=True, timeout=600)
-        print(out.stdout, end="")
-        if out.returncode:
-            print(out.stderr, file=sys.stderr)
-            return out.returncode
-    print(f"card: {card_line()}")
-    return 0
-
-
-def onepass_tree(tree: str, seed: int, reps: int) -> int:
+def onepass_times(gg, seed: int, reps: int) -> dict:
     """The device time of one decode's gn_act_onepass launches (CUDA graph
-    replay) with the package found in ``tree``, beside F.group_norm + gelu
-    timed the same way, after a check against the plain version. One JSON
-    line."""
-    import hashlib
-
-    sys.path.insert(0, tree)
-    from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
-
-    src = Path(tree) / "simulgen_vae_tpu_torch/ops/csrc/gn_act_onepass.cu"
-    if Path(gg.__file__).resolve() != (src.parent.parent / "groupnorm_gelu.py").resolve():
-        raise AssertionError(f"imported {gg.__file__}, not the package in {tree}")
+    replay) beside F.group_norm + gelu timed the same way, after a check
+    against the plain version."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
     for c, n in DECODE_ONEPASS:
@@ -1719,11 +1910,129 @@ def onepass_tree(tree: str, seed: int, reps: int) -> int:
                          device_ms=graph_ms(lambda: gg.gn_act_onepass(x, scale, bias, 8), reps),
                          library_device_ms=graph_ms(
                              lambda: F.gelu(F.group_norm(xt, 8, s16, b16, 1e-5)), reps)))
-    print(json.dumps(dict(
-        tree=tree, source_sha256=hashlib.sha256(src.read_bytes()).hexdigest()[:12],
+    return dict(
         device_ms_per_decode=sum(r["device_ms"] * r["per_decode"] for r in rows),
         library_device_ms_per_decode=sum(r["library_device_ms"] * r["per_decode"] for r in rows),
-        shapes=rows)))
+        shapes=rows)
+
+
+# (C, launches per step, act) of the train step's GroupNorms (G = 8, bf16;
+# phase 5 records them): the backward route of each is the tree's own.
+STEP_GN = ((128, 3, "gelu"), (256, 5, "gelu"), (512, 6, "gelu"), (1024, 4, "gelu"),
+           (1280, 2, "gelu"), (2560, 2, "gelu"), (5120, 2, "gelu"), (95008, 1, "tanh"))
+
+
+def _backward_route(gg, x, scale, bias, grad, g, act):
+    """The tree's GroupNormAct.backward for a map whose forward took the
+    tree's route: ``(call, {kernel: call})``, the whole backward and each of
+    its kernels."""
+    t, c, elem = x.shape[1], x.shape[2], x.element_size()
+    stats = None if gg.onepass_fits(t, c, g, elem) else gg.gn_stats(x, g)
+    ctx = types.SimpleNamespace(saved_tensors=(x, scale, bias, stats), cfg=(g, 1e-5, act))
+
+    def whole():
+        return gg.GroupNormAct.backward(ctx, grad)
+
+    if gg.bwd_onepass_engages(t, c, g, elem):
+        return whole, {"gn_bwd_onepass": lambda: gg.gn_bwd_onepass(x, scale, bias, grad, g,
+                                                                    act=act)}
+    st = stats if stats is not None else gg.gn_stats(x, g)
+    msums = gg.gn_bwd_stats(x, scale, bias, grad, st, g, act)[0]
+    parts = {"gn_bwd_stats": lambda: gg.gn_bwd_stats(x, scale, bias, grad, st, g, act),
+             "gn_bwd_apply": lambda: gg.gn_bwd_apply(x, scale, bias, grad, st, msums, g, act)}
+    if stats is None:  # a one-pass forward saved no statistics: recomputed
+        parts = {"gn_stats": lambda: gg.gn_stats(x, g), **parts}
+    return whole, parts
+
+
+def gn_bwd_times(gg, seed: int, reps: int) -> dict:
+    """The device time (CUDA graph replay) of one train step's GroupNorm
+    backwards, each on the tree's route, whole and by kernel, after a check
+    of dx against the plain version; and gn_bwd_apply's f32 error at the
+    tanh readout width."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c, n, act in STEP_GN:
+        x, grad, scale, bias = _bwd_case(c, torch.bfloat16, gen)
+        whole, parts = _backward_route(gg, x, scale, bias, grad, 8, act)
+        _assert_close(f"backward C={c} dx", whole()[0],
+                      gg.group_norm_act_backward_reference(x, scale, bias, grad, 8,
+                                                           act=act)[0], x.dtype)
+        rows.append(dict(C=c, per_step=n, act=act, route="+".join(parts),
+                         device_ms=graph_ms(whole, reps),
+                         kernels={k: graph_ms(f, reps) for k, f in parts.items()}))
+        del x, grad
+        torch.cuda.empty_cache()
+
+    def per_step(keep, kernel=None):
+        return sum((r["kernels"].get(kernel, 0.0) if kernel else r["device_ms"]) * r["per_step"]
+                   for r in rows if keep(r["C"]))
+
+    # gn_bwd_apply's f32 error against its plain version at the tanh readout
+    # width (both from the plain statistics and group sums), with y ~ N(0, 1)
+    # and with the scale 8x, where tanh saturates
+    x, grad, scale, bias = _bwd_case(95008, torch.float32, gen)
+    stats = gg.group_stats_reference(x, 8)
+    apply_f32_err = {}
+    for label, s in (("y_1x", scale), ("y_8x", 8.0 * scale)):
+        msums = gg.gn_bwd_stats_reference(x, s, bias, grad, stats, 8, "tanh")[0]
+        apply_f32_err[label] = _err(
+            gg.gn_bwd_apply(x, s, bias, grad, stats, msums, 8, "tanh"),
+            gg.gn_bwd_apply_reference(x, s, bias, grad, stats, msums, 8, "tanh"))
+    del x, grad
+    torch.cuda.empty_cache()
+
+    return dict(
+        gn_bwd_apply_f32_max_abs_err_c95008_tanh=apply_f32_err,
+        backward_ms_per_step=per_step(lambda c: True),
+        c128_256_backward_ms=per_step(lambda c: c <= 256),
+        c512_backward_ms=per_step(lambda c: c == 512),
+        gn_bwd_onepass_ms_per_step=per_step(lambda c: True, "gn_bwd_onepass"),
+        gn_bwd_stats_ms_per_step=per_step(lambda c: True, "gn_bwd_stats"),
+        gn_bwd_stats_wide_ms_per_step=per_step(lambda c: c >= 1024, "gn_bwd_stats"),
+        gn_bwd_stats_below_95008_ms=per_step(lambda c: 1024 <= c < 95008, "gn_bwd_stats"),
+        shapes=rows)
+
+
+# MODE -> (what it times, the kernel sources whose hashes name the tree)
+AB_MODES = {"onepass": (onepass_times, ("gn_act_onepass",)),
+            "gn-bwd": (gn_bwd_times, ("gn_bwd_onepass", "gn_bwd_stats"))}
+
+
+def ab(mode: str, trees, seed: int, reps: int) -> int:
+    """Run :func:`ab_tree` for each tree in a process of its own, in the
+    order given (parent, change, change, parent compares two commits)."""
+    if mode not in AB_MODES:
+        raise SystemExit(f"chip_smoke: --ab MODE is one of {sorted(AB_MODES)}, not {mode!r}")
+    for tree in trees:
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+                              "--reps", str(reps), "--ab-tree", mode, str(Path(tree).resolve())],
+                             capture_output=True, text=True, timeout=900)
+        print(out.stdout, end="")
+        if out.returncode:
+            print(out.stderr, file=sys.stderr)
+            return out.returncode
+    print(f"card: {card_line()}")
+    return 0
+
+
+def ab_tree(mode: str, tree: str, seed: int, reps: int) -> int:
+    """MODE's times with the package found in ``tree``: one JSON line."""
+    import hashlib
+
+    sys.path.insert(0, tree)
+    from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
+
+    csrc = Path(tree) / "simulgen_vae_tpu_torch/ops/csrc"
+    if Path(gg.__file__).resolve() != (csrc.parent / "groupnorm_gelu.py").resolve():
+        raise AssertionError(f"imported {gg.__file__}, not the package in {tree}")
+    times, sources = AB_MODES[mode]
+    print(json.dumps(dict(
+        mode=mode, tree=tree,
+        source_sha256={k: hashlib.sha256((csrc / f"{k}.cu").read_bytes()).hexdigest()[:12]
+                       for k in sources},
+        **times(gg, seed, reps))))
     return 0
 
 
@@ -1732,19 +2041,21 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20, help="timed calls per measurement")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--onepass-ab", nargs="+", metavar="TREE",
-                    help="only time gn_act_onepass per decode (device only) with the package "
-                         "of each TREE, in turn")
-    ap.add_argument("--onepass-tree", help=argparse.SUPPRESS)
+    ap.add_argument("--ab", nargs="+", metavar="MODE TREE",
+                    help="only time one kernel family (device only) with the package of each "
+                         f"TREE, in turn; MODE is one of {sorted(AB_MODES)}")
+    ap.add_argument("--ab-tree", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if args.onepass_tree:
-        return onepass_tree(args.onepass_tree, args.seed, args.reps)
-    if args.onepass_ab:
-        return onepass_ab(args.onepass_ab, args.seed, args.reps)
+    if args.ab_tree:
+        return ab_tree(*args.ab_tree, args.seed, args.reps)
+    if args.ab:
+        if len(args.ab) < 2:
+            ap.error("--ab needs a MODE and at least one TREE")
+        return ab(args.ab[0], args.ab[1:], args.seed, args.reps)
     from simulgen_vae_tpu_torch import convert
     from simulgen_vae_tpu_torch import generate as tgen
     from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
@@ -1803,7 +2114,10 @@ def main(argv=None) -> int:
     # 2. each kernel against its plain version
     gen = torch.Generator("cuda").manual_seed(args.seed)
     errs = phase_kernels(gg, widths, gen)
-    onepass = onepass_launch(gg, gen)
+    x, scale, bias = _map(512, torch.bfloat16, gen)
+    onepass = cluster_launch("gn_act_onepass", lambda: gg.gn_act_onepass(x, scale, bias, 8),
+                             "kernels")
+    del x, scale, bias
 
     # 3b. serve 40 requests through the kernels
     gg.reset_launch_counts()
@@ -1865,20 +2179,29 @@ def main(argv=None) -> int:
           f"{decode_p50:.3f} ms, p75 {decode_p75:.3f} ms, min/max {lat.min():.3f}/"
           f"{lat.max():.3f} ms ({B / decode_p50 * 1e3:.1f} samples/s at p50); "
           f"plain GroupNorm decode p50 {plain_p50:.3f} ms")
+    # the two bf16 rounding repairs: decode before (pre_repair_layers) and
+    # after, in turns: after, before, before, after
+    repairs = dict(erfc=erfc_bits(blocks, gen))
+    for turn, when in enumerate(("after", "before", "before", "after")):
+        ctx = pre_repair_layers(blocks) if when == "before" else contextlib.nullcontext()
+        with ctx:
+            p50 = float(np.percentile(latencies_ms(fn), 50))
+            dev = decode_device(fn, batch)
+        repairs.setdefault(when, []).append(dict(p50_ms=p50, **dev))
+        print(f"timing: [{card}] decode {when} the bf16 rounding repairs (turn {turn + 1}): "
+              f"p50 {p50:.3f} ms, device {dev['device_ms']:.3f} ms, "
+              f"{dev['kernels']:.0f} kernels a decode")
+    repairs["kernels_added_per_decode"] = (repairs["after"][0]["kernels"]
+                                           - repairs["before"][0]["kernels"])
+    print(f"timing: [{card}] the repairs add {repairs['kernels_added_per_decode']:.0f} kernel "
+          "launches a decode")
     per_shape = kernel_timings(gg, calls, args.reps, gen, card)
 
     if args.profile:
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn(batch)
-            torch.cuda.synchronize()
+        prof, _ = traced(lambda: [fn(batch) for _ in range(3)])
         events = prof.key_averages()
         # Kernel rows only: CPU-op rows repeat the device time of their kernels.
-        busy_ms = sum(e.self_device_time_total for e in events
-                      if e.device_type == DeviceType.CUDA) / 1e3 / 3
+        busy_ms = sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / 3
         host_ms = sum(e.self_cpu_time_total for e in events) / 1e3 / 3
         table = events.table(sort_by="self_device_time_total", row_limit=40)
         (OUT_DIR / "chip_smoke_profile.txt").write_text(table)
@@ -1906,8 +2229,8 @@ def main(argv=None) -> int:
             k = kernels[-1]
             k.update(device_ms=total("device_ms"), library_device_ms=total("library_device_ms"))
             print(f"timing: [{card}] gn_act_onepass per decode ({k['launches_per_decode']} "
-                  f"launches): {k['ms']:.4f} ms (PR 4's constant for the one-block design: "
-                  f"{PR4_MS[name]:.3f} ms), device only "
+                  f"launches): {k['ms']:.4f} ms (the constant for the one-block design: "
+                  f"{EARLIER_MS[name]:.3f} ms), device only "
                   f"{k['device_ms']:.4f} ms; library {k['library_ms']:.4f} ms, device only "
                   f"{k['library_device_ms']:.4f} ms; plain {k['plain_ms']:.4f} ms; bound "
                   f"{k['bound_ms']:.4f} ms; below the library call: "
@@ -1940,10 +2263,12 @@ def main(argv=None) -> int:
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
                   serve_checks=checks, launches=launches, kernels=kernels, train=train,
-                  readout_sass=sass, onepass_launch=onepass,
-                  fused_train=fused, stack_train=stack,
+                  readout_sass=sass, onepass_launch=onepass, repairs=repairs,
+                  fused_train=fused, stack_train=stack, profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
+    print(f"profiler: {PROFILER_SESSIONS['sessions']} sessions, "
+          f"{PROFILER_SESSIONS['taken_again']} of them recorded no kernel and were taken again")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

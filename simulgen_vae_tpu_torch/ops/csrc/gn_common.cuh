@@ -50,8 +50,17 @@ __device__ __forceinline__ float activate_grad(float y) {
     return 0.5f * (1.0f + erff(y * 0.70710678118654752f)) +
            y * 0.39894228040143268f * expf(-0.5f * y * y);
   } else if constexpr (ACT == kActTanh) {
-    const float th = tanhf(y);
-    return 1.0f - th * th;
+    // 1 - tanh(y)^2 = sech(y)^2 = 4 e / (1 + e)^2 with e = exp(-2 |y|) <= 1:
+    // branch-free (tanhf branches on |y|), no cancellation near |y| large,
+    // no overflow; e = 0 gives 0. The fast intrinsics: __expf's error grows
+    // with |y| only where e, and so the derivative, is tiny, and d is in
+    // [1, 2]. gn_bwd_apply's f32 error against its plain version at the
+    // 95008-wide tanh map is the same with the accurate expf and division
+    // (1.4e-6, 1.1e-5 with the scale 8x), which make gn_bwd_stats a third
+    // slower there (0.96 against 0.72 ms; H100 80GB HBM3, 700 W).
+    const float e = __expf(-2.0f * fabsf(y));
+    const float d = 1.0f + e;
+    return __fdividef(4.0f * e, d * d);
   } else {
     return 1.0f;
   }
@@ -70,6 +79,22 @@ __device__ __forceinline__ void finalize(float s, float q, float denom,
   const float var = fmaxf(q / denom - m * m, 0.0f);
   *mean = m;
   *inv = rsqrtf(var + eps);
+}
+
+// A 16-byte copy from global to shared memory that does not wait for the
+// data (cp.async); cp_async_commit closes a group of them, cp_async_wait_all
+// waits for all of this thread's.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace gn

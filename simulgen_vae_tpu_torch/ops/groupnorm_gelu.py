@@ -16,14 +16,15 @@ Forward:
 Backward (the JAX ``custom_vjp`` of ``fused_group_norm_gelu`` and
 ``tiled_group_norm_gelu``), through :class:`GroupNormAct`:
 
-* ``gn_bwd_onepass``: x and the incoming gradient of one sample in shared
-  memory (:func:`onepass_bwd_fits`, its own engage rule: at T = 200 only
-  C <= 284 in bf16, C <= 143 in f32);
-* ``gn_bwd_stats`` then ``gn_bwd_apply``: two passes for wider maps. They
-  need the forward's statistics: the two-phase forward saves them; after a
-  one-pass forward whose backward does not fit one block, ``gn_stats``
-  recomputes them (one extra read of a map of at most T x 512 per sample).
-  The forward stays the serving forward, bit for bit.
+* ``gn_bwd_onepass``: x and the incoming gradient of one sample in the
+  shared memory of one cluster of :data:`ONEPASS_CLUSTER` blocks, rows split
+  as in the forward (:func:`onepass_bwd_fits`: at T = 200 every map of the
+  one-pass forward fits);
+* ``gn_bwd_stats`` (one launch: a cluster per sample over the column slices
+  of :func:`bwd_stats_columns`) then ``gn_bwd_apply``: two passes for wider
+  maps, with the statistics the two-phase forward saved. Where a one-pass
+  forward's backward would not fit (not at T = 200), ``gn_stats`` recomputes
+  them. The forward stays the serving forward, bit for bit.
 
 :func:`group_norm_act` dispatches: a CPU tensor goes to the plain versions, a
 CUDA tensor to the kernels, anything else raises. There is no fallback from a
@@ -47,8 +48,12 @@ LAUNCHES = {"gn_act_onepass": 0, "gn_stats": 0, "gn_apply": 0,
 # Largest dynamic shared memory one block may opt into on an H100 (227 KB).
 ONEPASS_SMEM_LIMIT = 232448
 # Blocks in the cluster that holds one sample in gn_act_onepass (8 is the
-# portable cluster size: 128 blocks at B = 16).
+# portable cluster size: 128 blocks at B = 16); gn_bwd_onepass and
+# gn_bwd_stats are built for the same (their `kCluster`).
 ONEPASS_CLUSTER = 8
+# Threads of a gn_bwd_onepass block (its kThreads), which its shared memory
+# counts.
+_BWD_ONEPASS_THREADS = 512
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"none": 0, "gelu": 1, "tanh": 2}
@@ -198,26 +203,35 @@ def onepass_smem_bytes(t: int, c: int, num_groups: int, elem_bytes: int) -> int:
 
 
 def onepass_bwd_smem_bytes(t: int, c: int, num_groups: int, elem_bytes: int) -> int:
-    """Shared memory of one ``gn_bwd_onepass`` block (mirrors the kernel's
-    ``stage_offset``: four column and four group vectors, then x and g, each
-    map starting on a 16-byte boundary)."""
+    """Shared memory of one ``gn_bwd_onepass`` block, the most any rank of
+    its cluster of k = :data:`ONEPASS_CLUSTER` takes (mirrors the kernel's
+    ``stage_offset``: four column vectors, the k ranks' two sets of group
+    partials and their sums over the rank's ``ceil(c / k)`` columns, two
+    group vectors and two floats for each of its 512 threads, then the rank's
+    ``ceil(t / k)`` rows of x and of g, each map starting on a 16-byte
+    boundary)."""
     def round16(v):
         return (v + 15) // 16 * 16
 
-    return round16((4 * c + 4 * num_groups) * 4) + round16(t * c * elem_bytes) \
-        + t * c * elem_bytes
+    k = ONEPASS_CLUSTER
+    staged = -(-t // k) * c * elem_bytes
+    head = (4 * c + 4 * k * num_groups + 2 * k * -(-c // k) + 2 * num_groups
+            + 2 * _BWD_ONEPASS_THREADS) * 4
+    return round16(head) + round16(staged) + staged
 
 
 def onepass_bwd_fits(t: int, c: int, num_groups: int, elem_bytes: int) -> bool:
-    """Engage rule of the one-pass backward: x and the gradient of one sample,
-    both staged in x's dtype, plus column and group sums fit one block's
-    shared memory. At T = 200: C <= 284 in bf16, C <= 143 in f32."""
+    """Engage rule of the one-pass backward: one rank's rows of x and of the
+    gradient, staged in x's dtype, plus column and group sums fit one
+    block's shared memory. At T = 200 (25 rows a rank): C <= 1840 in bf16,
+    C <= 1018 in f32, so every map the one-pass forward takes fits."""
     return onepass_bwd_smem_bytes(t, c, num_groups, elem_bytes) <= ONEPASS_SMEM_LIMIT
 
 
 def bwd_onepass_engages(t: int, c: int, num_groups: int, elem_bytes: int) -> bool:
     """Whether the backward takes ``gn_bwd_onepass``: the forward took the
-    one-pass route (no saved statistics) and x and g fit one block."""
+    one-pass route (no saved statistics) and a rank's x and g fit one block.
+    At T = 200 that is every map of the one-pass forward."""
     return (onepass_fits(t, c, num_groups, elem_bytes)
             and onepass_bwd_fits(t, c, num_groups, elem_bytes))
 
@@ -384,8 +398,10 @@ def gn_bwd_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    grad: torch.Tensor, num_groups: int, eps: float = 1e-5,
                    act: str = "gelu"):
     """One-pass GroupNorm + activation backward (kernel ``gn_bwd_onepass``):
-    ``(dx, dscale, dbias)``; the per-sample dscale/dbias partials the kernel
-    writes are summed over the batch here, in order."""
+    one cluster of :data:`ONEPASS_CLUSTER` blocks per sample, each holding
+    the rows :func:`cluster_rows` gives it. ``(dx, dscale, dbias)``; the
+    per-sample dscale/dbias partials the kernel writes are summed over the
+    batch here, in order."""
     if x.device.type == "cpu":
         return group_norm_act_backward_reference(x, scale, bias, grad, num_groups,
                                                  eps, act)
@@ -397,24 +413,48 @@ def gn_bwd_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if not onepass_bwd_fits(t, c, num_groups, x.element_size()):
         raise ValueError(f"[T={t}, C={c}] {x.dtype} backward does not fit one block")
     fn = _fn("gn_bwd_onepass", "gn_bwd_onepass",
-             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P])
+             [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+              ctypes.POINTER(_I), _P])
     dx = torch.empty_like(x)
     dscale_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
     dbias_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(grad), _ptr(dx),
                  _ptr(dscale_p), _ptr(dbias_p), b, t, c, num_groups, eps,
-                 _DTYPE_CODES[x.dtype], _act_code(act), _stream(x))
+                 _DTYPE_CODES[x.dtype], _act_code(act),
+                 _rank_begin(t, ONEPASS_CLUSTER), _stream(x))
     _raise_on(err, "gn_bwd_onepass")
     LAUNCHES["gn_bwd_onepass"] += 1
     return dx, dscale_p.sum(dim=0), dbias_p.sum(dim=0)
 
 
+def bwd_stats_columns(c: int, elem_bytes: int) -> list[range]:
+    """The columns of a sample that each of the k = :data:`ONEPASS_CLUSTER`
+    blocks of its cluster sums in ``gn_bwd_stats``: contiguous slices of
+    ``ceil(units / k)`` units of ``16 // elem_bytes`` columns (one 16-byte
+    load), clipped to ``c`` (ranks past the end hold none). The kernel takes
+    this split as it is (:func:`_col_begin`)."""
+    k, vec = ONEPASS_CLUSTER, 16 // elem_bytes
+    units = -(-c // vec)
+    per = -(-units // k) * vec
+    return [range(min(c, r * per), min(c, (r + 1) * per)) for r in range(k)]
+
+
+@functools.lru_cache(maxsize=64)
+def _col_begin(c: int, elem_bytes: int):
+    """:func:`bwd_stats_columns` as the kernel's argument: the first column
+    of each rank, then ``c``."""
+    starts = [r.start for r in bwd_stats_columns(c, elem_bytes)]
+    return (ctypes.c_int * (len(starts) + 1))(*starts, c)
+
+
 def gn_bwd_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  grad: torch.Tensor, stats: torch.Tensor, num_groups: int,
                  act: str = "gelu"):
-    """Backward phase A (kernel ``gn_bwd_stats``): ``(msums [B, 2, G],
-    dscale partials [B, C], dbias partials [B, C])``, all f32."""
+    """Backward phase A (kernel ``gn_bwd_stats``, one launch: a cluster of
+    :data:`ONEPASS_CLUSTER` blocks per sample over the column slices of
+    :func:`bwd_stats_columns`): ``(msums [B, 2, G], dscale partials [B, C],
+    dbias partials [B, C])``, all f32."""
     if x.device.type == "cpu":
         return gn_bwd_stats_reference(x, scale, bias, grad, stats, num_groups, act)
     _check_map(x, num_groups)
@@ -424,18 +464,16 @@ def gn_bwd_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _check_stats(stats, x, num_groups, "stats")
     b, t, c = x.shape
     fn = _fn("gn_bwd_stats", "gn_bwd_stats",
-             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
-    tiles = _fn("gn_bwd_stats", "gn_bwd_stats_tiles", [_I])(c)
-    partials = torch.empty((b, tiles, 2, num_groups), device=x.device,
-                           dtype=torch.float32)
+             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+              ctypes.POINTER(_I), _P])
     msums = torch.empty((b, 2, num_groups), device=x.device, dtype=torch.float32)
     dscale_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
     dbias_p = torch.empty((b, c), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = fn(_ptr(x), _ptr(scale), _ptr(bias), _ptr(grad), _ptr(stats),
-                 _ptr(partials), _ptr(msums), _ptr(dscale_p), _ptr(dbias_p),
+                 _ptr(msums), _ptr(dscale_p), _ptr(dbias_p),
                  b, t, c, num_groups, _DTYPE_CODES[x.dtype], _act_code(act),
-                 _stream(x))
+                 _col_begin(c, x.element_size()), _stream(x))
     _raise_on(err, "gn_bwd_stats")
     LAUNCHES["gn_bwd_stats"] += 1
     return msums, dscale_p, dbias_p

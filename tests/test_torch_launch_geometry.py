@@ -1,14 +1,18 @@
-"""Launch geometry of the two Hopper kernels, checked on the CPU.
+"""Launch geometry of the Hopper kernels, checked on the CPU.
 
 ``readout_matmul_stats`` (bf16) cuts its row tiles over the flattened B*T rows,
 across sample boundaries, and keeps one statistics partial per (row tile,
-column tile, sample slot, group); ``gn_act_onepass`` splits each sample's rows
-over the blocks of a cluster. The kernels run only on the card, but what
-indexes their work is made in Python and handed to them as it is (the slot
-table, the rank split): it is held here to covering every row exactly once,
-and (for the readout) to giving the reference's statistics when the
-partials are added in the finalize's order.
+column tile, sample slot, group); ``gn_act_onepass`` and ``gn_bwd_onepass``
+split each sample's rows over the blocks of a cluster, ``gn_bwd_stats`` its
+columns. The kernels run only on the card, but what indexes their work is
+made in Python and handed to them as it is (the slot table, the rank
+splits): it is held here to covering every row or column exactly once, and
+to giving the reference's sums when the partials are added in the order the
+kernels add them.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -125,3 +129,150 @@ def test_rank_split_is_the_kernel_argument(t):
     assert [range(begin[r], begin[r + 1]) for r in range(tgg.ONEPASS_CLUSTER)] == parts
     if t == 200:
         assert [len(r) for r in parts] == [25] * 8
+
+
+# -- the GroupNorm backward kernels -------------------------------------------
+
+CSRC = Path(tgg.__file__).parent / "csrc"
+
+
+@pytest.mark.parametrize("source, name, value", [
+    ("gn_bwd_onepass.cu", "kCluster", tgg.ONEPASS_CLUSTER),
+    ("gn_bwd_stats.cu", "kCluster", tgg.ONEPASS_CLUSTER),
+    ("gn_bwd_onepass.cu", "kThreads", tgg._BWD_ONEPASS_THREADS),
+])
+def test_wrapper_constants_are_the_kernels(source, name, value):
+    """The cluster size the wrappers split rows and columns for, and the
+    threads onepass_bwd_smem_bytes counts, are the constants the kernels are
+    built with: the engage rule is exactly what a rank allocates."""
+    found = re.findall(rf"constexpr int {name} = (\d+);", (CSRC / source).read_text())
+    assert found == [str(value)]
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("c", [512, 1024, 1280, 2560, 5120, 95008, 300, 17, 8, 1100])
+def test_bwd_stats_columns_cover_every_column_once(c, elem):
+    """gn_bwd_stats' column split: contiguous slices in rank order, each
+    starting on a 16-byte boundary (the kernel's loads), every column once."""
+    parts = tgg.bwd_stats_columns(c, elem)
+    vec = 16 // elem
+    assert len(parts) == tgg.ONEPASS_CLUSTER
+    seen = np.zeros(c, dtype=int)
+    for rows in parts:
+        assert rows.step == 1 and (rows.start % vec == 0 or rows.start == c)
+        seen[rows.start:rows.stop] += 1
+    assert (seen == 1).all()
+    assert [r.start for r in parts] == sorted(r.start for r in parts)
+    begin = list(tgg._col_begin(c, elem))
+    assert begin == [r.start for r in parts] + [c]
+
+
+def test_bwd_stats_columns_at_the_train_step_shapes():
+    assert [len(r) for r in tgg.bwd_stats_columns(1024, 2)] == [128] * 8
+    assert [len(r) for r in tgg.bwd_stats_columns(1280, 2)] == [160] * 8
+    assert [len(r) for r in tgg.bwd_stats_columns(95008, 2)] == [11880] * 7 + [11848]
+    assert [len(r) for r in tgg.bwd_stats_columns(512, 4)] == [64] * 8
+
+
+def _bwd_case(b, t, c, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((b, t, c)).astype(np.float32))
+    scale = torch.from_numpy((1.0 + 0.3 * rng.standard_normal(c)).astype(np.float32))
+    bias = torch.from_numpy((0.3 * rng.standard_normal(c)).astype(np.float32))
+    return x, g, scale, bias
+
+
+def _terms(x, g, scale, bias, mean, inv, groups, act):
+    """da, da * xn, dxn, dxn * xn per element (f32), with per-column
+    mean and inv taken from per-group ``[B, G]`` values."""
+    b, t, c = x.shape
+    col = lambda v: v.repeat_interleave(c // groups, dim=1)[:, None, :]  # noqa: E731
+    xn = (x - col(mean)) * col(inv)
+    da = g * tgg._act_grad(xn * scale + bias, act)
+    dxn = da * scale
+    return da, da * xn, dxn, dxn * xn
+
+
+def _emulated_bwd_stats(x, g, scale, bias, stats, groups, act, chunk=4096):
+    """gn_bwd_stats' order: per sample, each rank's slice in chunks of
+    ``chunk`` columns; a chunk's column sums over T of da and da * xn, times
+    scale, go into the rank's group partials chunk after chunk; rank 0 adds
+    the ranks' partials in rank order."""
+    b, t, c = x.shape
+    cg = c // groups
+    da, daxn, _, _ = (v.sum(dim=1) for v in _terms(
+        x, g, scale, bias, stats[:, 0], stats[:, 1], groups, act))
+    dxn, dxnxn = da * scale, daxn * scale
+    msums = torch.zeros((b, 2, groups))
+    for s in range(b):
+        ranks = []
+        for cols in tgg.bwd_stats_columns(c, 2):
+            blk = torch.zeros((2, groups))
+            for c0 in range(cols.start, cols.stop, chunk):
+                c1 = min(c0 + chunk, cols.stop)
+                for grp in range(c0 // cg, (c1 - 1) // cg + 1):
+                    lo, hi = max(grp * cg, c0), min((grp + 1) * cg, c1)
+                    blk[0, grp] += dxn[s, lo:hi].sum()
+                    blk[1, grp] += dxnxn[s, lo:hi].sum()
+            ranks.append(blk)
+        acc = torch.zeros((2, groups))
+        for blk in ranks:
+            acc = acc + blk
+        msums[s] = acc / (t * cg)
+    return msums, daxn, da
+
+
+@pytest.mark.parametrize("b, t, c, groups, act", [(2, 6, 300, 4, "gelu"), (2, 9, 1280, 8, "tanh"),
+                                                  (1, 4, 2969 * 4, 4, "tanh"),
+                                                  (2, 3, 17, 1, "none")])
+def test_bwd_stats_partials_in_rank_order_give_the_reference(b, t, c, groups, act):
+    x, g, scale, bias = _bwd_case(b, t, c)
+    stats = tgg.group_stats_reference(x, groups)
+    got = _emulated_bwd_stats(x, g, scale, bias, stats, groups, act)
+    want = tgg.gn_bwd_stats_reference(x, scale, bias, g, stats, groups, act)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _emulated_bwd_onepass(x, g, scale, bias, groups, act, eps=1e-5):
+    """gn_bwd_onepass' order: per sample, each rank's rows (cluster_rows)
+    summed per column and reduced per group (for dxn and dxn * xn: scale
+    times the column sums of da and da * xn); the statistics and the group
+    means of dxn, dxn * xn from the ranks' partials added in rank order;
+    dscale and dbias per column as the ranks' column sums in rank order."""
+    b, t, c = x.shape
+    cg, denom = c // groups, t * (c // groups)
+    parts = tgg.cluster_rows(t)
+    dx = torch.empty_like(x)
+    dscale_p, dbias_p = torch.empty((b, c)), torch.empty((b, c))
+    for s in range(b):
+        xs, gs = x[s:s + 1], g[s:s + 1]
+        sq = torch.zeros((2, groups))
+        for rows in parts:
+            v = xs[0, rows.start:rows.stop].reshape(-1, groups, cg)
+            sq = sq + torch.stack([v.sum(dim=(0, 2)), (v * v).sum(dim=(0, 2))])
+        mean = sq[0] / denom
+        inv = torch.rsqrt(torch.clamp(sq[1] / denom - mean * mean, min=0.0) + eps)
+        da, daxn, dxn, _ = _terms(xs, gs, scale, bias, mean[None], inv[None], groups, act)
+        m = torch.zeros((2, groups))
+        for rows in parts:
+            sl = slice(rows.start, rows.stop)
+            m = m + torch.stack([(da[0, sl].sum(dim=0) * scale).reshape(groups, cg).sum(dim=1),
+                                 (daxn[0, sl].sum(dim=0) * scale).reshape(groups, cg).sum(dim=1)])
+        dscale_p[s] = sum(daxn[0, r.start:r.stop].sum(dim=0) for r in parts)
+        dbias_p[s] = sum(da[0, r.start:r.stop].sum(dim=0) for r in parts)
+        col = lambda v: v.repeat_interleave(cg)  # noqa: E731
+        xn = (xs[0] - col(mean)) * col(inv)
+        dx[s] = (dxn[0] - col(m[0] / denom) - xn * col(m[1] / denom)) * col(inv)
+    return dx, dscale_p.sum(dim=0), dbias_p.sum(dim=0)
+
+
+@pytest.mark.parametrize("b, t, c, groups, act", [(2, 200, 128, 8, "gelu"), (2, 37, 300, 6, "tanh"),
+                                                  (1, 1, 64, 16, "gelu"), (3, 7, 24, 3, "none")])
+def test_bwd_onepass_partials_in_rank_order_give_the_reference(b, t, c, groups, act):
+    x, g, scale, bias = _bwd_case(b, t, c, seed=1)
+    got = _emulated_bwd_onepass(x, g, scale, bias, groups, act)
+    want = tgg.group_norm_act_backward_reference(x, scale, bias, g, groups, 1e-5, act)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-4, atol=1e-4)

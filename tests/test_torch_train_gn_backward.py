@@ -97,6 +97,31 @@ def test_autograd_function_matches_jax(monkeypatch, route, act):
     _assert_all((xt.grad, st.grad, bt.grad), want)
 
 
+@pytest.mark.parametrize("act", ACTS)
+def test_autograd_function_matches_jax_bf16_c512_onepass(act):
+    """The train step's bf16 C = 512 maps: both routes one-pass at T = 200.
+    bf16 x and g; dx in bf16 within one ulp (rtol 2^-7) of JAX's, the f32
+    dscale and dbias (sums over B x T) within 1e-3 (PERF.md's bf16 tolerance
+    for such sums)."""
+    b, t, c, groups = 2, 200, 512, 8
+    assert tgg.bwd_onepass_engages(t, c, groups, 2)
+    x, scale, bias, g = _case(b, t, c, seed=6)
+    x16, g16 = (jnp.asarray(v, jnp.bfloat16) for v in (x, g))
+    _, vjp = jax.vjp(lambda a, s, b_: jgg.fused_group_norm_gelu(a, s, b_, groups, 1e-5, act),
+                     x16, jnp.asarray(scale), jnp.asarray(bias))
+    want = [np.asarray(jnp.asarray(v, jnp.float32)) for v in vjp(g16)]
+    xt = torch.from_numpy(np.array(x16.astype(jnp.float32))).to(torch.bfloat16)
+    xt.requires_grad_()
+    st, bt = (v.requires_grad_() for v in _t(scale, bias))
+    tgg.reset_launch_counts()
+    out = tgg.group_norm_act(xt, st, bt, groups, 1e-5, act)
+    out.backward(torch.from_numpy(np.array(g16.astype(jnp.float32))).to(torch.bfloat16))
+    assert xt.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(xt.grad.float().numpy(), want[0], rtol=2 ** -7, atol=1e-6)
+    np.testing.assert_allclose(st.grad.numpy(), want[1], rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(bt.grad.numpy(), want[2], rtol=1e-3, atol=1e-3)
+
+
 def test_flagship_group_width_backward():
     """2969-wide groups (the flagship's 11876 = 4 x 2969), C not a multiple of
     128: the two-phase plain backward against the plain one-pass one."""
@@ -128,8 +153,46 @@ def test_no_graph_without_grad():
 
 @pytest.mark.parametrize("t,c,elem,fits", [
     (200, 128, 2, True), (200, 256, 2, True), (200, 284, 2, True),
-    (200, 285, 2, False), (200, 512, 2, False),      # bf16: C <= 284 at T = 200
-    (200, 128, 4, True), (200, 143, 4, True), (200, 144, 4, False),  # f32: C <= 143
+    (200, 285, 2, True), (200, 512, 2, True),        # bf16: C <= 1840 at T = 200
+    (200, 1840, 2, True), (200, 1841, 2, False),
+    (200, 128, 4, True), (200, 143, 4, True), (200, 144, 4, True),  # f32: C <= 1018
+    (200, 1018, 4, True), (200, 1019, 4, False),
+    (1, 7129, 4, True), (1, 7130, 4, False),          # T = 1: one row in rank 0
+    (1, 8149, 2, True), (1, 8150, 2, False),
 ])
 def test_onepass_backward_engage_rule(t, c, elem, fits):
+    """A cluster rank stages ceil(T / 8) rows of x and of g: 25 at T = 200."""
     assert tgg.onepass_bwd_fits(t, c, 1, elem) is fits
+
+
+@pytest.mark.parametrize("t,c,groups,elem", [(200, 1824, 16, 2), (200, 1008, 16, 4),
+                                             (1, 7056, 16, 4), (1, 8064, 16, 2)])
+def test_onepass_backward_rule_counts_what_a_rank_allocates(t, c, groups, elem):
+    """At the rule's edge a rank's head (four column vectors, the 8 ranks'
+    two sets of group partials and their sums over the rank's ceil(C / 8)
+    columns, two group vectors, two floats for each of 512 threads) and its
+    rows of x and g fill the block's shared memory; 16 columns more do not
+    fit."""
+    k = tgg.ONEPASS_CLUSTER
+    rows = -(-t // k)
+    head = (4 * c + 4 * k * groups + 2 * k * -(-c // k) + 2 * groups + 2 * 512) * 4
+    need = (-(-head // 16) * 16
+            + -(-rows * c * elem // 16) * 16 + rows * c * elem)
+    assert tgg.onepass_bwd_smem_bytes(t, c, groups, elem) == need
+    assert tgg.onepass_bwd_fits(t, c, groups, elem)
+    assert not tgg.onepass_bwd_fits(t, c + groups, groups, elem)
+
+
+@pytest.mark.parametrize("elem, widths", [(2, (128, 256, 512)), (4, (128, 256))])
+def test_every_onepass_forward_width_takes_the_onepass_backward(elem, widths):
+    """At T = 200 every map the one-pass forward takes (the train step's
+    C = 128, 256 and, in bf16, 512) has a one-pass backward: no map
+    recomputes its statistics with gn_stats."""
+    for c in widths:
+        assert tgg.onepass_fits(200, c, 8, elem)
+        assert tgg.bwd_onepass_engages(200, c, 8, elem)
+    c = 8
+    while tgg.onepass_fits(200, c, 8, elem):
+        assert tgg.bwd_onepass_engages(200, c, 8, elem)
+        c += 8
+    assert c > widths[-1]
