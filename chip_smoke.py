@@ -186,13 +186,13 @@ MIX_OPS, NOISE_OPS = 5, 33           # amp + mixup; Philox (25) + Box-Muller (8)
 LOSS_OPS, LOSS_GRAD_OPS = 5, 8       # loss and squared error; dl/do, (1 - o^2), da
 TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 1, 10
 READOUT_F, READOUT_C, READOUT_G = 1024, 95008, 8
-# The times of four kernels' earlier designs (one block per sample; an
+# The times of five kernels' earlier designs (one block per sample; an
 # mma.sync tile fed by cp.async; one thread a column and a second launch) on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
 # the kernel table), per decode and per step, back to back: constants,
 # printed beside this run's times on the timing lines and nowhere else.
 EARLIER_MS = {"gn_act_onepass": 0.331, "readout_matmul_stats": 3.723, "gn_bwd_onepass": 0.514,
-          "gn_bwd_stats": 2.014}
+              "gn_bwd_stats": 2.014, "gn_stats": 0.579}
 # The launches per step those two earlier times cover: #3 at C = 128 and 256;
 # #6 from C = 512 up (the C = 512 maps take #3 now).
 EARLIER_LAUNCHES = {"gn_bwd_onepass": 8, "gn_bwd_stats": 17}
@@ -413,10 +413,8 @@ def phase_kernels(gg, widths, gen) -> dict:
                                                     _err(got, want))
                 route = "gn_act_onepass (two calls the same bits)"
             else:
-                stats = gg.gn_stats(x, g)
+                stats = _check_stats(gg, x, g)
                 want_stats = gg.group_stats_reference(x, g)
-                if not torch.allclose(stats, want_stats, atol=2e-5, rtol=1e-5):
-                    raise AssertionError(f"gn_stats C={c}: {_err(stats, want_stats):.3g}")
                 errs["gn_stats"][dname] = max(errs["gn_stats"][dname],
                                               _err(stats, want_stats))
                 got = gg.gn_apply(x, scale, bias, want_stats, g, act)
@@ -427,9 +425,19 @@ def phase_kernels(gg, widths, gen) -> dict:
                 _assert_close(f"gn_stats+gn_apply C={c}", both,
                               gg.group_norm_act_reference(x, scale, bias, g, act=act),
                               dtype)
-                route = "gn_stats+gn_apply"
+                route = "gn_stats+gn_apply (gn_stats: two calls the same bits)"
             torch.cuda.synchronize()
             print(f"kernels: {dname} C={c} G={g} act={act} -> {route} ok")
+    # gn_stats at ragged edges: T = 1 and C = 1000 (no multiple of 128); C =
+    # 300 in bf16 (no multiple of a 16-byte vector: one element a load); G =
+    # 128 (the JAX kernel's lane limit; 8-wide groups)
+    for dtype, t, c, g in ((torch.float32, 1, 1000, 8), (torch.bfloat16, 37, 300, 4),
+                           (torch.float32, 3, 1024, 128)):
+        x = torch.randn((B, t, c), generator=gen, device="cuda").to(dtype)
+        dname = str(dtype).split(".")[1]
+        errs["gn_stats"][dname] = max(errs["gn_stats"][dname],
+                                      _err(_check_stats(gg, x, g), gg.group_stats_reference(x, g)))
+        print(f"kernels: {dname} T={t} C={c} G={g} -> gn_stats ok (two calls the same bits)")
     # the rule's edge: f32, T = 1, the widest C with G = 16 that onepass_fits
     # takes, where a block needs all the shared memory the rule counts
     c = 16
@@ -445,6 +453,33 @@ def phase_kernels(gg, widths, gen) -> dict:
           f"{gg.onepass_smem_bytes(1, c, 16, 4)} of {gg.ONEPASS_SMEM_LIMIT} bytes) -> "
           "gn_act_onepass ok")
     return errs
+
+
+def _check_stats(gg, x, g):
+    """gn_stats on ``x`` against its plain version (atol 2e-5, rtol 1e-5),
+    the same bits on two calls."""
+    stats = gg.gn_stats(x, g)
+    want = gg.group_stats_reference(x, g)
+    if not torch.allclose(stats, want, atol=2e-5, rtol=1e-5):
+        raise AssertionError(f"gn_stats {tuple(x.shape)} {x.dtype} G={g}: {_err(stats, want):.3g}")
+    if not torch.equal(stats, gg.gn_stats(x, g)):
+        raise AssertionError(f"gn_stats {tuple(x.shape)} {x.dtype} G={g}: two calls differ")
+    return stats
+
+
+def gn_stats_launches(gg, gen) -> dict:
+    """gn_stats as profiler traces record it at a narrow and the readout
+    width: one kernel a call (no finalize launch), B x STATS_CLUSTER blocks
+    through cudaLaunchKernelEx."""
+    out = {}
+    for c in (1024, 95008):
+        x = _map(c, torch.bfloat16, gen)[0]
+        out[c] = cluster_launch("gn_stats", lambda: gg.gn_stats(x, 8), f"kernels C={c}")
+        if out[c]["blocks_per_sample"] != gg.STATS_CLUSTER:
+            raise AssertionError(f"gn_stats C={c}: {out[c]['blocks_per_sample']} blocks a "
+                                 f"sample, not {gg.STATS_CLUSTER}")
+        del x
+    return out
 
 
 @contextlib.contextmanager
@@ -575,10 +610,17 @@ def kernel_timings(gg, calls, reps, gen, card) -> dict:
         else:
             stats = gg.gn_stats(x, g)
             cg = c // g
-            row("gn_stats", cuda_ms(lambda: gg.gn_stats(x, g), reps),
+            def stats_kernel():
+                return gg.gn_stats(x, g)
+
+            def var_mean():
+                return torch.var_mean(x.view(B, T, g, cg), dim=(1, 3))
+
+            row("gn_stats", cuda_ms(stats_kernel, reps),
                 cuda_ms(lambda: gg.group_stats_reference(x, g), reps),
-                cuda_ms(lambda: torch.var_mean(x.view(B, T, g, cg), dim=(1, 3)), reps),
-                xb + 8 * B * g, elems * STATS_OPS, "torch.var_mean")
+                cuda_ms(var_mean, reps), xb + 8 * B * g, elems * STATS_OPS, "torch.var_mean")
+            per_shape["gn_stats"][-1].update(device_ms=graph_ms(stats_kernel, reps),
+                                             library_device_ms=graph_ms(var_mean, reps))
             row("gn_apply",
                 cuda_ms(lambda: gg.gn_apply(x, scale, bias, stats, g, act), reps),
                 cuda_ms(lambda: gg.group_apply_reference(x, scale, bias, stats, g, act),
@@ -589,10 +631,11 @@ def kernel_timings(gg, calls, reps, gen, card) -> dict:
             f"{k} {v[-1]['ms']:.4f} ms (plain {v[-1]['plain_ms']:.4f}, library "
             f"{v[-1]['library_ms']:.4f}, bound {v[-1]['bound_ms']:.4f})"
             for k, v in per_shape.items() if v and v[-1]["C"] == c))
-        r = per_shape["gn_act_onepass"][-1] if per_shape["gn_act_onepass"] else {}
-        if r.get("C") == c:
-            print(f"timing: [{card}] C={c} gn_act_onepass device only (CUDA graph): "
-                  f"{r['device_ms']:.4f} ms, library {r['library_device_ms']:.4f} ms")
+        for name in ("gn_act_onepass", "gn_stats"):
+            r = per_shape[name][-1] if per_shape[name] else {}
+            if r.get("C") == c:
+                print(f"timing: [{card}] C={c} {name} device only (CUDA graph): "
+                      f"{r['device_ms']:.4f} ms, library {r['library_device_ms']:.4f} ms")
     return per_shape
 
 
@@ -1995,9 +2038,122 @@ def gn_bwd_times(gg, seed: int, reps: int) -> dict:
         shapes=rows)
 
 
+# (C, launches per decode, per unfused train step) of gn_stats' maps (G = 8,
+# bf16): the decode's nine two-phase forwards (phase 3 records them; gelu up
+# to C = 5120, tanh at the readout) and the step's eleven (phase 5; ten in
+# the fused step, whose readout map goes through readout_matmul_stats).
+STATS_MAPS = ((1024, 2, 4), (1280, 2, 2), (2560, 2, 2), (5120, 2, 2), (95008, 1, 1))
+
+
+def gn_stats_times(gg, seed: int, reps: int) -> dict:
+    """The device time of gn_stats on each map of a decode and a train step,
+    from a replayed CUDA graph and as the kernels' own time in a profiler
+    trace, beside torch.var_mean measured both ways, after a check against
+    the plain version; and a hash of gn_bwd_stats' outputs at two widths, so
+    two trees show whether that kernel gives the same bits."""
+    import hashlib
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for c, per_decode, per_step in STATS_MAPS:
+        x = _map(c, torch.bfloat16, gen)[0]
+        want = gg.group_stats_reference(x, 8)
+        if not torch.allclose(gg.gn_stats(x, 8), want, atol=2e-5, rtol=1e-5):
+            raise AssertionError(f"gn_stats C={c}: {_err(gg.gn_stats(x, 8), want):.3g}")
+        xv = x.view(B, T, 8, c // 8)
+
+        def kernel():
+            return gg.gn_stats(x, 8)
+
+        def library():
+            return torch.var_mean(xv, dim=(1, 3))
+
+        rows.append(dict(C=c, per_decode=per_decode, per_step=per_step,
+                         bound_ms=(x.numel() * x.element_size() + 8 * B * 8)
+                         / HBM_BYTES_PER_S * 1e3,
+                         device_ms=graph_ms(kernel, reps),
+                         profiled_ms=profiled_device_ms(kernel, reps),
+                         library_device_ms=graph_ms(library, reps),
+                         library_profiled_ms=profiled_device_ms(library, reps)))
+        del x, xv
+    bwd_bits = {}
+    for c, act in ((1024, "gelu"), (95008, "tanh")):
+        x, grad, scale, bias = _bwd_case(c, torch.bfloat16, gen)
+        h = hashlib.sha256()
+        for out in gg.gn_bwd_stats(x, scale, bias, grad, gg.group_stats_reference(x, 8), 8, act):
+            h.update(out.cpu().numpy().tobytes())
+        bwd_bits[c] = h.hexdigest()[:16]
+        del x, grad
+    torch.cuda.empty_cache()
+
+    def total(key, per, keep=lambda c: True):
+        return sum(r[key] * r[per] for r in rows if keep(r["C"]))
+
+    keys = ("device_ms", "profiled_ms", "library_device_ms", "library_profiled_ms", "bound_ms")
+    return dict(
+        per_decode={k: total(k, "per_decode") for k in keys},
+        per_decode_narrow={k: total(k, "per_decode", lambda c: c < 95008) for k in keys},
+        per_step={k: total(k, "per_step") for k in keys},
+        gn_bwd_stats_sha256=bwd_bits, shapes=rows)
+
+
+def gn_stats_cluster_times(gg, seed: int, reps: int) -> dict:
+    """gn_stats built with clusters of k = 5, 6 (the shipped size), 7 and 8
+    blocks a sample (_build.VARIANTS gn_stats_k*): how many of its clusters
+    the card holds at once (the occupancy API, with the build's own shared
+    memory a block and with one block an SM), and its device time (CUDA
+    graph) at T = 1 and on each map of a decode, after a check against the
+    plain version and of the same bits on two calls."""
+    import ctypes
+
+    from simulgen_vae_tpu_torch.ops import _build
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    maps = {c: _map(c, torch.bfloat16, gen)[0] for c, _, _ in STATS_MAPS}
+    maps["1x1024"] = torch.randn((B, 1, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    builds = []
+    for k in (5, 6, 7, 8):
+        lib = _build.load(f"gn_stats_k{k}")
+        lib.gn_stats_clusters.argtypes, lib.gn_stats_clusters.restype = [ctypes.c_int], ctypes.c_int
+        fn = lib.gn_stats
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_float,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        row = dict(k=k, clusters_at_once=lib.gn_stats_clusters(0),
+                   clusters_at_once_one_block_an_sm=lib.gn_stats_clusters(1), device_ms={})
+        for key, x in maps.items():
+            b, t, c = x.shape
+            stats = torch.empty((b, 2, 8), device="cuda", dtype=torch.float32)
+            split = gg.stats_col_begin(c, x.element_size(), k)
+
+            def call(x=x, stats=stats, split=split, t=t, c=c):
+                err = fn(x.data_ptr(), stats.data_ptr(), b, t, c, 8, 1e-5, 1, split,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"gn_stats_k{k}: CUDA error {err}")
+                return stats
+
+            first = call().clone()
+            want = gg.group_stats_reference(x, 8)
+            if not torch.allclose(first, want, atol=2e-5, rtol=1e-5) or not torch.equal(first, call()):
+                raise AssertionError(f"gn_stats_k{k} {tuple(x.shape)}: {_err(first, want):.3g} "
+                                     "or two calls differ")
+            row["device_ms"][str(key)] = graph_ms(call, reps)
+        row["per_decode_ms"] = sum(row["device_ms"][str(c)] * n for c, n, _ in STATS_MAPS)
+        builds.append(row)
+        print(f"gn_stats_k{k}: {row['clusters_at_once']} clusters at once "
+              f"({row['clusters_at_once_one_block_an_sm']} one block an SM); device only "
+              + ", ".join(f"{key} {v * 1e3:.2f} us" for key, v in row["device_ms"].items())
+              + f"; a decode {row['per_decode_ms']:.4f} ms")
+    del maps
+    torch.cuda.empty_cache()
+    return dict(builds=builds)
+
+
 # MODE -> (what it times, the kernel sources whose hashes name the tree)
 AB_MODES = {"onepass": (onepass_times, ("gn_act_onepass",)),
-            "gn-bwd": (gn_bwd_times, ("gn_bwd_onepass", "gn_bwd_stats"))}
+            "gn-bwd": (gn_bwd_times, ("gn_bwd_onepass", "gn_bwd_stats")),
+            "gn-stats": (gn_stats_times, ("gn_stats", "gn_bwd_stats")),
+            "gn-stats-clusters": (gn_stats_cluster_times, ("gn_stats",))}
 
 
 def ab(mode: str, trees, seed: int, reps: int) -> int:
@@ -2118,6 +2274,7 @@ def main(argv=None) -> int:
     onepass = cluster_launch("gn_act_onepass", lambda: gg.gn_act_onepass(x, scale, bias, 8),
                              "kernels")
     del x, scale, bias
+    stats_launch = gn_stats_launches(gg, gen)
 
     # 3b. serve 40 requests through the kernels
     gg.reset_launch_counts()
@@ -2225,11 +2382,11 @@ def main(argv=None) -> int:
             else "operations",
             library_ms=total("library_ms"), per_decode_sum=True, card=card,
             shapes=rows))
-        if name == "gn_act_onepass":
+        if name in ("gn_act_onepass", "gn_stats"):
             k = kernels[-1]
             k.update(device_ms=total("device_ms"), library_device_ms=total("library_device_ms"))
-            print(f"timing: [{card}] gn_act_onepass per decode ({k['launches_per_decode']} "
-                  f"launches): {k['ms']:.4f} ms (the constant for the one-block design: "
+            print(f"timing: [{card}] {name} per decode ({k['launches_per_decode']} "
+                  f"launches): {k['ms']:.4f} ms (the constant for the earlier design: "
                   f"{EARLIER_MS[name]:.3f} ms), device only "
                   f"{k['device_ms']:.4f} ms; library {k['library_ms']:.4f} ms, device only "
                   f"{k['library_device_ms']:.4f} ms; plain {k['plain_ms']:.4f} ms; bound "
@@ -2263,7 +2420,8 @@ def main(argv=None) -> int:
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
                   serve_checks=checks, launches=launches, kernels=kernels, train=train,
-                  readout_sass=sass, onepass_launch=onepass, repairs=repairs,
+                  readout_sass=sass, onepass_launch=onepass, gn_stats_launch=stats_launch,
+                  repairs=repairs,
                   fused_train=fused, stack_train=stack, profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))

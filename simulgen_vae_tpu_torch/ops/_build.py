@@ -29,8 +29,11 @@ NVCC_FLAGS = (
 )
 # Measurement builds: a kernel's source with extra flags, loaded by no
 # wrapper. chip_smoke.py times readout_matmul_stats' product without its
-# epilogue with the first.
-VARIANTS = {"readout_matmul_stats_product": ("readout_matmul_stats", ("-DREADOUT_PRODUCT_ONLY",))}
+# epilogue with the first, and gn_stats with clusters of k blocks (k = 6 is
+# the shipped build) and their occupancy (`gn_stats_clusters`) with the rest.
+VARIANTS = {"readout_matmul_stats_product": ("readout_matmul_stats", ("-DREADOUT_PRODUCT_ONLY",)),
+            **{f"gn_stats_k{k}": ("gn_stats", (f"-DGN_STATS_CLUSTER={k}", "-DGN_STATS_PROBE"))
+               for k in (5, 6, 7, 8)}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}

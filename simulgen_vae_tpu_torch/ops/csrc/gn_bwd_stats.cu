@@ -67,9 +67,7 @@ constexpr int kDepth = 4;
 // groupnorm_gelu.py, which builds the column split for it).
 constexpr int kCluster = 8;
 
-struct ColSplit {
-  int begin[kCluster + 1];
-};
+using ColSplit = gn::ColSplit<kCluster>;
 
 // Dynamic shared memory: the load ring [kDepth, 2, threads] of 16-byte
 // vectors, whose space the row slots' sums [slots, 2, width] reuse once the
@@ -109,11 +107,6 @@ __device__ __forceinline__ float2 ranks_sum(const cgrp::cluster_group& cluster,
   }
   return make_float2(sa, sb);
 }
-
-template <typename T, int VEC>
-struct alignas(16) Pack {
-  T v[VEC];
-};
 
 template <typename T, int ACT, int VEC, int THREADS>
 __global__ void __launch_bounds__(THREADS)
@@ -174,7 +167,7 @@ gn_bwd_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
         sc[e] = scale[c + e];
         bi[e] = bias[c + e];
       }
-      auto add_row = [&](const Pack<T, VEC>& xv, const Pack<T, VEC>& gv) {
+      auto add_row = [&](const gn::Pack<T, VEC>& xv, const gn::Pack<T, VEC>& gv) {
 #pragma unroll
         for (int e = 0; e < VEC; ++e) {
           const bool first = e < split;
@@ -203,7 +196,7 @@ gn_bwd_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
         for (int j = 0; j < my_rows; ++j) {
           issue(j + kDepth - 1);
           asm volatile("cp.async.wait_group %0;\n" ::"n"(kDepth - 1) : "memory");
-          Pack<T, VEC> xv, gv;
+          gn::Pack<T, VEC> xv, gv;
           *reinterpret_cast<uint4*>(xv.v) = ring[((j % kDepth) * 2) * THREADS + threadIdx.x];
           *reinterpret_cast<uint4*>(gv.v) = ring[((j % kDepth) * 2 + 1) * THREADS + threadIdx.x];
           add_row(xv, gv);
@@ -212,7 +205,7 @@ gn_bwd_stats_kernel(const T* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll 4
         for (int j = 0; j < my_rows; ++j) {
           const size_t i = (size_t)(slot + j * slots) * cols + c;
-          Pack<T, VEC> xv, gv;
+          gn::Pack<T, VEC> xv, gv;
           xv.v[0] = xb[i];
           gv.v[0] = gb[i];
           add_row(xv, gv);
@@ -341,14 +334,10 @@ extern "C" int gn_bwd_stats(const void* x, const void* scale, const void* bias,
                             void* dscale_p, void* dbias_p, int batch, int rows, int cols,
                             int groups, int dtype, int act, const int* col_begin,
                             void* stream) {
-  if (batch <= 0 || rows <= 0 || cols <= 0 || groups <= 0 || cols % groups != 0 ||
-      col_begin == nullptr || col_begin[0] != 0 || col_begin[kCluster] != cols)
-    return (int)cudaErrorInvalidValue;
   ColSplit split{};
-  for (int r = 0; r <= kCluster; ++r) {
-    if (r > 0 && col_begin[r] < col_begin[r - 1]) return (int)cudaErrorInvalidValue;
-    split.begin[r] = col_begin[r];
-  }
+  if (batch <= 0 || rows <= 0 || cols <= 0 || groups <= 0 || cols % groups != 0 ||
+      !split.read(col_begin, cols))
+    return (int)cudaErrorInvalidValue;
   Launch launch{x,
                 static_cast<const float*>(scale),
                 static_cast<const float*>(bias),

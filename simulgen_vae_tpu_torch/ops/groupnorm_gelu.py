@@ -10,7 +10,9 @@ Forward:
 * ``gn_act_onepass``: each sample in the shared memory of one thread-block
   cluster of :data:`ONEPASS_CLUSTER` blocks (:func:`cluster_rows`), for maps
   whose whole sample would fit one block (:func:`onepass_fits`);
-* ``gn_stats`` then ``gn_apply``: two passes for wider maps, such as the
+* ``gn_stats`` (one launch: a cluster of :data:`STATS_CLUSTER` blocks per
+  sample over the column slices of :func:`cluster_columns`, the finalize in
+  the kernel) then ``gn_apply``: two passes for wider maps, such as the
   95008-channel readout with 11876-wide groups.
 
 Backward (the JAX ``custom_vjp`` of ``fused_group_norm_gelu`` and
@@ -20,11 +22,12 @@ Backward (the JAX ``custom_vjp`` of ``fused_group_norm_gelu`` and
   shared memory of one cluster of :data:`ONEPASS_CLUSTER` blocks, rows split
   as in the forward (:func:`onepass_bwd_fits`: at T = 200 every map of the
   one-pass forward fits);
-* ``gn_bwd_stats`` (one launch: a cluster per sample over the column slices
-  of :func:`bwd_stats_columns`) then ``gn_bwd_apply``: two passes for wider
-  maps, with the statistics the two-phase forward saved. Where a one-pass
-  forward's backward would not fit (not at T = 200), ``gn_stats`` recomputes
-  them. The forward stays the serving forward, bit for bit.
+* ``gn_bwd_stats`` (one launch: a cluster of :data:`ONEPASS_CLUSTER` blocks
+  per sample over the column slices of :func:`cluster_columns`) then
+  ``gn_bwd_apply``: two passes for wider maps, with the
+  statistics the two-phase forward saved. Where a one-pass forward's
+  backward would not fit (not at T = 200), ``gn_stats`` recomputes them. The
+  forward stays the serving forward, bit for bit.
 
 :func:`group_norm_act` dispatches: a CPU tensor goes to the plain versions, a
 CUDA tensor to the kernels, anything else raises. There is no fallback from a
@@ -51,6 +54,12 @@ ONEPASS_SMEM_LIMIT = 232448
 # portable cluster size: 128 blocks at B = 16); gn_bwd_onepass and
 # gn_bwd_stats are built for the same (their `kCluster`).
 ONEPASS_CLUSTER = 8
+# Blocks in gn_stats' cluster a sample (its `kCluster`) and the bytes its
+# rank slices are aligned to: an H100 holds 17 clusters of 6 blocks that
+# each take a whole SM at once but only 15 of 7 or 8, so at B = 16 every
+# sample's cluster gets SMs of its own.
+STATS_CLUSTER = 6
+STATS_UNIT_BYTES = 128
 # Threads of a gn_bwd_onepass block (its kThreads), which its shared memory
 # counts.
 _BWD_ONEPASS_THREADS = 512
@@ -353,19 +362,19 @@ def gn_act_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def gn_stats(x: torch.Tensor, num_groups: int, eps: float = 1e-5) -> torch.Tensor:
-    """Group statistics ``[B, 2, G]`` f32 of (mean, inv) (kernel ``gn_stats``)."""
+    """Group statistics ``[B, 2, G]`` f32 of (mean, inv) (kernel ``gn_stats``,
+    one launch: a cluster of :data:`STATS_CLUSTER` blocks per sample over
+    the column slices of :func:`cluster_columns`, finalized in the kernel)."""
     if x.device.type == "cpu":
         return group_stats_reference(x, num_groups, eps)
     _check_map(x, num_groups)
     b, t, c = x.shape
-    fn = _fn("gn_stats", "gn_stats", [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P])
-    tiles = _fn("gn_stats", "gn_stats_tiles", [_I])(c)
-    partials = torch.empty((b, tiles, 2, num_groups), device=x.device,
-                           dtype=torch.float32)
+    fn = _fn("gn_stats", "gn_stats",
+             [_P, _P, _I, _I, _I, _I, _F, _I, ctypes.POINTER(_I), _P])
     stats = torch.empty((b, 2, num_groups), device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        err = fn(_ptr(x), _ptr(partials), _ptr(stats), b, t, c, num_groups,
-                 eps, _DTYPE_CODES[x.dtype], _stream(x))
+        err = fn(_ptr(x), _ptr(stats), b, t, c, num_groups, eps,
+                 _DTYPE_CODES[x.dtype], stats_col_begin(c, x.element_size()), _stream(x))
     _raise_on(err, "gn_stats")
     LAUNCHES["gn_stats"] += 1
     return stats
@@ -428,24 +437,35 @@ def gn_bwd_onepass(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return dx, dscale_p.sum(dim=0), dbias_p.sum(dim=0)
 
 
-def bwd_stats_columns(c: int, elem_bytes: int) -> list[range]:
-    """The columns of a sample that each of the k = :data:`ONEPASS_CLUSTER`
-    blocks of its cluster sums in ``gn_bwd_stats``: contiguous slices of
-    ``ceil(units / k)`` units of ``16 // elem_bytes`` columns (one 16-byte
-    load), clipped to ``c`` (ranks past the end hold none). The kernel takes
-    this split as it is (:func:`_col_begin`)."""
-    k, vec = ONEPASS_CLUSTER, 16 // elem_bytes
+def cluster_columns(c: int, elem_bytes: int, k: int = ONEPASS_CLUSTER,
+                    unit_bytes: int = 16) -> list[range]:
+    """The columns of a sample that each of the k blocks of its cluster sums
+    in ``gn_bwd_stats`` (k = :data:`ONEPASS_CLUSTER`, 16-byte units) and
+    ``gn_stats`` (:data:`STATS_CLUSTER`, :data:`STATS_UNIT_BYTES`):
+    contiguous slices of ``ceil(units / k)`` units of ``unit_bytes //
+    elem_bytes`` columns, clipped to ``c`` (ranks past the end hold none).
+    The kernels take this split as it is (:func:`_col_begin`)."""
+    vec = unit_bytes // elem_bytes
     units = -(-c // vec)
     per = -(-units // k) * vec
     return [range(min(c, r * per), min(c, (r + 1) * per)) for r in range(k)]
 
 
+bwd_stats_columns = cluster_columns
+
+
 @functools.lru_cache(maxsize=64)
-def _col_begin(c: int, elem_bytes: int):
-    """:func:`bwd_stats_columns` as the kernel's argument: the first column
+def _col_begin(c: int, elem_bytes: int, k: int = ONEPASS_CLUSTER, unit_bytes: int = 16):
+    """:func:`cluster_columns` as the kernels' argument: the first column
     of each rank, then ``c``."""
-    starts = [r.start for r in bwd_stats_columns(c, elem_bytes)]
+    starts = [r.start for r in cluster_columns(c, elem_bytes, k, unit_bytes)]
     return (ctypes.c_int * (len(starts) + 1))(*starts, c)
+
+
+def stats_col_begin(c: int, elem_bytes: int, k: int = STATS_CLUSTER):
+    """``gn_stats``' column split for a cluster of k blocks (its build's
+    ``kCluster``) as the kernel's argument."""
+    return _col_begin(c, elem_bytes, k, STATS_UNIT_BYTES)
 
 
 def gn_bwd_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -453,7 +473,7 @@ def gn_bwd_stats(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  act: str = "gelu"):
     """Backward phase A (kernel ``gn_bwd_stats``, one launch: a cluster of
     :data:`ONEPASS_CLUSTER` blocks per sample over the column slices of
-    :func:`bwd_stats_columns`): ``(msums [B, 2, G], dscale partials [B, C],
+    :func:`cluster_columns`): ``(msums [B, 2, G], dscale partials [B, C],
     dbias partials [B, C])``, all f32."""
     if x.device.type == "cpu":
         return gn_bwd_stats_reference(x, scale, bias, grad, stats, num_groups, act)
