@@ -2,14 +2,14 @@
 """Drive the PyTorch/CUDA port (simulgen_vae_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--reps 20] [--profile]
-    python3 chip_smoke.py --ab {onepass,gn-bwd} TREE [TREE ...]
+    python3 chip_smoke.py --ab {onepass,gn-bwd,gn-stats,gn-stats-clusters,readout-bwd} TREE ...
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. build   : compile ops/csrc/*.cu with nvcc (one process per source, all at
              once) and print the card's name and power limit; the built
-             readout_matmul_stats library's SASS must hold HGMMA (wgmma) and
-             UTMALDG (TMA loads);
+             readout_matmul_stats and readout_bwd_fused libraries' SASS must
+             hold HGMMA (wgmma) and UTMALDG (TMA loads);
 2. kernels : each GroupNorm forward kernel against its plain PyTorch version
              on the card, at the serving decode's shapes (B=16, T=200), f32
              within atol 2e-5 and bf16 within atol 1e-2, rtol 1e-2;
@@ -77,14 +77,22 @@ Phases, each printing its own lines; any failure exits non-zero:
              the time of its earlier design, a constant), the
              readout segment
              fused against unfused, and the fused against the unfused step
-             p50, timed in turns;
+             p50, timed in turns; bwd="auto" must run the backward flavor
+             ops.readout_chain.bwd_flavor answers at the flagship shape (its
+             kernel once a step, the other flavor's never);
 7. stack   : the benched train stack. readout_bwd_fused (the backward that
              never writes dy) against its plain version in bf16 and f32 at the
              flagship readout shape, three shapes with F = 128 and two ragged
              ones (dW, dh rel-L2 1e-5 f32 / 1e-2 bf16; d bias 1e-4 / 1e-3;
-             d inv_sigma 2e-3; two runs the same bits; readout_matmul_stats,
+             d inv_sigma 2e-3; two runs the same bits; in bf16 also at six
+             shapes of other cluster sizes and of ragged rows at F > 128;
+             readout_matmul_stats,
              which makes its inputs, held against its plain version at each
-             of these shapes on the way), and fused_adamw against
+             of these shapes on the way; its bf16 plan, as its library reports
+             it, must match the wrapper's bwd_fused_cluster, and a profiler
+             trace of one flagship call must show its two passes as cluster
+             launches through cudaLaunchKernelExC with the plan's grid), and
+             fused_adamw against
              the plain AdamW on leaves that include [95008, 1024], a conv
              weight, an odd vector and a scalar, for f32, round-to-nearest
              bf16 and stochastically rounded bf16 moments (parameters rel-L2
@@ -102,8 +110,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              kernel, through its plain version and with the materializing
              backward (tolerances of phase 6), and the kernel AdamW against the
              plain one (parameters rel-L2 1e-6); then times in turns: the
-             backward segment dy-free against materializing at every shape
-             (the table behind ops.readout_chain.bwd_flavor), fused_adamw over
+             backward segment dy-free against materializing at every shape,
+             device only from replayed CUDA graphs (the table behind
+             ops.readout_chain.bwd_flavor), fused_adamw over
              the model's 403.5M parameters in its three modes beside the plain
              sweeps, torch's fused AdamW and the byte bounds, and the step p50
              of four stacks.
@@ -124,7 +133,12 @@ one decode's gn_act_onepass launches (C = 128 x1, 256 x3, 512 x4; bf16, B =
 16, T = 200) beside F.group_norm + gelu timed the same way. MODE gn-bwd: one
 train step's GroupNorm backwards (bf16, B = 16, T = 200, G = 8: C = 128 x3,
 256 x5, 512 x6, 1024 x4, 1280 x2, 2560 x2, 5120 x2, 95008 x1 with tanh),
-each on that tree's own route, whole and kernel by kernel.
+each on that tree's own route, whole and kernel by kernel. MODE gn-stats:
+gn_stats on each map of a decode and a step, with hashes of gn_bwd_stats'
+outputs; gn-stats-clusters: gn_stats' measurement builds with clusters of 5
+to 8. MODE readout-bwd: readout_bwd_fused and both backward segments
+(dy-free, materializing) at every phase 7 shape, in bf16, device only, with
+a hash of readout_matmul_stats' outputs at two shapes.
 """
 
 from __future__ import annotations
@@ -300,19 +314,25 @@ def profiled_device_ms(fn, reps: int) -> float:
     return sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / reps
 
 
+# The libraries whose bf16 kernels rest on wgmma fed by TMA.
+WGMMA_TMA_LIBS = ("readout_matmul_stats", "readout_bwd_fused")
+
+
 def sass_check(_build) -> dict:
-    """The built readout_matmul_stats library's SASS holds the Hopper
+    """Each built library of WGMMA_TMA_LIBS holds in its SASS the Hopper
     instructions its design rests on: HGMMA (wgmma) and UTMALDG (TMA loads)."""
-    lib = _build.library_path("readout_matmul_stats")
     tool = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True, timeout=120).stdout
-    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
-    print(f"build: readout_matmul_stats SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} "
-          f"UTMALDG -> {'ok' if all(counts.values()) else 'FAIL'}")
-    if not all(counts.values()):
-        raise AssertionError(f"readout_matmul_stats was not built with wgmma and TMA: {counts}")
-    return counts
+    out = {}
+    for name in WGMMA_TMA_LIBS:
+        sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, check=True, timeout=120).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+        print(f"build: {name} SASS: {counts['HGMMA']} HGMMA, {counts['UTMALDG']} UTMALDG -> "
+              f"{'ok' if all(counts.values()) else 'FAIL'}")
+        if not all(counts.values()):
+            raise AssertionError(f"{name} was not built with wgmma and TMA: {counts}")
+        out[name] = counts
+    return out
 
 
 def product_alone_ms(rc, call, reps: int) -> float:
@@ -1349,17 +1369,24 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
     metrics = {key: float(m[key]) for key in ("loss", "recon", "kl", "recon_mse", "grad_norm")}
     if not all(np.isfinite(list(metrics.values()))):
         raise AssertionError(f"non-finite fused train metrics: {metrics}")
-    if not all(launches[name] == steps for name in (*READOUT_REPLACES, "gather_augment")):
+    # bwd="auto" runs the flavor bwd_flavor answers at the flagship shape: its
+    # backward kernel once a step, the other's never
+    flavor = rc.bwd_flavor(B, T, READOUT_F, READOUT_C)
+    skipped = "readout_bwd_dy" if flavor == "fused" else "readout_bwd_fused"
+    once = [n for n in (*READOUT_REPLACES, "readout_bwd_fused", "gather_augment") if n != skipped]
+    if not all(launches[name] == steps for name in once):
         raise AssertionError(f"fused path: not one launch per step in {steps} steps: {launches}")
-    if not all(n > 0 for name, n in launches.items() if name != "readout_bwd_fused"):
+    if not all(n > 0 for name, n in launches.items() if name != skipped):
         raise AssertionError(f"a kernel did not run on the fused train path: {launches}")
-    if launches["readout_bwd_fused"]:
-        raise AssertionError("bwd='auto' took the dy-free backward at the flagship shape")
+    if launches[skipped]:
+        raise AssertionError(f"bwd='auto' answers {flavor!r} at the flagship shape, yet "
+                             f"{skipped} ran: {launches}")
     widths = sorted({c for c, _, _ in calls})
     if READOUT_C in widths:
         raise AssertionError(f"a GroupNorm kernel ran at C = {READOUT_C} on the fused path")
-    print(f"fused: 1 epoch = {steps} steps in {run_s:.3f} s; {metrics}; launches {launches}; "
-          f"{len(calls) // steps} GroupNorms per step at C = {widths} (none at {READOUT_C})")
+    print(f"fused: 1 epoch = {steps} steps in {run_s:.3f} s; {metrics}; launches {launches} "
+          f"(bwd='auto': {flavor}); {len(calls) // steps} GroupNorms per step at C = {widths} "
+          f"(none at {READOUT_C})")
 
     # fused against unfused step time, in turns on this card
     def timed(tr, st, n):
@@ -1419,7 +1446,7 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
         max_abs_err_f32=errs[name]["float32"], card=card, **per_kernel[name],
         unfused_segment_ms=segment["unfused_ms"], fused_segment_ms=segment["fused_ms"])
         for name in READOUT_REPLACES]
-    result = dict(step_p50_ms=fused_p50, step_ms=fused_lat.tolist(),
+    result = dict(step_p50_ms=fused_p50, step_ms=fused_lat.tolist(), bwd_flavor=flavor,
                   samples_per_s=B / fused_p50 * 1e3, unfused_step_p50_ms=unfused_p50,
                   unfused_step_ms=unfused_lat.tolist(), steps=steps, metrics=metrics,
                   launches=launches, groupnorm_widths=widths, step_checks=checks,
@@ -1437,6 +1464,12 @@ BWD_FUSED_SHAPES = [(2, 37, 64, 300, 6, "Huber"), (3, 50, 64, 1100, 4, "MAE"),
                     (4, T, 128, 5120, 8, "MSE"), (B, T, 128, 5120, 8, "MSE"),
                     (B, T, 128, READOUT_C, 8, "MSE"),
                     (B, T, READOUT_F, READOUT_C, READOUT_G, "MSE")]
+# (B, T, F, C, G, loss): the bf16 kernel's other cluster sizes (2, 3 and 8
+# ranks; 5 ranks in two clusters along F at F = 2304) and cp.async for ragged
+# rows at F tiles of 256 (C = 300, 1100, 700), held to its plain version only.
+BWD_FUSED_CLUSTER_SHAPES = [(2, 37, 192, 300, 6, "Huber"), (3, 50, 512, 1100, 4, "MAE"),
+                            (2, 64, 512, 5120, 8, "MSE"), (4, 200, 768, 5120, 8, "MSE"),
+                            (2, 40, 2048, 1100, 4, "Huber"), (2, 24, 2304, 700, 4, "MSE")]
 ADAMW_MODES = {"float32": dict(), "bfloat16_rtn": dict(moment_dtype="bfloat16"),
                "bfloat16": dict(moment_dtype="bfloat16", stochastic_round=True)}
 ADAMW_OPS = 16   # per element: two moment updates, bias corrections, root, quotient, decay
@@ -1456,11 +1489,105 @@ def _bwd_inputs(rc, k, g, lossfun, gvec):
     return y, stats, msums
 
 
+def backward_segments(rc, k, y, stats, gvec, n_elem, g, lossfun):
+    """The readout backward's two segments on one case, as calls: dy-free
+    (readout_bwd_stats + readout_bwd_fused) and materializing
+    (readout_bwd_stats + readout_bwd_dy + two torch.matmul)."""
+    b, t, c = y.shape
+    f = k["h"].shape[2]
+    chain = (k["x"], k["scale"], k["nb"])
+
+    def fused():
+        ms_ = rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
+        return rc.readout_bwd_fused(y, *chain, k["bias"], k["h"], k["w"], stats, ms_, gvec,
+                                    n_elem, g, lossfun)
+
+    def materialize():
+        ms_ = rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
+        dy = rc.readout_bwd_dy(y, *chain, k["bias"], stats, ms_, gvec, n_elem, g,
+                               lossfun)[0].reshape(b * t, c)
+        return torch.matmul(dy.t(), k["h"].reshape(b * t, f)), torch.matmul(dy, k["w"])
+
+    return fused, materialize
+
+
+# The bf16 plan of readout_bwd_fused per pass, in the order its library's
+# readout_bwd_fused_plan reports it.
+PLAN_KEYS = ("tiles", "steps", "slabs", "steps_a_slab", "slice_rows", "units", "clusters",
+             "smem", "ring_yx", "ring_op", "ring_dy")
+
+
+def bwd_fused_plan(rc, b, t, f, c) -> dict:
+    """The bf16 plan of readout_bwd_fused at a shape, as its library reports
+    it: F tile, ranks a cluster, clusters along F, TMA (or cp.async) for y and
+    x, and per pass (dW, dh) the PLAN_KEYS. The first three must be the
+    wrapper's bwd_fused_cluster."""
+    import ctypes
+
+    fn = rc._fn("readout_bwd_fused", "readout_bwd_fused_plan",
+                [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    buf = (ctypes.c_int * (4 + 2 * len(PLAN_KEYS)))()
+    err = fn(b, t, f, c, buf)
+    if err:
+        raise RuntimeError(f"readout_bwd_fused_plan failed with cudaError {err}")
+    v, n = list(buf), len(PLAN_KEYS)
+    plan = dict(tile_n=v[0], ranks=v[1], fgroups=v[2], tma=bool(v[3]),
+                dw=dict(zip(PLAN_KEYS, v[4:4 + n])), dh=dict(zip(PLAN_KEYS, v[4 + n:])))
+    if (plan["tile_n"], plan["ranks"], plan["fgroups"]) != rc.bwd_fused_cluster(f):
+        raise AssertionError(f"readout_bwd_fused plans {plan}, the wrapper "
+                             f"{rc.bwd_fused_cluster(f)} at F = {f}")
+    return plan
+
+
+def bwd_fused_launch(rc, call, plan) -> dict:
+    """One call of readout_bwd_fused as a profiler trace records it: its two
+    passes (fused_bf16_kernel, dW then dh) launched through
+    cudaLaunchKernelExC (the launch that takes a cluster dimension) with the
+    plan's grid (clusters x ranks blocks) of 384 threads, then the launches
+    that add slabs and partials. The trace records no cluster size; the
+    kernel finds its F tile from its rank, so its agreement with its plain
+    version stands for it."""
+    call()
+    torch.cuda.synchronize()
+    prof, _ = traced(call, expect="fused_bf16_kernel")
+    trace = OUT_DIR / "readout_bwd_fused_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    launched = sorted((e for e in events
+                       if e.get("cat") == "kernel" and WARM_KERNEL not in e.get("name", "")),
+                      key=lambda e: float(e["ts"]))
+    rows = []
+    for e in launched:
+        a = e.get("args", {})
+        api = [r["name"] for r in events if r.get("cat") == "cuda_runtime"
+               and r.get("args", {}).get("correlation") == a.get("correlation")]
+        rows.append(dict(name=e["name"][:80], grid=a.get("grid"), block=a.get("block"), api=api,
+                         us=float(e.get("dur", 0.0))))
+    passes = [r for r in rows if "fused_bf16_kernel" in r["name"]]
+    want = [plan[k]["clusters"] * plan["ranks"] for k in ("dw", "dh")]
+    ok = (len(passes) == 2 and [(r["grid"] or [0])[0] for r in passes] == want
+          and all((r["block"] or [0])[0] == 384 for r in passes)
+          and all(any("LaunchKernelExC" in n for n in r["api"]) for r in passes))
+    print(f"stack kernels: readout_bwd_fused launch (profiler trace, B={B} F={READOUT_F} "
+          f"C={READOUT_C}): {len(rows)} kernels a call: "
+          + "; ".join(f"{r['name'][:48]} grid {r['grid']} block {r['block']} via {r['api']} "
+                      f"{r['us']:.0f} us" for r in rows)
+          + f"; plan: clusters of {plan['ranks']}, {want} blocks -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"readout_bwd_fused launches {rows}: wanted two cluster launches "
+                             f"of {want} blocks of 384 threads")
+    return dict(kernels=rows, plan=plan)
+
+
 def check_bwd_fused(rc, gen, reps, card):
     """#11 against its plain version in f32 (TF32 off) and bf16 at every shape,
     two runs bit for bit, and (bf16) the backward segment with it against the
-    materializing one, timed in turns. Returns (max abs errors, segment rows)."""
-    errs, segments = {"float32": 0.0, "bfloat16": 0.0}, []
+    materializing one, device only from replayed CUDA graphs, timed in turns
+    (the table behind bwd_flavor), and the kernel alone also back to back;
+    at the flagship shape a profiler trace of one call (bwd_fused_launch);
+    then, agreement only, BWD_FUSED_CLUSTER_SHAPES. Returns (max abs errors,
+    segment rows, the trace)."""
+    errs, segments, launch = {"float32": 0.0, "bfloat16": 0.0}, [], None
     gvec = torch.tensor([1.7, 0.3, 0.8], device="cuda")   # (gl, gm, inv_sigma)
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
@@ -1485,41 +1612,55 @@ def check_bwd_fused(rc, gen, reps, card):
                     f"{lossfun}: rel-L2 dW, dh, dbias, dinv = "
                     + ", ".join(f"{r:.2g}" for r in rels) + "; two runs equal")
             if dtype == torch.bfloat16:
-                chain = (k["x"], k["scale"], k["nb"])
-
-                def fused_segment():
-                    ms_ = rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
-                    return rc.readout_bwd_fused(y, *chain, k["bias"], k["h"], k["w"], stats,
-                                                ms_, gvec, n_elem, g, lossfun)
-
-                def materializing_segment():
-                    ms_ = rc.readout_bwd_stats(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
-                    dy = rc.readout_bwd_dy(y, *chain, k["bias"], stats, ms_, gvec, n_elem, g,
-                                           lossfun)[0].reshape(b * t, c)
-                    return (torch.matmul(dy.t(), k["h"].reshape(b * t, f)),
-                            torch.matmul(dy, k["w"]))
-
+                plan = bwd_fused_plan(rc, b, t, f, c)
+                if (f, c) == (READOUT_F, READOUT_C):
+                    launch = bwd_fused_launch(rc, lambda: rc.readout_bwd_fused(*args), plan)
+                fused, materialize = backward_segments(rc, k, y, stats, gvec, n_elem, g, lossfun)
                 few = max(reps // 4, 3)
-                row = dict(B=b, T=t, F=f, C=c, G=g,
-                           materialize_ms=cuda_ms(materializing_segment, few),
-                           fused_ms=cuda_ms(fused_segment, few),
-                           kernel_ms=cuda_ms(lambda: rc.readout_bwd_fused(*args), few),
-                           fused_ms_again=cuda_ms(fused_segment, few),
-                           materialize_ms_again=cuda_ms(materializing_segment, few),
-                           rule=rc.bwd_flavor(b, t, f, c))
-                row["measured"] = ("fused" if row["fused_ms"] + row["fused_ms_again"]
-                                   <= row["materialize_ms"] + row["materialize_ms_again"]
-                                   else "materialize")
+                # device only, from replayed CUDA graphs, in turns
+                row = dict(B=b, T=t, F=f, C=c, G=g, plan=plan, rule=rc.bwd_flavor(b, t, f, c),
+                           materialize_device_ms=graph_ms(materialize, few),
+                           fused_device_ms=graph_ms(fused, few),
+                           kernel_device_ms=graph_ms(lambda: rc.readout_bwd_fused(*args), few),
+                           fused_device_ms_again=graph_ms(fused, few),
+                           materialize_device_ms_again=graph_ms(materialize, few),
+                           kernel_ms=cuda_ms(lambda: rc.readout_bwd_fused(*args), few))
+                row["measured"] = ("fused" if row["fused_device_ms"] + row["fused_device_ms_again"]
+                                   <= row["materialize_device_ms"]
+                                   + row["materialize_device_ms_again"] else "materialize")
                 segments.append(row)
-                line += (f"; [{card}] backward segment dy-free {row['fused_ms']:.3f} / "
-                         f"{row['fused_ms_again']:.3f} ms (kernel alone {row['kernel_ms']:.3f}) "
-                         f"against materializing {row['materialize_ms']:.3f} / "
-                         f"{row['materialize_ms_again']:.3f} ms -> {row['measured']} "
+                line += (f"; [{card}] backward segment, device only: dy-free "
+                         f"{row['fused_device_ms']:.3f} / {row['fused_device_ms_again']:.3f} ms "
+                         f"(kernel alone {row['kernel_device_ms']:.3f}; back to back "
+                         f"{row['kernel_ms']:.3f}) against materializing "
+                         f"{row['materialize_device_ms']:.3f} / "
+                         f"{row['materialize_device_ms_again']:.3f} ms -> {row['measured']} "
                          f"(bwd_flavor: {row['rule']})")
             print(line)
             del k, y, got, again, want, args
             torch.cuda.empty_cache()
-    return errs, segments
+    for b, t, f, c, g, lossfun in BWD_FUSED_CLUSTER_SHAPES:  # bf16, agreement only
+        k = _readout_case(b, t, f, c, torch.bfloat16, gen)
+        n_elem = float(b * t * c)
+        y, stats, msums = _bwd_inputs(rc, k, g, lossfun, gvec)
+        args = (y, k["x"], k["scale"], k["nb"], k["bias"], k["h"], k["w"], stats, msums, gvec,
+                n_elem, g, lossfun)
+        got, again = rc.readout_bwd_fused(*args), rc.readout_bwd_fused(*args)
+        want = rc.bwd_fused_reference(*args)
+        if not all(torch.equal(a, a2) for a, a2 in zip(got, again)):
+            raise AssertionError(f"readout_bwd_fused F={f} C={c} bfloat16: two runs differ")
+        rels = [_assert_rel(f"readout_bwd_fused C={c} F={f} bfloat16 {part}", a, w0, tol)
+                for part, a, w0, tol in zip(("dW", "dh", "dbias", "dinv_sigma"), got, want,
+                                            (1e-2, 1e-2, 1e-3, 2e-3))]
+        errs["bfloat16"] = max(errs["bfloat16"], _err(got[0], want[0]), _err(got[1], want[1]))
+        plan = bwd_fused_plan(rc, b, t, f, c)
+        print(f"stack kernels: readout_bwd_fused bfloat16 B={b} T={t} F={f} C={c} G={g} "
+              f"{lossfun} (clusters of {plan['ranks']} x {plan['fgroups']} along F, "
+              f"{'TMA' if plan['tma'] else 'cp.async'} for y and x): rel-L2 dW, dh, dbias, dinv = "
+              + ", ".join(f"{r:.2g}" for r in rels) + "; two runs equal")
+        del k, y, got, again, want, args
+        torch.cuda.empty_cache()
+    return errs, segments, launch
 
 
 def _adamw_case(opt, shapes, gen):
@@ -1713,7 +1854,7 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     from simulgen_vae_tpu_torch.utils.checkpoint import CheckpointManager
 
     # kernels against their plain versions
-    bwd_errs, segments = check_bwd_fused(rc, gen, args.reps, card)
+    bwd_errs, segments, bwd_launch = check_bwd_fused(rc, gen, args.reps, card)
     adamw_errs = check_fused_adamw(FusedAdamW, gen)
 
     stack_cfg = dataclasses.replace(cfg, opt_state_dtype="bfloat16", sn_cadence="epoch")
@@ -1908,12 +2049,13 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
              replaces=STACK_REPLACES["readout_bwd_fused"], launches=launches["readout_bwd_fused"],
              launches_per_step=launches["readout_bwd_fused"] / steps,
              max_abs_err=bwd_errs["bfloat16"], max_abs_err_f32=bwd_errs["float32"],
-             ms=flagship["kernel_ms"], plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+             ms=flagship["kernel_ms"], device_ms=flagship["kernel_device_ms"],
+             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
              bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
              library_call="none: no single PyTorch call computes it (see the segments)",
              shape=f"h [{B}, {T}, {READOUT_F}], W [{READOUT_C}, {READOUT_F}], maps "
                    f"[{B}, {T}, {READOUT_C}] bf16, G={READOUT_G}",
-             card=card, segments=segments),
+             card=card, segments=segments, launch=bwd_launch),
         dict(name="fused_adamw", route="cuda",
              source="simulgen_vae_tpu_torch/ops/csrc/fused_adamw.cu",
              replaces=STACK_REPLACES["fused_adamw"], launches=launches["fused_adamw"],
@@ -2149,11 +2291,66 @@ def gn_stats_cluster_times(gg, seed: int, reps: int) -> dict:
     return dict(builds=builds)
 
 
+def readout_bwd_times(gg, seed: int, reps: int) -> dict:
+    """readout_bwd_fused (#11) in bf16 at every BWD_FUSED_SHAPES entry (inputs
+    from the plain forward, so every tree gets the same): its rel-L2 against
+    its plain version (dW, dh, d bias, d inv_sigma), then device only from replayed
+    CUDA graphs, in turns (dy-free, materializing, kernel, dy-free,
+    materializing): the kernel and both backward segments (dy-free:
+    readout_bwd_stats + #11; materializing: readout_bwd_stats +
+    readout_bwd_dy + two torch.matmul). Also a hash of readout_matmul_stats'
+    outputs (#8) at two shapes, so that two trees show whether #8 gives the
+    same bits."""
+    import hashlib
+
+    from simulgen_vae_tpu_torch.ops import readout_chain as rc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gvec = torch.tensor([1.7, 0.3, 0.8], device="cuda")
+    rows = []
+    for b, t, f, c, g, lossfun in BWD_FUSED_SHAPES:
+        k = _readout_case(b, t, f, c, torch.bfloat16, gen)
+        n_elem = float(b * t * c)
+        y, stats = rc.matmul_stats_reference(k["h"], k["w"], k["bias"], k["inv"], g)
+        chain = (k["x"], k["scale"], k["nb"])
+        msums = rc.bwd_stats_reference(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
+        args = (y, *chain, k["bias"], k["h"], k["w"], stats, msums, gvec, n_elem, g, lossfun)
+        got, want = rc.readout_bwd_fused(*args), rc.bwd_fused_reference(*args)
+        # recorded, not asserted: phase 7 holds the kernel to its tolerances,
+        # and a tree that misses one is still timed
+        rels = [_grad_rel(a, w0) for a, w0 in zip(got, want)]
+        del got, want
+        fused, materialize = backward_segments(rc, k, y, stats, gvec, n_elem, g, lossfun)
+
+        row = dict(B=b, T=t, F=f, C=c, G=g, rel_l2=rels, fused_ms=[graph_ms(fused, reps)],
+                   materialize_ms=[graph_ms(materialize, reps)],
+                   kernel_ms=graph_ms(lambda: rc.readout_bwd_fused(*args), reps))
+        row["fused_ms"].append(graph_ms(fused, reps))
+        row["materialize_ms"].append(graph_ms(materialize, reps))
+        row["faster"] = ("fused" if sum(row["fused_ms"]) <= sum(row["materialize_ms"])
+                         else "materialize")
+        row["bwd_flavor"] = rc.bwd_flavor(b, t, f, c)
+        rows.append(row)
+        del k, y, stats, msums, args
+        torch.cuda.empty_cache()
+    hashes = {}
+    for b, t, f, c, g in ((3, T, 128, 300, 6), (B, T, READOUT_F, READOUT_C, READOUT_G)):
+        k = _readout_case(b, t, f, c, torch.bfloat16, gen)
+        h = hashlib.sha256()
+        for out in rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g):
+            h.update(out.view(torch.uint8).cpu().numpy().tobytes())
+        hashes[f"{b}x{t}x{f}x{c}"] = h.hexdigest()[:16]
+        del k
+    torch.cuda.empty_cache()
+    return dict(shapes=rows, readout_matmul_stats_sha256=hashes)
+
+
 # MODE -> (what it times, the kernel sources whose hashes name the tree)
 AB_MODES = {"onepass": (onepass_times, ("gn_act_onepass",)),
             "gn-bwd": (gn_bwd_times, ("gn_bwd_onepass", "gn_bwd_stats")),
             "gn-stats": (gn_stats_times, ("gn_stats", "gn_bwd_stats")),
-            "gn-stats-clusters": (gn_stats_cluster_times, ("gn_stats",))}
+            "gn-stats-clusters": (gn_stats_cluster_times, ("gn_stats",)),
+            "readout-bwd": (readout_bwd_times, ("readout_bwd_fused", "readout_matmul_stats"))}
 
 
 def ab(mode: str, trees, seed: int, reps: int) -> int:

@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -56,11 +57,26 @@ def _source(name: str) -> tuple[Path, tuple[str, ...]]:
     return CSRC / f"{src}.cu", (*NVCC_FLAGS, *extra)
 
 
+def sources_of(source: Path) -> list[Path]:
+    """``source`` and the headers of ``CSRC`` it includes, directly or through
+    another (``#include "name.cuh"``), in the order first reached."""
+    found, todo = [], [source]
+    while todo:
+        src = todo.pop(0)
+        if src in found:
+            continue
+        found.append(src)
+        todo += [CSRC / n for n in re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)]
+    return found
+
+
 def library_path(name: str) -> Path:
-    """Where ``name``'s library lives for the current sources and flags."""
+    """Where ``name``'s library lives for the current sources and flags: a
+    change to the source or to a header it includes rebuilds it (hopper.cuh,
+    for one, rebuilds readout_matmul_stats and readout_bwd_fused)."""
     source, flags = _source(name)
     h = hashlib.sha256()
-    for src in [source, *sorted(CSRC.glob("*.cuh"))]:
+    for src in sources_of(source):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(flags).encode())

@@ -59,11 +59,12 @@
 // Built with -DREADOUT_PRODUCT_ONLY (a measurement build, never the one the
 // wrappers load) the bf16 path runs the product alone, without the epilogue
 // and the finalize, so that the epilogue's share of the time can be taken.
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
-
+#include "hopper.cuh"
 #include "readout_common.cuh"
 
 namespace {
+
+using namespace hop;
 
 // -- bf16: wgmma from a TMA ring ---------------------------------------------------
 
@@ -82,102 +83,6 @@ constexpr int kYStageOffset = kBiasOffset + kBN * 4;
 constexpr int kStageWords = 36;
 constexpr int kSmemBytes =
     kYStageOffset + 4 * kConsumers * 16 * kStageWords * 4 + 1024;  // + alignment of the ring
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// TMA: the box at (inner, outer) = (depth offset, row offset) of `map` into
-// shared memory, completion counted in bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int inner, int outer,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(inner), "r"(outer), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle: rows
-// of 64 bf16 (128 bytes), 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma (the registers are "written" here).
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
-#pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_D8(b)                                                                          \
-  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),         \
-      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-
-// d[64 x 256] += A[64 x 16] * B[256 x 16]^T, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56),
-        WG_D8(64), WG_D8(72), WG_D8(80), WG_D8(88), WG_D8(96), WG_D8(104), WG_D8(112),
-        WG_D8(120)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-#undef WG_D8
 
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
@@ -463,45 +368,6 @@ __global__ void matmul_stats_finalize_flat_kernel(const float* __restrict__ part
     float* o = stats + (size_t)b * 2 * f.groups;
     gn::finalize(s, q, denom, eps, &o[grp], &o[f.groups + grp]);
   }
-}
-
-// cuTensorMapEncodeTiled from libcuda, looked up at run time: nothing links
-// against libcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A [rows, depth] bf16 row-major tensor read in boxes of box_rows x kBK.
-bool encode_map(CUtensorMap* map, const void* base, int rows, int depth, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)depth, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)depth * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // f32 path: scale, bias, round, store and take the statistics of one BM x BN tile held

@@ -24,9 +24,12 @@ backward
      inv_sigma`` and ``dh = dy W * inv_sigma`` are then ``torch.matmul``, as
      the JAX package leaves them to XLA;
   4b. ``readout_bwd_fused`` (fused, the JAX ``_bwd_fused_dw_kernel``): dy is
-     recomputed tile by tile, rounded to the map's dtype and contracted at
+     recomputed stage by stage, rounded to the map's dtype and contracted at
      once into the f32 ``dW`` and ``dh`` inside the kernel, with d bias and
      d inv_sigma from the f32 dy; the ``[B, T, C]`` dy map is never written.
+     In bf16 each of its two passes recomputes dy once: a thread-block
+     cluster spans the F tiles of an output tile (:func:`bwd_fused_cluster`)
+     and shares each stage of dy between its blocks.
 
 Layouts: ``h`` ``[B, T, F]``, ``kernel`` ``[C, F]`` (the port's dense layout;
 JAX's is ``[F, C]``), maps ``[B, T, C]``, per-column vectors ``[C]`` f32,
@@ -73,13 +76,32 @@ BF16_TILE_M, BF16_TILE_N = 128, 256
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+# The bf16 dy-free backward (ops/csrc/readout_bwd_fused.cu): F tiles of
+# BWD_FUSED_TILE_N (128 where F <= 128), one thread-block cluster spanning at
+# most BWD_FUSED_MAX_RANKS of them.
+BWD_FUSED_TILE_N, BWD_FUSED_MAX_RANKS = 256, 8
+
+
+def bwd_fused_cluster(f: int) -> tuple[int, int, int]:
+    """``(F tile, ranks, clusters along F)`` of the bf16 dy-free backward at
+    depth ``f``: one cluster spans all F tiles up to
+    :data:`BWD_FUSED_MAX_RANKS` (4 ranks of 256 at F = 1024, one rank at
+    F <= 256), else the fewest clusters of equal size that do; each cluster
+    recomputes dy once a pass."""
+    tile = BWD_FUSED_TILE_N if f > 128 else 128
+    f_tiles = -(-f // tile)
+    groups = -(-f_tiles // BWD_FUSED_MAX_RANKS)
+    return tile, -(-f_tiles // groups), groups
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
 
 
-# Recomputations of a dy element up to which the dy-free backward is ahead.
-FUSED_BWD_MAX_RECOMPUTED = 2e6
+# Maps of B*T*C elements from FUSED_BWD_ELEMENTS[0] to [1] take the dy-free
+# backward (the window the measured table below supports).
+FUSED_BWD_ELEMENTS = (1 << 20, 1 << 26)
 
 
 def bwd_flavor(b: int, t: int, f: int, c: int) -> str:
@@ -87,31 +109,33 @@ def bwd_flavor(b: int, t: int, f: int, c: int) -> str:
     written, ``readout_bwd_fused``) or ``"materialize"`` (``readout_bwd_dy``
     and two ``torch.matmul``s).
 
-    The rule is this card's, written from the backward segment's times in
-    ``chip_smoke.py`` phase 7 (``readout_bwd_stats`` + ``readout_bwd_fused``
-    against ``readout_bwd_stats`` + ``readout_bwd_dy`` + the two products, bf16,
-    two turns each, NVIDIA H100 80GB HBM3, 700 W):
+    The rule is this card's, written from the backward segment's device-only
+    times in ``chip_smoke.py --ab readout-bwd`` (``readout_bwd_stats`` +
+    ``readout_bwd_fused`` against ``readout_bwd_stats`` + ``readout_bwd_dy`` +
+    the two products, bf16, replayed CUDA graphs, two turns each; NVIDIA H100
+    80GB HBM3, 700.00 W):
 
-        (B, T, F, C)              dy-free ms       materializing ms
-        (2, 37, 64, 300)          0.297 / 0.271    0.363 / 0.274
-        (3, 50, 64, 1100)         0.275 / 0.275    0.319 / 0.645
-        (4, 200, 128, 5120)       0.376 / 0.368    0.403 / 0.308
-        (16, 200, 128, 5120)      0.490 / 0.490    0.470 / 0.469
-        (16, 200, 128, 95008)     3.697 / 3.721    1.918 / 1.918
-        (16, 200, 1024, 95008)    16.07 / 15.79    3.125 / 3.133
+        (B, T, F, C)              dy-free ms         materializing ms
+        (2, 37, 64, 300)          0.073 - 0.074      0.042 - 0.043
+        (3, 50, 64, 1100)         0.084              0.056
+        (4, 200, 128, 5120)       0.241 - 0.254      0.299 - 0.300
+        (16, 200, 128, 5120)      0.393 - 0.395      0.440 - 0.442
+        (16, 200, 128, 95008)     2.748 - 2.802      1.856
+        (16, 200, 1024, 95008)    4.825 - 4.879      3.168 - 3.386
 
-    The dy-free kernel recomputes dy once per F tile in each of its two
-    passes, ``2 * ceil(F / tile) * B * T * C`` element recomputations at about
-    160 G a second, where the materializing segment moves each element four
-    times at the memory's rate: the dy-free backward is level or ahead only
-    on maps so small that launches, not work, set both times, which is while
-    its recomputations stay under ``FUSED_BWD_MAX_RECOMPUTED``. At the flagship geometry the answer is
-    "materialize", as the JAX rule's is. The bf16 products take F a multiple
-    of 64."""
+    The dy-free kernel recomputes every dy element once in each of its two
+    passes and moves y and x twice; the materializing segment writes dy once
+    and reads it back twice at the memory's rate. On the tiny maps launches
+    and a pass's start-up latency set both times and the three launches of
+    the materializing segment are shorter; at C = 95008 the recomputation
+    (and at F = 1024 the products) keep the dy-free kernel behind; in
+    between it wins. At the flagship geometry the answer is "materialize",
+    as the JAX rule's is (for a TPU reason: its dh accumulator does not fit
+    VMEM). The bf16 products take F a multiple of 64."""
     if f % BF16_K_STEP:
         return "materialize"
-    f_tiles = -(-f // (256 if f % 256 == 0 else 128))
-    return "fused" if 2 * f_tiles * b * t * c <= FUSED_BWD_MAX_RECOMPUTED else "materialize"
+    lo, hi = FUSED_BWD_ELEMENTS
+    return "fused" if lo <= b * t * c <= hi else "materialize"
 
 
 def _resolve_bwd(bwd: str, b: int, t: int, f: int, c: int) -> str:
@@ -481,6 +505,7 @@ def readout_bwd_fused(y, x, scale, norm_bias, bias, h, kernel, stats, msums, g,
     dh_p before the ``inv_sigma`` scaling. ``h`` [B, T, F] and ``kernel``
     [C, F] are in the map's dtype; ``g`` is the f32 device vector (cotangent
     of loss, of mse, inv_sigma). In bf16 both products run on the tensor cores
+    (``wgmma`` fed by TMA, dy shared across a cluster: :func:`bwd_fused_cluster`)
     with f32 accumulation and need F to be a multiple of 64; in f32 they
     accumulate with plain f32 FMAs (never TF32)."""
     if y.device.type == "cpu":
@@ -506,16 +531,19 @@ def readout_bwd_fused(y, x, scale, norm_bias, bias, h, kernel, stats, msums, g,
     _check_aligned("h, kernel, scale, norm_bias and bias", h, kernel, scale, norm_bias, bias)
     code = _DTYPE_CODES[y.dtype]
     geom = (b, t, f, c, code)
+    # the bf16 plan asks the card how many clusters it holds: a negative
+    # answer is a cudaError_t
     tiles = _fn("readout_bwd_fused", "readout_bwd_fused_tiles", [_I] * 5)(*geom)
     scratch_floats = _fn("readout_bwd_fused", "readout_bwd_fused_scratch", [_I] * 5)(*geom)
+    _raise_on(-min(tiles, scratch_floats, 0), "readout_bwd_fused")
     fn = _fn("readout_bwd_fused", "readout_bwd_fused",
              [_P] * 15 + [_F] + [_I] * 7 + [_P])
     dw_p = torch.empty((c, f), device=y.device, dtype=torch.float32)
     dh_p = torch.empty((b, t, f), device=y.device, dtype=torch.float32)
     dbias = torch.empty((c,), device=y.device, dtype=torch.float32)
     dinv_p = torch.empty((tiles,), device=y.device, dtype=torch.float32)
-    # partial outputs of the passes whose loop is cut into slabs (none at
-    # the flagship dW pass; [2, B*T, F] for its dh pass)
+    # partial outputs of the passes whose loop is cut into slabs, and in bf16
+    # the (slab, rank) partials of d bias
     scratch = torch.empty((max(scratch_floats, 1),), device=y.device, dtype=torch.float32)
     with torch.cuda.device(y.device):
         err = fn(_ptr(y), _ptr(x), _ptr(scale), _ptr(norm_bias), _ptr(bias), _ptr(h),

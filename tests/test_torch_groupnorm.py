@@ -102,8 +102,9 @@ def test_onepass_engage_rule(t, c, elem, fits):
 
 
 def test_build_path_follows_sources(tmp_path, monkeypatch):
-    """A kernel's library name hashes its own source and the shared headers,
-    so an edit rebuilds it and an edit of another kernel does not."""
+    """A kernel's library name hashes its own source and the shared headers
+    it includes (directly or through another), so an edit rebuilds it and an
+    edit of another kernel, or of a header it does not include, does not."""
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)
@@ -112,8 +113,13 @@ def test_build_path_follows_sources(tmp_path, monkeypatch):
     after = {k: _build.library_path(k) for k in _build.KERNELS}
     assert after["gn_stats"] != before["gn_stats"]
     assert after["gn_apply"] == before["gn_apply"]
-    (csrc / "gn_common.cuh").write_text((csrc / "gn_common.cuh").read_text() + "\n")
-    assert all(_build.library_path(k) != after[k] for k in _build.KERNELS)
+    for header, users in (
+            ("gn_common.cuh", {k for k in _build.KERNELS if k.startswith(("gn_", "readout_"))}),
+            ("hopper.cuh", {"readout_matmul_stats", "readout_bwd_fused"})):
+        (csrc / header).write_text((csrc / header).read_text() + "\n")
+        edited = {k: _build.library_path(k) for k in _build.KERNELS}
+        assert {k for k in _build.KERNELS if edited[k] != after[k]} == users, header
+        after = edited
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

@@ -141,11 +141,14 @@ CSRC = Path(tgg.__file__).parent / "csrc"
     ("gn_bwd_stats.cu", "kCluster", tgg.ONEPASS_CLUSTER),
     ("gn_stats.cu", "GN_STATS_CLUSTER", tgg.STATS_CLUSTER),
     ("gn_bwd_onepass.cu", "kThreads", tgg._BWD_ONEPASS_THREADS),
+    ("readout_bwd_fused.cu", "kMaxRanks", trc.BWD_FUSED_MAX_RANKS),
 ])
 def test_wrapper_constants_are_the_kernels(source, name, value):
     """The cluster size the wrappers split rows and columns for, and the
     threads onepass_bwd_smem_bytes counts, are the constants the kernels are
-    built with: the engage rule is exactly what a rank allocates."""
+    built with: the engage rule is exactly what a rank allocates; the most F
+    tiles one cluster of readout_bwd_fused spans is the one
+    bwd_fused_cluster assumes."""
     found = re.findall(rf"(?:constexpr int {name} = |#define {name} )(\d+)\b",
                        (CSRC / source).read_text())
     assert found == [str(value)]

@@ -194,9 +194,9 @@ def test_elem_loss_grad_is_the_derivative():
 def test_only_the_materializing_backward_is_offered():
     """``bwd_flavor`` answers with one of the two backward flavors. At the
     flagship geometry the rule written from the card's measurements offers
-    only the materializing backward (the dy-free kernel recomputes dy once
-    per tile of F and loses there); where the measurement put the dy-free
-    backward ahead it answers "fused"."""
+    only the materializing backward (the dy-free kernel's two passes, each
+    recomputing dy and reading y and x, lose there); where the measurement
+    put the dy-free backward ahead it answers "fused"."""
     assert trc.bwd_flavor(16, 200, 1024, 95008) == "materialize"
     answers = {trc.bwd_flavor(*geom) for geom in (
         (16, 200, 1024, 95008), (16, 200, 128, 95008), (4, 200, 128, 5120),
