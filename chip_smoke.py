@@ -115,7 +115,26 @@ Phases, each printing its own lines; any failure exits non-zero:
              ops.readout_chain.bwd_flavor), fused_adamw over
              the model's 403.5M parameters in its three modes beside the plain
              sweeps, torch's fused AdamW and the byte bounds, and the step p50
-             of four stacks.
+             of four stacks;
+8. artifacts: serving a trained model's files. A complete model_save/ from
+             the port's own writers (phase 3's geometry with the encoder:
+             random VAE and conditioner trees from --seed, the four scaler
+             pickles, condition.txt, preset.txt, a CSV of 40 rows) in a
+             temporary directory; ``python -m simulgen_vae_tpu_torch.generate
+             --quantize none`` in its own process (run through runpy, which
+             then prints that process's launch counts): (40, 200, 95008),
+             finite, within rel-L2 1e-6 of make_pipeline + generate on the
+             same trees in f32 (both under PyTorch's default precision flags,
+             the CLI's), and the GroupNorm kernels launched; ``--quantize
+             int8``: within rel-L2 0.05 of the float output, int8 products
+             launched; the CLI's default (``--quantize auto``) within rel-L2
+             1e-6 of the mode resolve_quantize and the self-check choose;
+             load_pipeline's time (f32 and bf16) and the model files' read
+             and parse alone; the batch-16
+             decode's p50, device time and kernels in f32, bf16 and int8 over
+             each, in turns; int8_mm against its plain version (exact) and
+             torch._int_mm at every shape a decode gives it, beside its bound
+             (operations at 1979 TOP/s int8 or bytes at 3.35 TB/s).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
@@ -147,6 +166,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2073,6 +2093,331 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     return kernels, result
 
 
+# -- 8. serving from model_save/ ----------------------------------------------
+
+INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 on the tensor cores
+ARTIFACT_ROWS = 40
+QUANT_REPLACES = "simulgen_vae_tpu/ops/quant.py:66"   # int8_dot (an XLA dot_general): no Pallas kernel
+# Runs the CLI as ``python -m`` does, then prints the process's launch counts.
+CLI_RUNNER = """\
+import json, runpy, sys
+try:
+    runpy.run_module("simulgen_vae_tpu_torch.generate", run_name="__main__", alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+from simulgen_vae_tpu_torch.ops import groupnorm_gelu, quant
+print("launches: " + json.dumps({**groupnorm_gelu.LAUNCHES, **quant.LAUNCHES}))
+sys.exit(code)
+"""
+ARTIFACT_CONDITION = """\
+Common params
+Dim1\t{rows}
+Dim2\t{t}
+Dim3\t{nodes}
+num_var 1
+'
+%LSH-VAE parameters
+Training_epochs\t100
+Batch_size\t16
+LearningR\t0.001
+Latent_dim\t{hier}
+Latent_dim_end\t{z}
+Loss_type\t1
+Stretch\t0
+alpha\t1000000
+Recon_iter\t1
+Dim2_red\t{t}
+Dim3_start\t0
+Dim3_end\t{nodes}
+'
+%LatentConditioner
+num_param\t{n_in}
+param_dir\tparams.csv
+n_epoch\t500
+latent_conditioner_lr\t0.001
+latent_conditioner_batch\t64
+input_type\tcsv
+param_data_type\t.csv
+"""
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """PyTorch's default precision flags (cuDNN convolutions in TF32, matmuls
+    in f32), as a process that does not set them, the CLI, runs."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def write_model_save(root: Path, cfg, lc_cfg, n_in: int, seed: int):
+    """A complete model_save/ from the port's own writers: random VAE and
+    conditioner trees from ``seed`` (the JAX modules' layout), the four
+    scalers, condition.txt, preset.txt and a CSV of ARTIFACT_ROWS rows.
+    Returns (the VAE tree, the conditioner tree, the scalers)."""
+    from simulgen_vae_tpu_torch import convert
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+    from simulgen_vae_tpu_torch.utils.checkpoint import save_flax_model
+
+    rng = np.random.default_rng(seed)
+    vae_tree = convert.random_vae_tree(cfg, rng)
+    lc_tree = convert.random_conditioner_tree(lc_cfg, cfg, n_in, rng)
+    scalers = {name: MinMaxScaler(rng.uniform(0.5, 2.0, n).astype(np.float32),
+                                  rng.uniform(-0.3, 0.3, n).astype(np.float32))
+               for name, n in (("scaler.pkl", cfg.num_node),
+                               ("latent_vectors_scaler.pkl", cfg.latent_dim_end),
+                               ("xs_scaler.pkl", cfg.num_hier * cfg.latent_dim),
+                               ("latent_conditioner_input_scaler.pkl", n_in))}
+    models = root / "model_save"
+    save_flax_model(str(models / "SimulGen-VAE"), {"params": vae_tree})
+    save_flax_model(str(models / "LatentConditioner"), {"params": lc_tree, "batch_stats": {}})
+    for name, scaler in scalers.items():
+        scaler.save(str(models / name))
+    (root / "condition.txt").write_text(ARTIFACT_CONDITION.format(
+        rows=ARTIFACT_ROWS, t=cfg.num_time, nodes=cfg.num_node, hier=cfg.latent_dim,
+        z=cfg.latent_dim_end, n_in=n_in))
+    (root / "preset.txt").write_text(
+        "data_No, init_beta_divisior, num_filter_enc, latent_conditioner_filter\n1\n0\n"
+        + " ".join(map(str, cfg.num_filter_enc)) + "\n"
+        + " ".join(map(str, lc_cfg.filters)) + "\n")
+    np.savetxt(root / "params.csv", rng.uniform(-2.0, 3.0, (ARTIFACT_ROWS, n_in)),
+               delimiter=",")
+    return vae_tree, lc_tree, scalers
+
+
+def run_cli(root: Path, mode: str) -> tuple:
+    """``python -m simulgen_vae_tpu_torch.generate --quantize MODE`` on the
+    artifacts, in its own process: (fields on the card, its launch counts,
+    its seconds)."""
+    here = Path(__file__).resolve().parent
+    out = root / f"gen_{mode}.npy"
+    args = ["--inputs", str(root / "params.csv"), "--out", str(out), "--device", "cuda",
+            "--condition", str(root / "condition.txt"),
+            "--preset_file", str(root / "preset.txt"), "--model_dir", str(root / "model_save"),
+            "--quantize", mode, "--max_batch", str(B)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(here) + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args], cwd=here, env=env,
+                         capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"the CLI failed (--quantize {mode}), exit {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    lines = run.stdout.splitlines()
+    launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[10:])
+    print(f"artifacts: CLI --quantize {mode}: {next(ln for ln in lines if 'Generated' in ln)} "
+          f"in {seconds:.1f} s (its own process); launches {launches}")
+    fields = torch.from_numpy(np.load(out)).to("cuda")
+    out.unlink()
+    return fields, launches, seconds
+
+
+@contextlib.contextmanager
+def recording_int8_shapes(quant, shapes: list):
+    """Record (M, K, N) of every int8 product while the context is open."""
+    real = quant.int8_mm
+
+    def record(a, w):
+        shapes.append((a.shape[0], a.shape[1], w.shape[0]))
+        return real(a, w)
+
+    quant.int8_mm = record
+    try:
+        yield
+    finally:
+        quant.int8_mm = real
+
+
+def int8_mm_rows(quant, shapes: list, reps: int, gen, card) -> dict:
+    """int8_mm against its plain version and torch._int_mm at each shape one
+    decode gives it, summed over the decode's calls."""
+    rows, worst = [], 0
+    for (m, k, n), count in sorted({s: shapes.count(s) for s in set(shapes)}.items()):
+        a = torch.randint(-127, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+        err = int((quant.int8_mm(a, w) - quant.int8_mm_reference(a, w)).abs().max())
+        worst = max(worst, err)
+        # the library call on operands padded as the wrapper pads them (not timed)
+        lib_a = F.pad(a, (0, -k % 8, 0, 32 - m if m <= 16 else 0))
+        lib_wt = F.pad(w, (0, -k % 8, 0, -n % 8)).t()
+        t_bytes = (m * k + n * k + 4 * m * n) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * k * n / INT8_OPS_PER_S * 1e3
+        rows.append(dict(M=m, K=k, N=n, per_decode=count,
+                         ms=cuda_ms(lambda: quant.int8_mm(a, w), reps),
+                         plain_ms=cuda_ms(lambda: quant.int8_mm_reference(a, w),
+                                          max(2, reps // 5), warmup=1),
+                         library_ms=cuda_ms(lambda: torch._int_mm(lib_a, lib_wt), reps),
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations"))
+        del a, w, lib_a, lib_wt
+    if worst != 0:
+        raise AssertionError(f"int8_mm differs from its plain version by {worst}")
+    total = {key: sum(r[key] * r["per_decode"] for r in rows)
+             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    by_bytes = sum(r["bound_ms"] * r["per_decode"] for r in rows if r["bound_by"] == "bytes")
+    total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] else "operations"
+    readout = max(rows, key=lambda r: r["M"] * r["N"] * r["K"])
+    print(f"artifacts: [{card}] int8_mm over a decode's {len(shapes)} products at "
+          f"{len(rows)} shapes: {total['ms']:.3f} ms (torch._int_mm {total['library_ms']:.3f}, "
+          f"plain f64 {total['plain_ms']:.3f}, bound {total['bound_ms']:.3f}); the readout's "
+          f"[{readout['M']}, {readout['K']}] x [{readout['K']}, {readout['N']}]: "
+          f"{readout['ms']:.3f} ms, bound {readout['bound_ms']:.3f} ({readout['bound_by']}); "
+          "every product equal to its plain version")
+    return dict(rows=rows, max_abs_err=worst, **total)
+
+
+def phase_artifacts(args, card, gg, gen):
+    """Phase 8: serve the flagship from a model_save/ the port's writers made,
+    through the CLI in its own process. Returns (the int8 product's kernel
+    dict, the result dict, the CLI's GroupNorm launch counts)."""
+    import tempfile
+
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
+    from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+    from simulgen_vae_tpu_torch.ops import quant
+    from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
+
+    cfg = VAEConfig(num_time=T, num_node=95008, latent_dim_end=32, latent_dim=8,
+                    num_filter_enc=[1024, 512, 256, 128], small=True)
+    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024], input_type="csv")
+    n_in = 484
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        vae_tree, lc_tree, scalers = write_model_save(root, cfg, lc_cfg, n_in, args.seed)
+        result["write_s"] = time.perf_counter() - t0
+        result["model_bytes"] = (root / "model_save" / "SimulGen-VAE").stat().st_size
+        print(f"artifacts: model_save/ written in {result['write_s']:.1f} s (SimulGen-VAE "
+              f"{result['model_bytes'] / 1e9:.3f} GB)")
+        torch.cuda.empty_cache()
+        fields, launches, result["cli_s"] = run_cli(root, "none")
+        if tuple(fields.shape) != (ARTIFACT_ROWS, T, cfg.num_node) \
+                or not bool(fields.isfinite().all()):
+            raise AssertionError(f"CLI output {tuple(fields.shape)} or non-finite values")
+        if not all(launches[k] > 0 for k in REPLACES):
+            raise AssertionError(f"a GroupNorm kernel did not run in the CLI: {launches}")
+
+        # the same trees in memory, the same inputs, under the CLI's flags
+        inputs = np.float32(MinMaxScaler.load(
+            str(root / "model_save" / "latent_conditioner_input_scaler.pkl")).transform(
+            read_latent_conditioner_dataset(str(root / "params.csv"))))
+        with torch_defaults():
+            pipe = tgen.make_pipeline(
+                cfg, lc_cfg, vae_tree, lc_tree, scalers["latent_vectors_scaler.pkl"],
+                scalers["xs_scaler.pkl"], scalers["scaler.pkl"], device="cuda",
+                dtype=torch.float32)
+            want = tgen.generate(pipe, inputs, max_batch=B)
+        rel = _rel_l2(fields, want)
+        result.update(cli_vs_memory_rel_l2=rel, cli_launches=launches)
+        print(f"artifacts: CLI (--quantize none) vs make_pipeline + generate on the same trees "
+              f"(f32): rel-L2 {rel:.3g} -> {'ok' if rel <= 1e-6 else 'FAIL'} (at most 1e-6)")
+        if rel > 1e-6:
+            raise AssertionError("the CLI's output disagrees with the in-memory pipeline")
+        del want, pipe, vae_tree, lc_tree
+        torch.cuda.empty_cache()
+
+        q_fields, q_launches, result["cli_int8_s"] = run_cli(root, "int8")
+        rel = _rel_l2(q_fields, fields)
+        result.update(int8_vs_float_rel_l2=rel, cli_int8_launches=q_launches)
+        ok = rel <= 0.05 and q_launches["int8_mm"] > 0 and bool(q_fields.isfinite().all())
+        print(f"artifacts: CLI --quantize int8 vs float: rel-L2 {rel:.4f} (at most 0.05), "
+              f"{q_launches['int8_mm']} int8 products -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the int8 decode failed its gate or launched no int8 product")
+
+        # the CLI's default: resolve_quantize's answer for an f32 pipeline on
+        # the card, then (for int8) the per-model self-check
+        a_fields, _, result["cli_auto_s"] = run_cli(root, "auto")
+        serves = ("int8" if tgen.resolve_quantize("auto", "cuda", torch.float32) == "int8"
+                  and rel <= 0.05 else "none")
+        rel = _rel_l2(a_fields, q_fields if serves == "int8" else fields)
+        result.update(cli_auto_serves=serves, cli_auto_rel_l2=rel)
+        print(f"artifacts: CLI default (--quantize auto) against --quantize {serves}: rel-L2 "
+              f"{rel:.3g} -> {'ok' if rel <= 1e-6 else 'FAIL'} (at most 1e-6)")
+        if rel > 1e-6:
+            raise AssertionError("the CLI's default quantize mode serves another decode")
+        del fields, q_fields, a_fields
+        torch.cuda.empty_cache()
+
+        # load time, then the batch-16 decode in four modes, in turns
+        pipes = {}
+        with torch_defaults():
+            for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pipes[name] = tgen.load_pipeline(
+                    str(root / "condition.txt"), str(root / "preset.txt"),
+                    model_dir=str(root / "model_save"), device="cuda", dtype=dtype)
+                torch.cuda.synchronize()
+                result[f"load_{name}_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for name in ("SimulGen-VAE", "LatentConditioner"):
+                load_flax_model(str(root / "model_save" / name))
+            result["read_parse_s"] = time.perf_counter() - t0
+            print(f"artifacts: load_pipeline {result['load_f32_s']:.2f} s (f32), "
+                  f"{result['load_bf16_s']:.2f} s (bf16), from disk to the card; reading and "
+                  f"parsing the two model files alone {result['read_parse_s']:.2f} s")
+            batch = torch.as_tensor(inputs[:B], device="cuda")
+            fns = {"f32": tgen.make_generate_fn(pipes["f32"], max_batch=B),
+                   "bf16": tgen.make_generate_fn(pipes["bf16"], max_batch=B),
+                   "int8_f32": tgen.make_generate_fn(pipes["f32"], max_batch=B, quantize="int8"),
+                   "int8_bf16": tgen.make_generate_fn(pipes["bf16"], max_batch=B,
+                                                      quantize="int8")}
+            shapes = []
+            with recording_int8_shapes(quant, shapes):
+                fns["int8_bf16"](batch)
+            bf16_gap = _rel_l2(fns["int8_bf16"](batch), fns["bf16"](batch))
+            order = list(fns) + list(fns)[::-1]
+            turns = {}
+            for mode in order:
+                fn = fns[mode]
+                for _ in range(2):
+                    fn(batch)
+                torch.cuda.synchronize()
+                lat = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    fn(batch)
+                    torch.cuda.synchronize()
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                dev = decode_device(fn, batch, calls=2)
+                turns.setdefault(mode, []).append(dict(p50_ms=float(np.percentile(lat, 50)),
+                                                       **dev))
+            for mode, runs in turns.items():
+                print(f"artifacts: [{card}] batch-16 decode {mode}: p50 " + " / ".join(
+                    f"{r['p50_ms']:.3f}" for r in runs) + " ms, device " + " / ".join(
+                    f"{r['device_ms']:.3f}" for r in runs) + f" ms, "
+                    f"{runs[0]['kernels']:.0f} kernels a decode (turns in order {order})")
+            result.update(decode=turns, int8_bf16_vs_bf16_rel_l2=bf16_gap,
+                          int8_products_per_decode=len(shapes))
+        mm = int8_mm_rows(quant, shapes, args.reps, gen, card)
+    del pipes, fns, batch
+    torch.cuda.empty_cache()
+    faster = {dt: min(r["p50_ms"] for r in turns[f"int8_{dt}"])
+              < min(r["p50_ms"] for r in turns[dt]) for dt in ("f32", "bf16")}
+    rule = {dt: tgen.resolve_quantize("auto", "cuda", dtype) == "int8"
+            for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    result.update(int8_faster_than_float=faster, auto_answers_int8=rule)
+    print(f"artifacts: int8 decode faster than the float decode of its dtype (best p50): "
+          f"{faster}; resolve_quantize('auto') answers int8 for {rule}: agrees with this "
+          f"run: {rule == faster}; int8 vs bf16 decode rel-L2 {bf16_gap:.4f}")
+    kernel = dict(
+        name="int8_mm", route="cuda", source="simulgen_vae_tpu_torch/ops/quant.py",
+        replaces=QUANT_REPLACES, library="torch._int_mm (cuBLASLt int8)",
+        launches=q_launches["int8_mm"], launches_per_decode=len(shapes),
+        max_abs_err=mm["max_abs_err"], ms=mm["ms"], plain_ms=mm["plain_ms"],
+        bound_ms=mm["bound_ms"], bound_by=mm["bound_by"], library_ms=mm["library_ms"], per_decode_sum=True, card=card, shapes=mm["rows"])
+    return kernel, result, launches
+
+
 # -- --ab: two versions of a kernel family on one card -------------------------
 
 # (C, launches per decode) of the serving decode's one-pass GroupNorms (G = 8,
@@ -2613,13 +2958,23 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_stack_train"] = stack["launches"][k["name"]]
     kernels += stack_kernels
+    del data, data32
+    torch.cuda.empty_cache()
+
+    # 8. serving from model_save/ through the CLI
+    int8_kernel, artifacts, cli_launches = phase_artifacts(args, card, gg, gen)
+    for k in kernels:
+        if k["name"] in REPLACES:
+            k["launches_artifacts"] = cli_launches[k["name"]]
+    kernels.append(int8_kernel)
     result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
                   serve_checks=checks, launches=launches, kernels=kernels, train=train,
                   readout_sass=sass, onepass_launch=onepass, gn_stats_launch=stats_launch,
                   repairs=repairs,
-                  fused_train=fused, stack_train=stack, profiler_sessions=PROFILER_SESSIONS,
+                  fused_train=fused, stack_train=stack, artifacts=artifacts,
+                  profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(f"profiler: {PROFILER_SESSIONS['sessions']} sessions, "

@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of SimulGen-VAE for one NVIDIA H100.
 
-The serving decode (the MLP latent conditioner and the hierarchical decoder)
-and the VAE train step (``train.vae_trainer.VAETrainer``), with hand-written
+The serving decode (the MLP latent conditioner and the hierarchical decoder,
+from memory or from a trained ``model_save/``, in float or int8) and the VAE
+train step (``train.vae_trainer.VAETrainer``), with hand-written
 CUDA kernels for GroupNorm + activation forward and backward and for batch
 assembly (``ops/csrc/``, built with ``nvcc`` at first use).
 ``simulgen_vae_tpu`` (JAX) stays the reference; this package imports none of
@@ -14,6 +15,7 @@ from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
 # ``simulgen_vae_tpu_torch.generate`` keeps meaning the module.
 from simulgen_vae_tpu_torch.generate import (
     auto_max_batch,
+    load_pipeline,
     make_generate_fn,
     make_pipeline,
 )
@@ -22,5 +24,5 @@ from simulgen_vae_tpu_torch.models.vae import VAE
 
 __all__ = [
     "LCConfig", "VAEConfig", "MinMaxScaler", "LatentConditioner", "VAE",
-    "auto_max_batch", "make_generate_fn", "make_pipeline",
+    "auto_max_batch", "load_pipeline", "make_generate_fn", "make_pipeline",
 ]

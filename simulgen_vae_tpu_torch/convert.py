@@ -89,6 +89,11 @@ def norm_state(tree, leaves=PARAMS) -> State:
     return _vecs(tree, [("scale", "scale"), ("bias", "bias")], leaves)
 
 
+def _norm_at(tree, name: str, leaves) -> State:
+    """The GroupNorm ``tree[name]``; u trees have none."""
+    return norm_state(tree[name], leaves) if leaves.vec is not None else {}
+
+
 def layer_norm_state(tree) -> State:
     return {"weight": _np(tree["scale"]), "bias": _np(tree["bias"])}
 
@@ -99,7 +104,7 @@ def stages_state(tree, leaves=PARAMS) -> State:
     out = {}
     for j in range(sum(1 for k in tree if k.startswith("Conv1d_"))):
         out.update(_prefixed(f"convs.{j}", conv_state(tree[f"Conv1d_{j}"], leaves)))
-        out.update(_prefixed(f"norms.{j}", norm_state(tree.get(f"NormAct_{j}"), leaves)))
+        out.update(_prefixed(f"norms.{j}", _norm_at(tree, f"NormAct_{j}", leaves)))
     return out
 
 
@@ -110,7 +115,7 @@ def decoder_block_state(tree, leaves=PARAMS) -> State:
 def latent_injector_state(tree, leaves=PARAMS) -> State:
     return {**_prefixed("dense", linear_state(tree["Dense_0"]["Dense_0"], leaves)),
             **_prefixed("conv", conv_state(tree["Conv1d_0"], leaves)),
-            **_prefixed("norm", norm_state(tree.get("NormAct_0"), leaves))}
+            **_prefixed("norm", _norm_at(tree, "NormAct_0", leaves))}
 
 
 def condition_head_state(tree, leaves=PARAMS) -> State:
@@ -213,11 +218,19 @@ def conditioner_state(tree) -> State:
     return out
 
 
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` (a transposed view, often) as a contiguous CPU tensor. torch
+    lays a transposed view out several times faster than numpy does at the
+    flagship's conv kernels (``[5, 5120, 5120]`` -> ``[5120, 5120, 5]``)."""
+    if not a.flags.writeable:
+        a = a.copy(order="K")   # in memory order: a plain copy
+    return torch.from_numpy(a).contiguous()
+
+
 def load_state(module: nn.Module, state: State) -> nn.Module:
     """Copy ``state`` into ``module``, cast to each parameter's dtype and
     device; every key must match and every shape agree."""
-    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()}
-    module.load_state_dict(tensors, strict=True)
+    module.load_state_dict({k: _host_tensor(v) for k, v in state.items()}, strict=True)
     return module
 
 

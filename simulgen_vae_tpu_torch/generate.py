@@ -2,24 +2,42 @@
 
 The pipeline runs the MLP conditioner, inverse-scales its latents, decodes
 deterministically (``mode='fix'``) and, optionally, inverse-scales the field
-to physical units, all on one device. :func:`make_pipeline` builds it in
-memory from JAX parameter trees (numpy arrays) and scalers; loading trained
-artifacts from ``model_save/`` comes with the CLI slice.
+to physical units, all on one device. :func:`load_pipeline` builds it from a
+trained ``model_save/`` directory as the JAX package writes it (flax msgpack
+models and sklearn scaler pickles, read without flax or sklearn);
+:func:`make_pipeline` builds it from JAX parameter trees in memory.
+``quantize="int8"`` serves the decoder's products in int8 (``ops/quant.py``).
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-asking for CUDA where there is none raises.
+CLI:  python -m simulgen_vae_tpu_torch.generate --inputs params.csv --out gen.npy
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu``); asking for CUDA where there is none raises.
 """
 
 from __future__ import annotations
 
+import argparse
+import logging
 import os
+from collections.abc import Mapping
 from typing import Optional
 
+import numpy as np
 import torch
 
-from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
-from simulgen_vae_tpu_torch.convert import conditioner_from_jax, vae_from_jax
+from simulgen_vae_tpu_torch.config import (
+    LCConfig,
+    VAEConfig,
+    parse_condition_file,
+    parse_training_parameters,
+    read_preset,
+)
+from simulgen_vae_tpu_torch.convert import conditioner_from_jax, decoder_state, vae_from_jax
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
+from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
+
+UNPORTED_CONDITIONERS = ("image", "image_vit")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -34,20 +52,82 @@ def make_pipeline(cfg: VAEConfig, lc_cfg: LCConfig, vae_params: dict,
                   lc_params: dict, lv_scaler: MinMaxScaler,
                   xs_scaler: MinMaxScaler, data_scaler: MinMaxScaler,
                   device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The in-memory counterpart of the JAX ``load_pipeline``.
+    """The in-memory counterpart of :func:`load_pipeline`.
 
     ``vae_params`` is the JAX VAE ``params`` tree (only ``['decoder']`` is
-    read) and ``lc_params`` the conditioner's. The decoder computes in
-    ``dtype``; the conditioner and the scalers stay in f32.
+    read, and kept for the int8 mirror, which quantizes its f32 weights) and
+    ``lc_params`` the conditioner's. The decoder computes in ``dtype``; the
+    conditioner and the scalers stay in f32.
     """
     device = resolve_device(device)
     return dict(
         cfg=cfg, lc_cfg=lc_cfg, device=device, dtype=dtype,
         vae=vae_from_jax(vae_params["decoder"], cfg, device, dtype),
+        decoder_tree=vae_params["decoder"],
         lc=conditioner_from_jax(lc_params, lc_cfg, cfg, device),
         lv_scaler=lv_scaler.to(device), xs_scaler=xs_scaler.to(device),
         data_scaler=data_scaler.to(device),
     )
+
+
+class _Loaded(Mapping):
+    """A tree read from a file: a missing entry raises a KeyError that names
+    the file and the entry's path."""
+
+    def __init__(self, tree: dict, where: str):
+        self._tree, self._where = tree, where
+
+    def __getitem__(self, key):
+        try:
+            value = self._tree[key]
+        except KeyError:
+            raise KeyError(f"{self._where}/{key} is missing") from None
+        return _Loaded(value, f"{self._where}/{key}") if isinstance(value, dict) else value
+
+    def __iter__(self):
+        return iter(self._tree)
+
+    def __len__(self) -> int:
+        return len(self._tree)
+
+
+def load_pipeline(condition: str = "input_data/condition.txt",
+                  preset_file: str = "preset.txt", size: str = "small",
+                  model_dir: str = "model_save", device=None,
+                  dtype: torch.dtype = torch.float32) -> dict:
+    """The serving pipeline from the artifact directory the full-pipeline CLI
+    writes: ``SimulGen-VAE`` (``{"params"}``), ``LatentConditioner``
+    (``{"params", "batch_stats"}``) and the four scaler pickles, with the
+    geometry from ``condition`` and ``preset_file``. The decoder computes in
+    ``dtype``, f32 by default as in the JAX package. Only the CSV (MLP)
+    conditioner is served; a missing weight raises a KeyError naming it."""
+    device = resolve_device(device)
+    raw = parse_training_parameters(parse_condition_file(condition))
+    _, _, num_filter_enc, lc_filter = read_preset(preset_file)
+    cfg = VAEConfig.from_condition(raw, num_filter_enc, small=(size == "small"))
+    lc_cfg = LCConfig.from_condition(raw, lc_filter)
+    if lc_cfg.input_type in UNPORTED_CONDITIONERS:
+        raise NotImplementedError(
+            f"the {lc_cfg.input_type!r} latent conditioner is not ported yet "
+            "(ROADMAP Queue 1 item 6); the port serves input_type csv")
+
+    def path(name):
+        return os.path.join(model_dir, name)
+
+    vae_vars = _Loaded(load_flax_model(path("SimulGen-VAE")), path("SimulGen-VAE"))
+    lc_vars = _Loaded(load_flax_model(path("LatentConditioner")), path("LatentConditioner"))
+    input_scaler = MinMaxScaler.load(path("latent_conditioner_input_scaler.pkl"))
+    width = np.shape(lc_vars["params"]["input_norm"]["scale"])[0]
+    if input_scaler.scale_.shape[-1] != width:
+        raise ValueError(f"the input scaler has {input_scaler.scale_.shape[-1]} features, "
+                         f"the conditioner {width} inputs")
+    pipe = make_pipeline(
+        cfg, lc_cfg, vae_vars["params"], lc_vars["params"],
+        MinMaxScaler.load(path("latent_vectors_scaler.pkl")),
+        MinMaxScaler.load(path("xs_scaler.pkl")), MinMaxScaler.load(path("scaler.pkl")),
+        device=device, dtype=dtype)
+    pipe["input_scaler"] = input_scaler
+    return pipe
 
 
 def auto_max_batch(num_time: int, num_node: int, device=None) -> int:
@@ -68,18 +148,36 @@ def auto_max_batch(num_time: int, num_node: int, device=None) -> int:
     return max(1, int(free // 2 // per_sample))
 
 
+def _int8_vae(pipeline: dict):
+    """The pipeline's VAE with the int8 mirror of its decoder, built once."""
+    vae = pipeline.get("_int8_vae")
+    if vae is None:
+        state = {f"decoder.{k}": v for k, v in decoder_state(pipeline["decoder_tree"]).items()}
+        vae = pipeline["_int8_vae"] = build_quant_collection(
+            pipeline["vae"], state, pipeline["device"])
+    return vae
+
+
 def make_generate_fn(pipeline: dict, descale_output: bool = True,
-                     max_batch: Optional[int] = None):
+                     max_batch: Optional[int] = None, quantize: Optional[str] = None):
     """One serving function: preprocessed inputs ``[N, features]`` -> fields
     ``[N, time, nodes]`` on the pipeline's device.
 
     Batches above ``max_batch`` (None or <= 0: :func:`auto_max_batch`) run in
     chunks of exactly ``max_batch`` rows: the tail chunk is padded by
     repeating its last row and the padding is sliced off, so every call has
-    one shape.
+    one shape. ``quantize="int8"`` decodes with the int8 mirror of the
+    decoder (per-output-channel weights, per-row activations); the
+    conditioner, norms and biases stay float.
     """
     cfg, device, dtype = pipeline["cfg"], pipeline["device"], pipeline["dtype"]
-    vae, lc = pipeline["vae"], pipeline["lc"]
+    if quantize == "int8":
+        vae = _int8_vae(pipeline)
+    elif quantize is None:
+        vae = pipeline["vae"]
+    else:
+        raise ValueError(f"unknown quantize mode {quantize!r} (supported: 'int8')")
+    lc = pipeline["lc"]
     lv, xsc, ds = pipeline["lv_scaler"], pipeline["xs_scaler"], pipeline["data_scaler"]
     if not max_batch or max_batch <= 0:
         max_batch = auto_max_batch(cfg.num_time, cfg.num_node, device)
@@ -115,8 +213,126 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
     return generate_fn
 
 
+def _cached_fn(pipeline: dict, descale_output: bool, quantize: Optional[str],
+               max_batch: int = 0):
+    """Pipeline-level cache of serving functions, one per configuration."""
+    key = ("_gen_fn", bool(descale_output), quantize, max_batch or 0)
+    fn = pipeline.get(key)
+    if fn is None:
+        fn = pipeline[key] = make_generate_fn(pipeline, descale_output, max_batch,
+                                              quantize=quantize)
+    return fn
+
+
+def int8_self_check(pipeline: dict, inputs, descale_output: bool = True,
+                    threshold: float = 0.05, probe_n: int = 4):
+    """The per-model int8 gate of ``quantize="auto"``: the first ``probe_n``
+    requests decoded in int8 and in float, ``(rel-L2 <= threshold, rel-L2)``.
+    The verdict is cached on the pipeline; both serving functions are the
+    cached ones the decode then reuses."""
+    cached = pipeline.get("_int8_check")
+    if cached is not None:
+        return cached
+    probe = inputs[:probe_n]
+    f_ref = _cached_fn(pipeline, descale_output, None)(probe).float()
+    f_q = _cached_fn(pipeline, descale_output, "int8")(probe).float()
+    rel = float(torch.linalg.vector_norm(f_q - f_ref)
+                / torch.linalg.vector_norm(f_ref).clamp_min(1e-12))
+    verdict = pipeline["_int8_check"] = (rel <= threshold, rel)
+    return verdict
+
+
+def resolve_quantize(mode: Optional[str], device="cuda",
+                     dtype: torch.dtype = torch.float32) -> Optional[str]:
+    """The CLI's quantize mode -> :func:`make_generate_fn`'s (None | 'int8').
+
+    'auto' answers int8 where the card decodes faster in int8 than in the
+    float of the pipeline's dtype: an f32 pipeline on CUDA (batch-16 flagship
+    decode on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md: 15.3-15.7 ms of
+    device time in int8 against 24.9 in f32, best p50 23.0-24.7 against
+    27.7-27.9 ms). A bf16 pipeline serves float there (int8 16.9-17.0 ms of
+    device time against 11.1, best p50 25.7-28.2 against 14.8-15.8 ms: the
+    f32 rescale of the int32 products outweighs them), and so does the CPU,
+    as the JAX package does off a TPU.
+    """
+    if mode == "auto":
+        cuda = torch.device(device).type == "cuda"
+        return "int8" if cuda and dtype == torch.float32 else None
+    if mode in (None, "none"):
+        return None
+    return mode
+
+
 def generate(pipeline: dict, inputs, descale_output: bool = True,
-             max_batch: int = 0) -> torch.Tensor:
+             quantize: Optional[str] = None, max_batch: int = 0) -> torch.Tensor:
     """Design inputs -> fields ``[N, time, nodes]`` (a tensor on the
-    pipeline's device). ``max_batch`` 0 sizes chunks from free memory."""
-    return make_generate_fn(pipeline, descale_output, max_batch)(inputs)
+    pipeline's device). ``max_batch`` 0 sizes chunks from free memory.
+
+    ``quantize="auto"`` resolves through :func:`resolve_quantize` for the
+    pipeline's device and dtype; where that answers int8,
+    :func:`int8_self_check` must pass first, or the decode falls back to
+    float with a warning. ``"int8"`` skips the gate.
+    """
+    if quantize == "auto":
+        quantize = resolve_quantize("auto", pipeline["device"], pipeline["dtype"])
+        if quantize == "int8":
+            ok, rel = int8_self_check(pipeline, inputs, descale_output)
+            if not ok:
+                logging.getLogger("simulgen_vae_tpu_torch.generate").warning(
+                    "int8 self-check FAILED for this model (rel-L2 %.3f > 0.05): serving "
+                    "in float instead. Pass --quantize int8 to force, --quantize none to "
+                    "silence.", rel)
+                quantize = None
+    return _cached_fn(pipeline, descale_output, quantize, max_batch)(inputs)
+
+
+def main(argv=None) -> int:
+    from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
+
+    ap = argparse.ArgumentParser(
+        description="Generate simulation fields from design parameters "
+                    "(conditioner -> decoder, no solver)")
+    ap.add_argument("--inputs", required=True, help="CSV of parameters")
+    ap.add_argument("--input_type", default=None, choices=[None, "csv", "image"],
+                    help="default: from condition.txt input_type (only csv is served)")
+    ap.add_argument("--out", default="output/generated.npy")
+    ap.add_argument("--condition", default="input_data/condition.txt")
+    ap.add_argument("--preset_file", default="preset.txt")
+    ap.add_argument("--size", default="small", choices=["small", "large"])
+    ap.add_argument("--model_dir", default="model_save")
+    ap.add_argument("--raw_scale", action="store_true",
+                    help="skip inverse data scaling (keep model units)")
+    ap.add_argument("--max_batch", type=int, default=0,
+                    help="decode at most this many fields per call (0 = from the "
+                         "device's free memory; chunked transparently)")
+    ap.add_argument("--quantize", default="auto", choices=["auto", "none", "int8"],
+                    help="int8 decoder products; 'auto' (default) = int8 for the f32 "
+                         "pipeline on a card, where it decodes faster, float elsewhere, "
+                         "AND self-checked per model at first use (int8-vs-float rel-L2 "
+                         "on the first requests; falls back to float above 5%%); 'int8' "
+                         "forces it without the gate")
+    ap.add_argument("--device", default="cuda",
+                    help="device to serve on (default cuda; 'cpu' for the plain versions)")
+    args = ap.parse_args(argv)
+    quantize = None if args.quantize == "none" else args.quantize
+
+    pipe = load_pipeline(args.condition, args.preset_file, args.size, args.model_dir,
+                         device=args.device)
+    input_type = args.input_type or (
+        "image" if pipe["lc_cfg"].input_type.startswith("image") else "csv")
+    if input_type != "csv":
+        raise NotImplementedError("image inputs are not ported yet (ROADMAP Queue 1 "
+                                  "item 6); the port serves CSV inputs")
+    inputs = np.asarray(pipe["input_scaler"].transform(
+        read_latent_conditioner_dataset(args.inputs)))
+    fields = generate(pipe, np.float32(inputs), descale_output=not args.raw_scale,
+                      quantize=quantize, max_batch=args.max_batch).cpu().numpy()
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    np.save(args.out, fields)
+    print(f"Generated {fields.shape[0]} fields "
+          f"[{fields.shape[1]} timesteps x {fields.shape[2]} nodes] -> {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

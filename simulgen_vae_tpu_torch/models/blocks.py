@@ -19,6 +19,13 @@ Spectral norm: :class:`Conv1d`, :class:`Dense` and the readout read an
 optional ``inv_sigma`` attribute (a 0-d f32 tensor, set by
 ``models.spectral_norm.attach_inv_sigmas``) and scale their output by it
 before the bias, which equals using ``W / sigma`` since each is linear in W.
+
+Int8 serving: the same three hold ``weight_q`` / ``weight_s`` buffers in the
+int8 mirror ``ops.quant.build_quant_collection`` makes (``quant_weight``
+names the weight it quantizes), and then take the int8 product in the JAX
+layers' order: conv and dense round the f32 product to the compute dtype,
+scale by inv_sigma and add the bias; the readout adds the f32 bias to the f32
+product and rounds once.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from simulgen_vae_tpu_torch.ops.groupnorm_gelu import group_norm_act
+from simulgen_vae_tpu_torch.ops.quant import int8_conv1d_same, int8_dot
 from simulgen_vae_tpu_torch.ops.readout_chain import readout_chain_loss
 
 
@@ -128,6 +136,22 @@ def _biased(product, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return product(x, w) + b
 
 
+def _int8_biased(product, x: torch.Tensor, layer: nn.Module, b: torch.Tensor) -> torch.Tensor:
+    """The int8 path of :class:`Conv1d` and :class:`Dense`: the f32 product
+    of the int8 operands rounded to x's dtype, then inv_sigma and the bias."""
+    y = product(x, layer.weight_q, layer.weight_s).to(x.dtype)
+    if layer.inv_sigma is not None:
+        return _scaled(y, layer.inv_sigma, b)
+    return y + b
+
+
+def _int8_buffers(module: nn.Module) -> None:
+    """Empty ``weight_q`` / ``weight_s`` slots (no state-dict entries) that
+    ``ops.quant.build_quant_collection`` fills in an int8 mirror."""
+    module.register_buffer("weight_q", None)
+    module.register_buffer("weight_s", None)
+
+
 def _scaled(y: torch.Tensor, inv_sigma, bias: torch.Tensor) -> torch.Tensor:
     """``y * inv_sigma + bias`` with inv_sigma cast to y's dtype first, as the
     JAX layers round it (``y * inv.astype(y.dtype) + bias``)."""
@@ -174,6 +198,8 @@ class NormAct(nn.Module):
 class Conv1d(nn.Module):
     """k-tap SAME conv over the time axis of [B, T, C] data."""
 
+    quant_weight = "weight"
+
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -181,14 +207,19 @@ class Conv1d(nn.Module):
         self.inv_sigma = None
         self.weight = _param((features, in_features, kernel_size), device, dtype)
         self.bias = _param((features,), device, dtype, 0.0)
+        _int8_buffers(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
+        if self.weight_q is not None:
+            return _int8_biased(int8_conv1d_same, x.to(cd), self, self.bias.to(cd))
         return _biased(conv1d_same, x.to(cd), self.weight.to(cd), self.bias.to(cd),
                        self.inv_sigma)
 
 
 class Dense(nn.Module):
+    quant_weight = "weight"
+
     def __init__(self, in_features: int, features: int, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -196,9 +227,12 @@ class Dense(nn.Module):
         self.inv_sigma = None
         self.weight = _param((features, in_features), device, dtype)
         self.bias = _param((features,), device, dtype, 0.0)
+        _int8_buffers(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cd = self.compute_dtype
+        if self.weight_q is not None:
+            return _int8_biased(int8_dot, x.to(cd), self, self.bias.to(cd))
         return _biased(F.linear, x.to(cd), self.weight.to(cd), self.bias.to(cd),
                        self.inv_sigma)
 
@@ -308,6 +342,8 @@ class FusedPointwiseNormTanh(nn.Module):
     ``"materialize"``).
     """
 
+    quant_weight = "kernel"
+
     def __init__(self, in_features: int, num_node: int, eps: float = 1e-5,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -319,6 +355,7 @@ class FusedPointwiseNormTanh(nn.Module):
         self.bias = _param((num_node,), device, torch.float32, 0.0)
         self.scale = _param((num_node,), device, torch.float32, 1.0)
         self.norm_bias = _param((num_node,), device, torch.float32, 0.0)
+        _int8_buffers(self)
 
     def forward(self, h: torch.Tensor, x_target: torch.Tensor | None = None,
                 lossfun: str = "MSE", readout_bwd: str = "auto"):
@@ -334,7 +371,12 @@ class FusedPointwiseNormTanh(nn.Module):
         h = h.to(cd)
         if inv is not None and w.shape[1] <= w.shape[0]:
             h, inv = (h.float() * inv).to(cd), None
-        if inv is not None:
+        if self.weight_q is not None:
+            y = int8_dot(h, self.weight_q, self.weight_s)
+            if inv is not None:
+                y = y * inv.float()
+            y = (y + self.bias.float()).to(cd)
+        elif inv is not None:
             # products of the rounded operands summed in f32, scaled and
             # biased in f32, rounded once (the JAX module's order)
             y = (torch.matmul(h.float(), w.float().t()) * inv.float()

@@ -9,6 +9,11 @@ once, writes to a temporary name and renames it, so a reader never sees half
 a file; it is synchronous, and :meth:`CheckpointManager.wait` is there for the
 interface. The newest ``max_to_keep`` files are kept. Reading the JAX
 package's orbax checkpoints is not this module's job.
+
+The trained models of ``model_save/`` (``SimulGen-VAE``,
+``LatentConditioner``) are flax msgpack files: :func:`load_flax_model` and
+:func:`save_flax_model` read and write them without flax
+(``utils/msgpack_tree.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import re
 from typing import Any, List, Optional
 
 import torch
+
+from simulgen_vae_tpu_torch.utils import msgpack_tree
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -106,3 +113,18 @@ class CheckpointManager:
 
     def close(self) -> None:
         """Nothing is held open."""
+
+
+def load_flax_model(path: str) -> dict:
+    """A flax msgpack file (the JAX package's ``save_flax_model``) -> its
+    variables as nested dicts of numpy arrays. No template: the caller checks
+    the paths it needs."""
+    return msgpack_tree.load(path)
+
+
+def save_flax_model(path: str, tree: dict) -> None:
+    """Write nested dicts of numpy arrays as flax's ``to_bytes`` does, so that
+    the JAX package's ``load_flax_model`` reads them given a template."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        msgpack_tree.dump(tree, f)

@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX, flax or JAX-package import, and its entry
-points refuse to fall back to the CPU when CUDA was asked for and is absent."""
+"""The port stands alone: no JAX, flax or JAX-package import, nor msgpack,
+sklearn or pandas, which the card's machine lacks; and its entry points refuse
+to fall back to the CPU when CUDA was asked for and is absent."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "simulgen_vae_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "simulgen_vae_tpu", "scripts")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "simulgen_vae_tpu", "scripts",
+             "msgpack", "sklearn", "pandas")
 
 
 def _modules():
@@ -61,7 +63,8 @@ def test_no_forbidden_import_in_source(path):
 def test_the_stack_modules_are_among_those_checked():
     names = {name for _, name in _modules()}
     for mod in ("ops.fused_adamw", "train.nan_guard", "train.optim", "utils.checkpoint",
-                "utils.preemption", "train.vae_trainer"):
+                "utils.preemption", "train.vae_trainer", "utils.msgpack_tree", "ops.quant",
+                "data.images", "data.scaler", "generate"):
         assert f"simulgen_vae_tpu_torch.{mod}" in names
 
 
