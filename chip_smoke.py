@@ -134,7 +134,27 @@ Phases, each printing its own lines; any failure exits non-zero:
              decode's p50, device time and kernels in f32, bf16 and int8 over
              each, in turns; int8_mm against its plain version (exact) and
              torch._int_mm at every shape a decode gives it, beside its bound
-             (operations at 1979 TOP/s int8 or bytes at 3.35 TB/s).
+             (operations at 1979 TOP/s int8 or bytes at 3.35 TB/s);
+9. cli-train: the training CLI at the flagship geometry. A work directory
+             (its disk room checked first) with a dataset pickle of 32
+             samples of 200 x 95008 f32 made from --seed on the card slice by
+             slice, condition.txt (batch 16, Recon_iter 2, input_type csv,
+             latent_conditioner_batch 16, n_epoch 30), preset.txt (encoder
+             1024 512 256 128, conditioner 32 .. 1024) and a 484-column
+             params.csv; ``python -m simulgen_vae_tpu_torch --preset=1
+             --plot=2 --lc_only=0 --size=small --dtype bfloat16 --epochs 2
+             --lc_epochs 30`` in its own process (CLI_RUNNER, which prints
+             that process's launch counts and peak memory): exit 0, every
+             kernel of the VAE stage (#1-#7) and fused_adamw launched, the
+             eight model_save/ files, latent_vectors.npy (32, 32) and xs.npy
+             (32, 3, 8) finite, 32 finite L2 lines; its wall time, peak
+             memory and the VAE and LC epoch times and LC losses from its
+             log lines; ``--lc_only=1 --lc_epochs 5`` in a second process
+             exits 0; ``python -m simulgen_vae_tpu_torch.generate`` serves
+             the trained model_save/ for the 32 rows (--quantize none):
+             (32, 200, 95008), finite, within rel-L2 1e-6 of load_pipeline +
+             generate in this process under the CLI's flags; --quantize int8
+             against it (printed, no gate).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
@@ -167,6 +187,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import pickle
 import re
 import subprocess
 import sys
@@ -2098,16 +2119,21 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
 INT8_OPS_PER_S = 1979e12      # H100 SXM dense int8 on the tensor cores
 ARTIFACT_ROWS = 40
 QUANT_REPLACES = "simulgen_vae_tpu/ops/quant.py:66"   # int8_dot (an XLA dot_general): no Pallas kernel
-# Runs the CLI as ``python -m`` does, then prints the process's launch counts.
+# Runs a module (its first argument) as ``python -m`` does, then prints the
+# process's launch counts and peak device memory.
 CLI_RUNNER = """\
 import json, runpy, sys
+import torch
+module = sys.argv.pop(1)
 try:
-    runpy.run_module("simulgen_vae_tpu_torch.generate", run_name="__main__", alter_sys=True)
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
     code = 0
 except SystemExit as e:
     code = e.code
-from simulgen_vae_tpu_torch.ops import groupnorm_gelu, quant
-print("launches: " + json.dumps({**groupnorm_gelu.LAUNCHES, **quant.LAUNCHES}))
+from simulgen_vae_tpu_torch.ops import fused_adamw, gather_augment, groupnorm_gelu, quant
+print("launches: " + json.dumps({**groupnorm_gelu.LAUNCHES, **quant.LAUNCHES,
+                                 **gather_augment.LAUNCHES, **fused_adamw.LAUNCHES}))
+print("peak_bytes: " + str(torch.cuda.max_memory_allocated()))
 sys.exit(code)
 """
 ARTIFACT_CONDITION = """\
@@ -2118,7 +2144,7 @@ Dim3\t{nodes}
 num_var 1
 '
 %LSH-VAE parameters
-Training_epochs\t100
+Training_epochs\t{epochs}
 Batch_size\t16
 LearningR\t0.001
 Latent_dim\t{hier}
@@ -2126,7 +2152,7 @@ Latent_dim_end\t{z}
 Loss_type\t1
 Stretch\t0
 alpha\t1000000
-Recon_iter\t1
+Recon_iter\t{recon_iter}
 Dim2_red\t{t}
 Dim3_start\t0
 Dim3_end\t{nodes}
@@ -2134,9 +2160,9 @@ Dim3_end\t{nodes}
 %LatentConditioner
 num_param\t{n_in}
 param_dir\tparams.csv
-n_epoch\t500
+n_epoch\t{lc_epochs}
 latent_conditioner_lr\t0.001
-latent_conditioner_batch\t64
+latent_conditioner_batch\t{lc_batch}
 input_type\tcsv
 param_data_type\t.csv
 """
@@ -2177,41 +2203,60 @@ def write_model_save(root: Path, cfg, lc_cfg, n_in: int, seed: int):
     save_flax_model(str(models / "LatentConditioner"), {"params": lc_tree, "batch_stats": {}})
     for name, scaler in scalers.items():
         scaler.save(str(models / name))
+    write_config(root, cfg, lc_cfg, n_in, ARTIFACT_ROWS, rng)
+    return vae_tree, lc_tree, scalers
+
+
+def write_config(root: Path, cfg, lc_cfg, n_in: int, rows: int, rng, epochs: int = 100,
+                 recon_iter: int = 1, lc_epochs: int = 500, lc_batch: int = 64) -> None:
+    """condition.txt, preset.txt and a CSV of ``rows`` rows of ``n_in``
+    design parameters in ``root``."""
     (root / "condition.txt").write_text(ARTIFACT_CONDITION.format(
-        rows=ARTIFACT_ROWS, t=cfg.num_time, nodes=cfg.num_node, hier=cfg.latent_dim,
-        z=cfg.latent_dim_end, n_in=n_in))
+        rows=rows, t=cfg.num_time, nodes=cfg.num_node, hier=cfg.latent_dim,
+        z=cfg.latent_dim_end, n_in=n_in, epochs=epochs, recon_iter=recon_iter,
+        lc_epochs=lc_epochs, lc_batch=lc_batch))
     (root / "preset.txt").write_text(
         "data_No, init_beta_divisior, num_filter_enc, latent_conditioner_filter\n1\n0\n"
         + " ".join(map(str, cfg.num_filter_enc)) + "\n"
         + " ".join(map(str, lc_cfg.filters)) + "\n")
-    np.savetxt(root / "params.csv", rng.uniform(-2.0, 3.0, (ARTIFACT_ROWS, n_in)),
-               delimiter=",")
-    return vae_tree, lc_tree, scalers
+    np.savetxt(root / "params.csv", rng.uniform(-2.0, 3.0, (rows, n_in)), delimiter=",")
 
 
-def run_cli(root: Path, mode: str) -> tuple:
-    """``python -m simulgen_vae_tpu_torch.generate --quantize MODE`` on the
-    artifacts, in its own process: (fields on the card, its launch counts,
-    its seconds)."""
+def run_module(module: str, args: list, cwd: Path, what: str, timeout: int = 600):
+    """``python -m MODULE ARGS`` through CLI_RUNNER in its own process, the
+    package found beside this script: (the completed process, its launch
+    counts, its peak device bytes, its seconds). A non-zero exit raises."""
     here = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(here) + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", CLI_RUNNER, module, *args], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"{what} failed, exit {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    lines = run.stdout.splitlines()
+    launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[10:])
+    peak = int(next(ln for ln in lines if ln.startswith("peak_bytes: "))[12:])
+    return run, launches, peak, seconds
+
+
+def run_cli(root: Path, mode: str, tag: str = "artifacts") -> tuple:
+    """``python -m simulgen_vae_tpu_torch.generate --quantize MODE`` on the
+    artifacts in ``root``, in its own process: (fields on the card, its launch
+    counts, its seconds)."""
     out = root / f"gen_{mode}.npy"
     args = ["--inputs", str(root / "params.csv"), "--out", str(out), "--device", "cuda",
             "--condition", str(root / "condition.txt"),
             "--preset_file", str(root / "preset.txt"), "--model_dir", str(root / "model_save"),
             "--quantize", mode, "--max_batch", str(B)]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(here) + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-c", CLI_RUNNER, *args], cwd=here, env=env,
-                         capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if run.returncode != 0:
-        raise AssertionError(f"the CLI failed (--quantize {mode}), exit {run.returncode}:\n"
-                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
-    lines = run.stdout.splitlines()
-    launches = json.loads(next(ln for ln in lines if ln.startswith("launches: "))[10:])
-    print(f"artifacts: CLI --quantize {mode}: {next(ln for ln in lines if 'Generated' in ln)} "
-          f"in {seconds:.1f} s (its own process); launches {launches}")
+    run, launches, _, seconds = run_module("simulgen_vae_tpu_torch.generate", args,
+                                           Path(__file__).resolve().parent,
+                                           f"the CLI (--quantize {mode})")
+    generated = next(ln for ln in run.stdout.splitlines() if "Generated" in ln)
+    print(f"{tag}: CLI --quantize {mode}: {generated} in {seconds:.1f} s (its own process); "
+          f"launches {launches}")
     fields = torch.from_numpy(np.load(out)).to("cuda")
     out.unlink()
     return fields, launches, seconds
@@ -2416,6 +2461,187 @@ def phase_artifacts(args, card, gg, gen):
         max_abs_err=mm["max_abs_err"], ms=mm["ms"], plain_ms=mm["plain_ms"],
         bound_ms=mm["bound_ms"], bound_by=mm["bound_by"], library_ms=mm["library_ms"], per_decode_sum=True, card=card, shapes=mm["rows"])
     return kernel, result, launches
+
+
+# -- phase 9: the training CLI ---------------------------------------------------
+
+CLI_SAMPLES, CLI_EPOCHS, CLI_LC_EPOCHS, CLI_LC_ONLY_EPOCHS = 32, 2, 30, 5
+CLI_TRAIN_KERNELS = ("gather_augment", "gn_act_onepass", "gn_stats", "gn_apply",
+                     "gn_bwd_onepass", "gn_bwd_stats", "gn_bwd_apply", "fused_adamw")
+CLI_MODEL_SAVE = ("SimulGen-VAE", "LatentConditioner", "scaler.pkl", "latent_vectors.npy",
+                  "xs.npy", "latent_vectors_scaler.pkl", "xs_scaler.pkl",
+                  "latent_conditioner_input_scaler.pkl")
+# Written to the work directory: the dataset (2.43 GB), two VAE checkpoints
+# (parameters and both AdamW moments in f32, 4.84 GB each), the model
+# (1.61 GB) and the generated fields (2.43 GB a serve).
+CLI_DISK_BYTES = 16e9
+EPOCH_LINE = re.compile(r"^(\S+ \S+) - INFO - \[Epoch (\d+)/(\d+)\] Loss: (\S+) .* "
+                        r"Time: ([\d.]+)s", re.M)
+
+
+def write_dataset(path: Path, p: int, t: int, n: int, seed: int) -> float:
+    """``dataset1.pickle``: a [p, t, n] f32 ensemble of traveling waves (three
+    modes whose wavenumber, speed, amplitude and damping follow the parameter,
+    as ``data.dataset.synthetic_dataset``'s) plus noise of std 0.01, made on
+    the card from ``seed`` one sample at a time into a host array (no f64
+    [p, t, n] array). Returns the seconds it took."""
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    x = torch.linspace(0.0, 1.0, n, device="cuda")
+    tt = torch.linspace(0.0, 1.0, t, device="cuda")[:, None]
+    data = np.empty((p, t, n), np.float32)
+    for i, pv in enumerate(np.linspace(0.0, 1.0, p)):
+        field = 0.01 * torch.randn((t, n), generator=gen, device="cuda")
+        for mode in (1, 2, 3):
+            k = 2 * np.pi * (mode + 2.0 * pv)
+            amp = np.exp(-0.5 * mode) * (0.5 + 0.5 * pv)
+            damp = torch.exp(-2.0 * pv * tt)
+            field += amp * damp * torch.sin(k * (x - (0.5 + pv) * tt))
+        data[i] = field.cpu().numpy()
+    with open(path, "wb") as f:
+        pickle.dump(data, f, protocol=4)
+    return time.perf_counter() - t0
+
+
+def _epoch_lines(text: str, total: int) -> list:
+    """(loss, seconds, when logged as a Unix time) of each logged epoch of a
+    stage of ``total`` epochs."""
+    import datetime
+
+    def when(stamp: str) -> float:
+        return datetime.datetime.strptime(stamp, "%Y-%m-%d %H:%M:%S,%f").timestamp()
+
+    return [(float(m.group(4)), float(m.group(5)), when(m.group(1)))
+            for m in EPOCH_LINE.finditer(text) if int(m.group(3)) == total]
+
+
+def _work_dir():
+    """A temporary directory with room for phase 9, under TMPDIR or, where
+    that is too small, beside this script (git-ignored ``_scratch/``)."""
+    import shutil
+    import tempfile
+
+    for base in (tempfile.gettempdir(), str(Path(__file__).resolve().parent / "_scratch")):
+        os.makedirs(base, exist_ok=True)
+        free = shutil.disk_usage(base).free
+        if free >= CLI_DISK_BYTES:
+            return tempfile.TemporaryDirectory(dir=base), base, free
+    raise AssertionError(f"phase 9 needs {CLI_DISK_BYTES / 1e9:.0f} GB of disk; "
+                         f"{base} has {free / 1e9:.1f} GB free")
+
+
+def phase_cli_train(args, card):
+    """Phase 9: train the flagship geometry through the training CLI in its
+    own process, check its artifacts, rerun the conditioner alone, and serve
+    the trained model through the generate CLI. Returns (the training
+    process's launch counts, the result dict)."""
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
+    from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+
+    cfg = VAEConfig(num_time=T, num_node=READOUT_C, latent_dim_end=32, latent_dim=8,
+                    num_filter_enc=[1024, 512, 256, 128], small=True)
+    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024])
+    n_in = 484
+    result = {}
+    work, base, free = _work_dir()
+    with work as tmp:
+        root = Path(tmp)
+        result["dataset_s"] = write_dataset(root / "dataset1.pickle", CLI_SAMPLES, T,
+                                            cfg.num_node, args.seed)
+        write_config(root, cfg, lc_cfg, n_in, CLI_SAMPLES, np.random.default_rng(args.seed),
+                     epochs=CLI_EPOCHS, recon_iter=2, lc_epochs=CLI_LC_EPOCHS, lc_batch=B)
+        print(f"cli-train: work directory under {base} ({free / 1e9:.0f} GB free); dataset "
+              f"({CLI_SAMPLES}, {T}, {cfg.num_node}) f32 written in {result['dataset_s']:.1f} s")
+        torch.cuda.empty_cache()
+        common = ["--preset=1", "--plot=2", "--size=small", "--dtype", "bfloat16",
+                  "--condition", "condition.txt", "--device", "cuda"]
+        started = time.time()
+        run, launches, peak, seconds = run_module(
+            "simulgen_vae_tpu_torch",
+            [*common, "--lc_only=0", "--epochs", str(CLI_EPOCHS),
+             "--lc_epochs", str(CLI_LC_EPOCHS)], root, "the training CLI", timeout=900)
+        ended = time.time()
+        (OUT_DIR / "chip_smoke_cli_train.log").write_text(run.stdout + "\n" + run.stderr)
+        vae, lc = _epoch_lines(run.stderr, CLI_EPOCHS), _epoch_lines(run.stderr, CLI_LC_EPOCHS)
+        if len(vae) != CLI_EPOCHS or len(lc) != CLI_LC_EPOCHS:
+            raise AssertionError(f"{len(vae)} VAE and {len(lc)} LC epoch lines logged")
+        # the stages between the log lines' stamps (millisecond clock of this host)
+        stages = {"start to the first VAE epoch logged": vae[0][2] - started,
+                  "the other VAE epochs, checkpoints between": vae[-1][2] - vae[0][2],
+                  "VAE checkpoint, model file, latent extraction, LC set-up":
+                      lc[0][2] - vae[-1][2],
+                  "the other LC epochs": lc[-1][2] - lc[0][2],
+                  "LC model file, comparison, exit": ended - lc[-1][2]}
+        result.update(train_s=seconds, train_peak_bytes=peak, launches=launches,
+                      vae_epoch_s=[e[1] for e in vae], lc_epoch_s=[e[1] for e in lc],
+                      lc_loss_first=lc[0][0], lc_loss_last=lc[-1][0], stages_s=stages)
+        print(f"cli-train: [{card}] python -m simulgen_vae_tpu_torch --dtype bfloat16 --epochs "
+              f"{CLI_EPOCHS} --lc_epochs {CLI_LC_EPOCHS}: exit 0 in {seconds:.1f} s (its own "
+              f"process), peak device memory {peak / 2**30:.2f} GiB; VAE epochs "
+              + ", ".join(f"{e[1]:.2f}" for e in vae) + f" s; LC epochs: first {lc[0][1]:.3f} "
+              f"s, the rest {sum(e[1] for e in lc[1:]):.3f} s in all; LC train loss first "
+              f"{lc[0][0]} -> last {lc[-1][0]}; launches "
+              f"{ {k: launches[k] for k in CLI_TRAIN_KERNELS} }")
+        print(f"cli-train: [{card}] stages (s, from the log's stamps): "
+              + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+        missing = [k for k in CLI_TRAIN_KERNELS if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels of the training path never launched: {missing}")
+
+        models = root / "model_save"
+        if sorted(os.listdir(models)) != sorted(CLI_MODEL_SAVE):
+            raise AssertionError(f"model_save/ holds {sorted(os.listdir(models))}")
+        lv, xs = np.load(models / "latent_vectors.npy"), np.load(models / "xs.npy")
+        l2 = np.loadtxt(root / "SimulGen-VAE_L2_loss.txt")
+        ok = (lv.shape == (CLI_SAMPLES, 32) and xs.shape == (CLI_SAMPLES, 3, 8)
+              and l2.shape == (CLI_SAMPLES,) and all(np.isfinite(a).all() for a in (lv, xs, l2)))
+        result.update(l2_mean=float(l2.mean()), model_bytes=(models / "SimulGen-VAE").stat().st_size)
+        print(f"cli-train: model_save/ holds the eight artifacts; latent_vectors {lv.shape}, "
+              f"xs {xs.shape}, {l2.shape[0]} L2 lines (mean MSE {l2.mean():.4g}) -> "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the training CLI's artifacts have wrong shapes or values")
+
+        run, _, peak2, seconds = run_module(
+            "simulgen_vae_tpu_torch",
+            [*common, "--lc_only=1", "--lc_epochs", str(CLI_LC_ONLY_EPOCHS)], root,
+            "the training CLI (--lc_only=1)", timeout=900)
+        lc2 = _epoch_lines(run.stderr, CLI_LC_ONLY_EPOCHS)
+        result.update(lc_only_s=seconds, lc_only_peak_bytes=peak2)
+        print(f"cli-train: [{card}] --lc_only=1 --lc_epochs {CLI_LC_ONLY_EPOCHS}: exit 0 in "
+              f"{seconds:.1f} s (its own process), {len(lc2)} LC epochs logged, peak "
+              f"{peak2 / 2**30:.2f} GiB")
+
+        torch.cuda.empty_cache()
+        fields, serve_launches, result["serve_s"] = run_cli(root, "none", "cli-train")
+        if tuple(fields.shape) != (CLI_SAMPLES, T, cfg.num_node) \
+                or not bool(fields.isfinite().all()):
+            raise AssertionError(f"served {tuple(fields.shape)} or non-finite values")
+        inputs = np.float32(MinMaxScaler.load(
+            str(models / "latent_conditioner_input_scaler.pkl")).transform(
+            read_latent_conditioner_dataset(str(root / "params.csv"))))
+        with torch_defaults():
+            pipe = tgen.load_pipeline(str(root / "condition.txt"), str(root / "preset.txt"),
+                                      model_dir=str(models), device="cuda", dtype=torch.float32)
+            want = tgen.generate(pipe, inputs, max_batch=B)
+        rel = _rel_l2(fields, want)
+        result.update(serve_vs_memory_rel_l2=rel, serve_launches=serve_launches)
+        print(f"cli-train: the trained model served by the generate CLI (--quantize none) vs "
+              f"load_pipeline + generate here: rel-L2 {rel:.3g} -> "
+              f"{'ok' if rel <= 1e-6 else 'FAIL'} (at most 1e-6)")
+        if rel > 1e-6:
+            raise AssertionError("the served trained model disagrees with the in-memory pipeline")
+        del want, pipe
+        torch.cuda.empty_cache()
+        q_fields, _, result["serve_int8_s"] = run_cli(root, "int8", "cli-train")
+        result["int8_vs_float_rel_l2"] = _rel_l2(q_fields, fields)
+        print(f"cli-train: int8 against float on the trained weights: rel-L2 "
+              f"{result['int8_vs_float_rel_l2']:.4f} (printed, not gated)")
+        del fields, q_fields
+    torch.cuda.empty_cache()
+    return launches, result
 
 
 # -- --ab: two versions of a kernel family on one card -------------------------
@@ -2967,6 +3193,12 @@ def main(argv=None) -> int:
         if k["name"] in REPLACES:
             k["launches_artifacts"] = cli_launches[k["name"]]
     kernels.append(int8_kernel)
+
+    # 9. the training CLI at the flagship geometry
+    cli_launches, cli_train = phase_cli_train(args, card)
+    for k in kernels:
+        if k["name"] in cli_launches:
+            k["launches_cli_train"] = cli_launches[k["name"]]
     result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
@@ -2974,6 +3206,7 @@ def main(argv=None) -> int:
                   readout_sass=sass, onepass_launch=onepass, gn_stats_launch=stats_launch,
                   repairs=repairs,
                   fused_train=fused, stack_train=stack, artifacts=artifacts,
+                  cli_train=cli_train,
                   profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -1,10 +1,13 @@
 """PyTorch/CUDA port of SimulGen-VAE for one NVIDIA H100.
 
-The serving decode (the MLP latent conditioner and the hierarchical decoder,
-from memory or from a trained ``model_save/``, in float or int8) and the VAE
-train step (``train.vae_trainer.VAETrainer``), with hand-written
-CUDA kernels for GroupNorm + activation forward and backward and for batch
-assembly (``ops/csrc/``, built with ``nvcc`` at first use).
+The training pipeline (``python -m simulgen_vae_tpu_torch``: the VAE, latent
+extraction, the CSV latent conditioner, evaluation and the ``model_save/``
+artifacts), the VAE train step (``train.vae_trainer.VAETrainer``), and the
+serving decode (the MLP latent conditioner and the hierarchical decoder,
+from memory or from a trained ``model_save/``, in float or int8), with
+hand-written CUDA kernels for GroupNorm + activation forward and backward,
+batch assembly, the fused readout and AdamW (``ops/csrc/``, built with
+``nvcc`` at first use).
 ``simulgen_vae_tpu`` (JAX) stays the reference; this package imports none of
 it.
 """

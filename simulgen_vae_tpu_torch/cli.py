@@ -1,0 +1,384 @@
+"""Command-line entry point of the port: the training pipeline
+(``simulgen_vae_tpu/cli.py``).
+
+    python -m simulgen_vae_tpu_torch --preset=1 --plot=2 --lc_only=0 --size=small
+
+Stages: config parsing -> dataset load and reduction -> the field scaler ->
+VAE training -> latent extraction -> latent-conditioner training -> the
+reconstruction comparison. The artifacts are the JAX package's CLI's, in its
+formats (flax msgpack models, sklearn-layout scaler pickles), so that either
+package's generate CLI serves them:
+
+* ``model_save/``: ``SimulGen-VAE``, ``LatentConditioner``, ``scaler.pkl``,
+  ``latent_vectors.npy``, ``xs.npy``, ``latent_vectors_scaler.pkl``,
+  ``xs_scaler.pkl``, ``latent_conditioner_input_scaler.pkl``;
+* ``SimulGen-VAE_L2_loss.txt``, the per-sample reconstruction MSEs;
+* ``checkpoints/``: the train states (``vae/``, ``latent_conditioner/``,
+  the port's own ``ckpt_*.pt`` files) and the comparison PNGs.
+
+The run is on ``cuda`` unless ``--device cpu``; asking for CUDA where there
+is none raises. matplotlib draws the PNGs where it is installed; without it
+each PNG set is skipped with one line saying so, and ``--plot 0|1`` (the
+dataset plots, asked for explicitly) raises before training starts.
+
+Not ported, and refused with the ROADMAP item that brings them: the image
+conditioners (``input_type`` image, image_vit, image_pca) and end-to-end
+training (Queue 1 items 4-5), and a device mesh (``--mesh_data`` /
+``--mesh_model`` other than one device; Queue 1 item 7). ``--lc_only=1``
+reads the port's VAE checkpoint (``checkpoints/vae/ckpt_*.pt``), not the
+JAX package's orbax one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import os
+import shutil
+import sys
+
+import numpy as np
+import torch
+
+from simulgen_vae_tpu_torch import convert
+from simulgen_vae_tpu_torch.config import (
+    LCConfig,
+    VAEConfig,
+    input_user_variables,
+    parse_condition_file,
+    parse_training_parameters,
+    read_preset,
+)
+from simulgen_vae_tpu_torch.data.dataset import input_dataset, reduce_dataset
+from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
+from simulgen_vae_tpu_torch.data.scaler import data_scaler, latent_conditioner_scaler
+from simulgen_vae_tpu_torch.evaluation import (
+    ReconstructionEvaluator,
+    evaluate_vae_reconstruction,
+)
+from simulgen_vae_tpu_torch.evaluation.plotter import (
+    dual_view_plotter,
+    have_matplotlib,
+    temporal_plotter,
+)
+from simulgen_vae_tpu_torch.generate import resolve_device
+from simulgen_vae_tpu_torch.models.conditioner_mlp import LatentConditioner
+from simulgen_vae_tpu_torch.train.lc_trainer import LCTrainer
+from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
+from simulgen_vae_tpu_torch.utils import preemption
+from simulgen_vae_tpu_torch.utils.checkpoint import (
+    CheckpointManager,
+    save_flax_model,
+    save_l2_loss,
+    save_latents,
+)
+from simulgen_vae_tpu_torch.utils.logging import MetricsLogger
+from simulgen_vae_tpu_torch.utils.summary import train_state_summary
+
+UNPORTED_INPUT_TYPES = ("image", "image_vit", "image_pca")
+
+
+def initialize_folder(folder_name: str) -> None:
+    """Create ``folder_name`` and delete everything in it."""
+    os.makedirs(folder_name, exist_ok=True)
+    for item in os.listdir(folder_name):
+        path = os.path.join(folder_name, item)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="SimulGen-VAE on PyTorch: train the VAE and the latent conditioner",
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+        epilog="""Examples:
+  Full run : python -m simulgen_vae_tpu_torch --preset=1 --plot=2 --lc_only=0 --size=small
+  LC only  : python -m simulgen_vae_tpu_torch --preset=1 --lc_only=1 --size=small
+  CPU      : python -m simulgen_vae_tpu_torch --preset=1 --plot=2 --device cpu""",
+    )
+    parser.add_argument("--preset", dest="preset", default="1")
+    parser.add_argument("--plot", dest="plot", default="2",
+                        help="0|1: also plot the dataset (needs matplotlib); 2: no plots")
+    parser.add_argument("--lc_only", dest="train_latent_conditioner",
+                        default="0")
+    parser.add_argument("--size", dest="size", default="small",
+                        choices=["small", "large"])
+    parser.add_argument("--load_all", dest="load_all", default="1",
+                        help="--load_all=0 keeps the dataset in host memory and "
+                             "streams batches to the device (same as --stream)")
+    parser.add_argument("--mesh_data", type=int, default=None,
+                        help="data-parallel mesh axis size (not ported: one device)")
+    parser.add_argument("--mesh_model", type=int, default=1,
+                        help="model-parallel mesh axis size (not ported: one device)")
+    parser.add_argument("--condition", default="input_data/condition.txt")
+    parser.add_argument("--preset_file", default="preset.txt")
+    parser.add_argument("--opt_state_dtype", default="auto",
+                        choices=["auto", "float32", "bfloat16", "bfloat16_rtn"],
+                        help="AdamW moment storage; auto = float32")
+    parser.add_argument("--sn_cadence", default="auto",
+                        choices=["auto", "step", "epoch"],
+                        help="spectral-norm power-iteration refresh; auto = per step")
+    parser.add_argument("--lc_loss_mode", default="standard",
+                        choices=["standard", "enhanced"],
+                        help="latent-conditioner loss: 'standard' = 10 MSE(main) + "
+                             "MSE(hier); 'enhanced' = the MSE/MAE/smooth-L1 blend "
+                             "plus the perceptual term")
+    parser.add_argument("--dtype", default="float32",
+                        choices=["float32", "bfloat16"])
+    parser.add_argument("--epochs", type=int, default=None,
+                        help="override Training_epochs")
+    parser.add_argument("--lc_epochs", type=int, default=None,
+                        help="override n_epoch")
+    parser.add_argument("--no_wipe", action="store_true",
+                        help="skip the destructive folder init")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume VAE and LC training from the latest checkpoints")
+    parser.add_argument("--auto_resume", action="store_true",
+                        help="like --resume, and safe on a fresh run (resumes only "
+                             "where a checkpoint exists); on SIGTERM the trainers "
+                             "checkpoint and the run exits 75 (EX_TEMPFAIL)")
+    parser.add_argument("--no_preempt_guard", action="store_true",
+                        help="do not install the SIGTERM checkpoint-and-requeue handler")
+    parser.add_argument("--stream", action="store_true",
+                        help="stream batches from host memory")
+    parser.add_argument("--no_nan_guard", action="store_true",
+                        help="disable the VAE's divergence detection (non-finite "
+                             "train loss -> rollback to the last checkpoint)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default="cuda",
+                        help="device to train on (default cuda; 'cpu' for the plain versions)")
+    return parser
+
+
+def resolve_load_all(args) -> None:
+    """``--load_all=0`` takes the streaming path."""
+    if str(args.load_all) in ("0", "false", "False"):
+        args.stream = True
+
+
+def _refuse_unported(args, lc_cfg: LCConfig) -> None:
+    if args.mesh_data not in (None, 1) or args.mesh_model != 1:
+        raise NotImplementedError(
+            "a device mesh (--mesh_data / --mesh_model) is not ported yet (ROADMAP "
+            "Queue 1 item 7); the port trains on one device")
+    if lc_cfg.input_type in UNPORTED_INPUT_TYPES or lc_cfg.use_e2e_training:
+        what = ("end-to-end training" if lc_cfg.use_e2e_training
+                else f"the {lc_cfg.input_type!r} latent conditioner")
+        raise NotImplementedError(
+            f"{what} is not ported yet (ROADMAP Queue 1 items 4-5); the port trains "
+            "input_type csv")
+    if lc_cfg.input_type != "csv":
+        raise NotImplementedError(
+            f"Unrecognized latent_conditioner_data_type: {lc_cfg.input_type}. "
+            'The port supports "csv" (MLP)')
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    resolve_load_all(args)
+    if args.auto_resume:
+        args.resume = True
+    if not args.no_preempt_guard:
+        preemption.install()
+    device = resolve_device(args.device)
+
+    params = parse_condition_file(args.condition)
+    config = parse_training_parameters(params)
+    if args.preset == "1":
+        data_no, _, num_filter_enc, lc_filter = read_preset(args.preset_file)
+    else:
+        data_no, _, num_filter_enc, lc_filter = input_user_variables()
+
+    lc_only = int(args.train_latent_conditioner)
+    cfg = VAEConfig.from_condition(config, num_filter_enc, small=args.size == "small",
+                                   dtype=args.dtype)
+    cfg.opt_state_dtype = args.opt_state_dtype
+    cfg.sn_cadence = args.sn_cadence
+    if args.epochs is not None:
+        cfg.n_epochs = args.epochs
+    lc_cfg = LCConfig.from_condition(config, lc_filter)
+    if args.lc_epochs is not None:
+        lc_cfg.epochs = args.lc_epochs
+    _refuse_unported(args, lc_cfg)
+    if args.plot != "2" and not have_matplotlib():
+        raise RuntimeError(f"--plot {args.plot} draws the dataset with matplotlib, which "
+                           "is not installed; pass --plot=2 to train without plots")
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
+    print(f"Starting SimulGen-VAE (PyTorch) on {device} ({name})...")
+
+    if lc_only == 0 and not args.no_wipe and not args.resume:
+        for folder in ("model_save", "checkpoints", "LatentConditionerRuns", "output"):
+            initialize_folder(folder)
+    os.makedirs("model_save", exist_ok=True)
+    os.makedirs("checkpoints", exist_ok=True)
+
+    # -- data ----------------------------------------------------------------
+    data_save = input_dataset(config["num_param"], config["num_time"],
+                              config["num_node"], data_no)
+    num_node_red = config["num_node_end"] - config["num_node_start"]
+    num_time, fom_data, num_node = reduce_dataset(
+        data_save, config["num_time_to"], num_node_red, config["num_param"],
+        config["num_time"], config["num_node_start"], config["num_node_end"],
+    )
+    del data_save
+
+    if args.plot != "2":
+        os.makedirs("output", exist_ok=True)
+        start = min(7, fom_data.shape[0] - 1)
+        dual_view_plotter(fom_data, param_idx=start, print_graph=args.plot,
+                          save_path="output/dual_view.png")
+        temporal_plotter(fom_data, 0, start, 0, args.plot,
+                         min(7, fom_data.shape[0] - start),
+                         save_path="output/temporal.png")
+
+    new_x_train, _, _ = data_scaler(fom_data, num_time, num_node,
+                                    save_path="model_save/scaler.pkl")
+    del fom_data
+    new_x_train = np.asarray(new_x_train, np.float32)
+    print(f"Dataset value range: [{new_x_train.min():.4f}, {new_x_train.max():.4f}]")
+
+    # -- VAE -----------------------------------------------------------------
+    trainer = VAETrainer(cfg, device=device, seed=args.seed)
+    if lc_only == 0:
+        ckpt = CheckpointManager("checkpoints/vae",
+                                 save_interval_epochs=max(cfg.n_epochs // 10, 1))
+        state = trainer.init_state(args.seed)
+        remaining = cfg.n_epochs
+        if args.resume and ckpt.latest_step() is not None:
+            state = ckpt.restore(state)
+            remaining = max(cfg.n_epochs - int(state.epoch), 0)
+            print(f"Resuming from epoch {int(state.epoch)} "
+                  f"({remaining} epochs remaining)")
+        print(train_state_summary(state, "SimulGen-VAE"))
+        logger = MetricsLogger(log_dir="./runs", name="VAE",
+                               samples_per_epoch=int(len(new_x_train) * 0.8))
+        state, _ = trainer.fit(
+            new_x_train, args.seed, state=state, stream=args.stream, epochs=remaining,
+            ckpt_manager=ckpt, log_fn=lambda e, m: logger.log(e, m, cfg.n_epochs),
+            nan_guard=not args.no_nan_guard,
+        )
+        logger.close()
+        if preemption.requested():
+            print(f"Preempted at epoch {int(state.epoch)}: train state "
+                  f"checkpointed; rerun with --resume to continue "
+                  f"(exit {preemption.EX_TEMPFAIL})")
+            return preemption.EX_TEMPFAIL
+
+        vae_model = trainer.eval_params(state)
+        del state  # the moments are not needed past this point
+        save_flax_model("model_save/SimulGen-VAE",
+                        {"params": convert.vae_tree(vae_model, cfg)})
+
+        n_train = int(len(new_x_train) * 0.8)
+        for rows, label in ((slice(0, n_train), "Training Reconstruction"),
+                            (slice(n_train, None), "Validation")):
+            evaluate_vae_reconstruction(
+                vae_model, new_x_train[rows], args.seed, recon_iter=cfg.recon_iter,
+                batch_size=cfg.batch_size, dataset_name=label, save_images=True)
+        latent_vectors, hierarchical, recon_loss, _, _ = evaluate_vae_reconstruction(
+            vae_model, new_x_train, args.seed, recon_iter=cfg.recon_iter,
+            batch_size=cfg.batch_size, dataset_name="Whole Dataset")
+        save_latents("model_save", latent_vectors, hierarchical)
+        save_l2_loss("./SimulGen-VAE_L2_loss.txt", recon_loss)
+    else:
+        print("Training LatentConditioner only...")
+        latent_vectors = np.load("model_save/latent_vectors.npy")
+        hierarchical = np.load("model_save/xs.npy")
+        state = CheckpointManager("checkpoints/vae").restore(trainer.init_state(args.seed))
+        print(train_state_summary(state, "SimulGen-VAE"))
+        vae_model = trainer.eval_params(state)
+        del state
+
+    return run_latent_conditioner_stage(args, cfg, lc_cfg, vae_model, latent_vectors,
+                                        hierarchical, new_x_train, device)
+
+
+def _maybe_resume_lc(args, trainer: LCTrainer, lc_ckpt: CheckpointManager,
+                     total_epochs: int):
+    """The LC's initial state (restored from the latest checkpoint under
+    ``--resume``) and the epochs left to train."""
+    state = trainer.init_state(args.seed)
+    if not getattr(args, "resume", False) or lc_ckpt.latest_step() is None:
+        return state, total_epochs
+    state = lc_ckpt.restore(state)
+    remaining = max(total_epochs - int(state.epoch), 0)
+    print(f"Resuming LatentConditioner from epoch {int(state.epoch)} "
+          f"({remaining} epochs remaining)")
+    return state, remaining
+
+
+def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_model,
+                                 latent_vectors, hierarchical, new_x_train,
+                                 device) -> int:
+    """Scale the CSV inputs and the latents, train the MLP conditioner, save
+    it and compare its reconstructions with the VAE's own. Returns the exit
+    code (75 when preempted)."""
+    num_param = latent_vectors.shape[0]
+    out_latent = latent_vectors.reshape(num_param, cfg.latent_dim_end)
+    xs_vectors = hierarchical.reshape(num_param, -1)
+
+    print("Loading csv data for MLP...")
+    physical_input = read_latent_conditioner_dataset(lc_cfg.param_dir)
+    physical_input, _ = latent_conditioner_scaler(
+        physical_input, "./model_save/latent_conditioner_input_scaler.pkl")
+    out_latent, lv_scaler = latent_conditioner_scaler(
+        out_latent, "./model_save/latent_vectors_scaler.pkl")
+    out_hier_flat, xs_scaler = latent_conditioner_scaler(
+        xs_vectors, "./model_save/xs_scaler.pkl")
+    size2 = cfg.num_hier
+    out_hier = out_hier_flat.reshape(num_param, size2, cfg.latent_dim)
+    n_in = physical_input.shape[-1]
+
+    lc_model = LatentConditioner(lc_cfg.filters, cfg.latent_dim_end, n_in, cfg.latent_dim,
+                                 size2, device, lc_cfg.dropout_rate)
+    logger = MetricsLogger(log_dir="./LatentConditionerRuns", name="LatentConditioner")
+    print("Starting LatentConditioner training...")
+    lc_ckpt = CheckpointManager("checkpoints/latent_conditioner",
+                                save_interval_epochs=max(lc_cfg.epochs // 10, 1))
+    trainer = LCTrainer(lc_model, epochs=lc_cfg.epochs, lr=lc_cfg.lr,
+                        batch_size=lc_cfg.batch_size, weight_decay=lc_cfg.weight_decay,
+                        loss_mode=args.lc_loss_mode, device=device, seed=args.seed)
+    lc_state, remaining = _maybe_resume_lc(args, trainer, lc_ckpt, lc_cfg.epochs)
+    print(train_state_summary(lc_state, "LatentConditioner (csv)"))
+    lc_state, _ = trainer.fit(
+        physical_input, out_latent, out_hier, args.seed, state=lc_state,
+        epochs=remaining, ckpt_manager=lc_ckpt,
+        log_fn=lambda e, m: logger.log(e, m, lc_cfg.epochs),
+    )
+    logger.close()
+    lc_ckpt.close()
+
+    if preemption.requested():
+        print(f"Preempted at LC epoch {int(lc_state.epoch)}: state "
+              f"checkpointed; rerun with --resume to continue "
+              f"(exit {preemption.EX_TEMPFAIL})")
+        return preemption.EX_TEMPFAIL
+
+    save_flax_model("model_save/LatentConditioner", {
+        "params": convert.conditioner_tree(lc_state.model, lc_cfg, cfg, n_in),
+        "batch_stats": {},
+    })
+
+    print("LatentConditioner training completed successfully")
+    print("Starting reconstruction evaluation...")
+    evaluator = ReconstructionEvaluator(vae_model, batch_size=cfg.batch_size, seed=args.seed)
+    evaluator.evaluate_reconstruction_comparison(
+        trainer.predict_fn(lc_state), physical_input, out_latent, out_hier, new_x_train,
+        lv_scaler, xs_scaler, save_dir="checkpoints",
+    )
+
+    # Mirror the comparison plots into TensorBoard where it is installed.
+    img_logger = MetricsLogger(log_dir="./LatentConditionerRuns",
+                               name="LatentConditioner", console=False)
+    for i, png in enumerate(sorted(glob.glob("checkpoints/*.png"))[:10]):
+        img_logger.log_image_file(
+            f"reconstruction/{os.path.basename(png)[:-4]}", png, step=i)
+    img_logger.close()
+    print("Done.")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,7 +9,8 @@ readers of the reference's two config files:
   markers and skipped;
 * ``parse_training_parameters``: the typed key set with its defaults;
 * ``read_preset``: a 5-line file (header, data_No, init_beta_divisor, encoder
-  filters, latent-conditioner filters).
+  filters, latent-conditioner filters), or ``input_user_variables``, the
+  same four values from stdin.
 """
 
 from __future__ import annotations
@@ -85,6 +86,22 @@ def read_preset(filepath: str = "preset.txt"):
         lines = [line.rstrip("\n") for line in f]
     return (int(lines[1]), int(lines[2]), list(map(int, lines[3].split())),
             list(map(int, lines[4].split())))
+
+
+def input_user_variables():
+    """The stdin fallback when ``--preset != 1``: the dataset number, the
+    initial beta power, the encoder filters and the conditioner filters, one
+    prompt each, as :func:`read_preset` returns them."""
+    print()
+    print("Input dataset number of pickle file, dataset%d.pickle")
+    dataset_no = int(input())
+    print("Input initial beta power")
+    init_beta_divisor = int(input())
+    print("Input SimulGen-VAE filters")
+    num_filter_enc = list(map(int, input().split()))
+    print("Input LatentConditioner filters")
+    latent_conditioner_filter = list(map(int, input().split()))
+    return dataset_no, init_beta_divisor, num_filter_enc, latent_conditioner_filter
 
 
 LOSS_NAMES = {1: "MSE", 2: "MAE", 3: "smoothL1", 4: "Huber"}
@@ -180,7 +197,7 @@ def resolve_perf_stack(cfg: VAEConfig) -> dict:
 @dataclasses.dataclass
 class LCConfig:
     """Latent-conditioner configuration (condition.txt's %LatentConditioner
-    block). The port serves the CSV (MLP) conditioner only."""
+    block). The port trains and serves the CSV (MLP) conditioner only."""
 
     filters: List[int] = dataclasses.field(
         default_factory=lambda: [32, 64, 128, 256, 512, 1024])

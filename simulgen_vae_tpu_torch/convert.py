@@ -1,4 +1,4 @@
-"""Weight bridge: JAX trees (nested dicts of numpy arrays) -> the port's modules and state.
+"""Weight bridge between JAX trees (nested dicts of numpy arrays) and the port's modules.
 
 Layout rules (the same as ``scripts/export_torch_state.py``, re-implemented):
 
@@ -15,12 +15,19 @@ one walk of the tree serves every tree of the VAE's layout: parameters, and
 equally gradients and AdamW moments (:data:`PARAMS`), or the spectral-norm
 ``u`` vectors, one per kernel, keyed by their kernel's name (:data:`SN_U`).
 The ``random_*_tree`` functions make trees with the JAX modules' paths and
-shapes from a numpy generator, for runs without trained weights.
+shapes from a numpy generator, for runs without trained weights (or, given
+no generator, a skeleton of those paths with empty leaves).
+
+The other direction, :func:`vae_tree` and :func:`conditioner_tree`, turns a
+trained port module into the tree the JAX package's ``save_flax_model``
+writes: the ``*_state`` walk runs over a skeleton whose leaves are their own
+paths (:data:`PATHS`), which maps each port name to its JAX path and layout,
+and each tensor goes back through the inverse layout rule.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -59,7 +66,15 @@ class _SnU:
     vec = None
 
 
-PARAMS, SN_U = _Params(), _SnU()
+class _Paths:
+    """Leaves of a tree of paths: each becomes ``(layout, path)``."""
+
+    conv = staticmethod(lambda path: ("conv", path))
+    dense = staticmethod(lambda path: ("dense", path))
+    vec = staticmethod(lambda path: ("vec", path))
+
+
+PARAMS, SN_U, PATHS = _Params(), _SnU(), _Paths()
 
 
 def _prefixed(prefix: str, state: State) -> State:
@@ -94,8 +109,8 @@ def _norm_at(tree, name: str, leaves) -> State:
     return norm_state(tree[name], leaves) if leaves.vec is not None else {}
 
 
-def layer_norm_state(tree) -> State:
-    return {"weight": _np(tree["scale"]), "bias": _np(tree["bias"])}
+def layer_norm_state(tree, leaves=PARAMS) -> State:
+    return _vecs(tree, [("scale", "weight"), ("bias", "bias")], leaves)
 
 
 def stages_state(tree, leaves=PARAMS) -> State:
@@ -185,36 +200,38 @@ def adamw_state(opt_state) -> dict:
             "mu": vae_state(opt_state.mu), "nu": vae_state(opt_state.nu)}
 
 
-def _mlp_block_state(tree) -> State:
-    out = {**_prefixed("dense0", linear_state(tree["Dense_0"])),
-           **_prefixed("norm0", layer_norm_state(tree["LayerNorm_0"])),
-           **_prefixed("dense1", linear_state(tree["Dense_1"])),
-           **_prefixed("norm1", layer_norm_state(tree["LayerNorm_1"]))}
+def _mlp_block_state(tree, leaves) -> State:
+    out = {**_prefixed("dense0", linear_state(tree["Dense_0"], leaves)),
+           **_prefixed("norm0", layer_norm_state(tree["LayerNorm_0"], leaves)),
+           **_prefixed("dense1", linear_state(tree["Dense_1"], leaves)),
+           **_prefixed("norm1", layer_norm_state(tree["LayerNorm_1"], leaves))}
     if "Dense_2" in tree:  # the projected identity
-        out.update(_prefixed("project.0", linear_state(tree["Dense_2"])))
-        out.update(_prefixed("project.1", layer_norm_state(tree["LayerNorm_2"])))
+        out.update(_prefixed("project.0", linear_state(tree["Dense_2"], leaves)))
+        out.update(_prefixed("project.1", layer_norm_state(tree["LayerNorm_2"], leaves)))
     return out
 
 
-def _head_state(tree) -> State:
-    return {**_prefixed("dense0", linear_state(tree["Dense_0"])),
-            **_prefixed("norm0", layer_norm_state(tree["LayerNorm_0"])),
-            **_prefixed("dense1", linear_state(tree["Dense_1"])),
-            **_prefixed("norm1", layer_norm_state(tree["LayerNorm_1"])),
-            **_prefixed("dense2", linear_state(tree["Dense_2"]))}
+def _head_state(tree, leaves) -> State:
+    return {**_prefixed("dense0", linear_state(tree["Dense_0"], leaves)),
+            **_prefixed("norm0", layer_norm_state(tree["LayerNorm_0"], leaves)),
+            **_prefixed("dense1", linear_state(tree["Dense_1"], leaves)),
+            **_prefixed("norm1", layer_norm_state(tree["LayerNorm_1"], leaves)),
+            **_prefixed("dense2", linear_state(tree["Dense_2"], leaves))}
 
 
-def conditioner_state(tree) -> State:
-    """The MLP conditioner's ``params`` tree -> ``LatentConditioner``."""
-    out = {**_prefixed("input_norm", layer_norm_state(tree["input_norm"])),
-           **_prefixed("stem", linear_state(tree["Dense_0"])),
-           **_prefixed("stem_norm", layer_norm_state(tree["LayerNorm_0"])),
-           **_prefixed("feature_norm", layer_norm_state(tree["feature_norm"])),
-           **_prefixed("latent_out", _head_state(tree["latent_out"])),
-           **_prefixed("xs_out", _head_state(tree["xs_out"]))}
+def conditioner_state(tree, leaves=PARAMS) -> State:
+    """The MLP conditioner's ``params`` tree (or its gradients) ->
+    ``LatentConditioner`` names."""
+    out = {**_prefixed("input_norm", layer_norm_state(tree["input_norm"], leaves)),
+           **_prefixed("stem", linear_state(tree["Dense_0"], leaves)),
+           **_prefixed("stem_norm", layer_norm_state(tree["LayerNorm_0"], leaves)),
+           **_prefixed("feature_norm", layer_norm_state(tree["feature_norm"], leaves)),
+           **_prefixed("latent_out", _head_state(tree["latent_out"], leaves)),
+           **_prefixed("xs_out", _head_state(tree["xs_out"], leaves))}
     n = sum(1 for k in tree if k.startswith("_MLPResidualBlock_"))
     for j in range(n):
-        out.update(_prefixed(f"blocks.{j}", _mlp_block_state(tree[f"_MLPResidualBlock_{j}"])))
+        out.update(_prefixed(f"blocks.{j}",
+                             _mlp_block_state(tree[f"_MLPResidualBlock_{j}"], leaves)))
     return out
 
 
@@ -265,19 +282,68 @@ def conditioner_from_jax(tree, lc_cfg: LCConfig, cfg: VAEConfig,
                          device) -> LatentConditioner:
     input_shape = np.shape(tree["input_norm"]["scale"])[0]
     lc = LatentConditioner(lc_cfg.filters, cfg.latent_dim_end, input_shape,
-                           cfg.latent_dim, cfg.num_hier, device)
+                           cfg.latent_dim, cfg.num_hier, device, lc_cfg.dropout_rate)
     load_state(lc, conditioner_state(tree))
     return lc.eval()
 
 
+# -- the port's modules -> JAX trees --------------------------------------------
+
+# The layouts back, laid out on the module's device (a card transposes the
+# flagship's [5120, 5120, 5] kernels far faster than numpy does).
+_INVERSE = {"conv": lambda t: t.permute(2, 1, 0), "dense": lambda t: t.t(),
+            "vec": lambda t: t}
+
+
+def _path_tree(tree, prefix=()) -> dict:
+    """``tree`` with each leaf replaced by its path (a tuple of keys)."""
+    return {k: _path_tree(v, prefix + (k,)) if isinstance(v, dict) else prefix + (k,)
+            for k, v in tree.items()}
+
+
+def _to_tree(state_fn, skeleton: dict, module: nn.Module) -> dict:
+    """``module``'s tensors as the JAX tree that ``state_fn`` reads: each port
+    name's f32 array, in its JAX layout, at its JAX path."""
+    names = state_fn(_path_tree(skeleton), PATHS)
+    tensors = module.state_dict()
+    if set(names) != set(tensors):
+        raise ValueError(f"the module's names differ from the JAX layout's: "
+                         f"{sorted(set(names) ^ set(tensors))[:8]}")
+    out: dict = {}
+    for name, (layout, path) in names.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        t = _INVERSE[layout](tensors[name].detach().float()).contiguous()
+        node[path[-1]] = t.cpu().numpy()
+    return out
+
+
+def vae_tree(model: VAE, cfg: VAEConfig) -> dict:
+    """A port VAE with its encoder (``VAETrainer.eval_params`` gives the one to
+    serve) -> the JAX VAE's ``params`` tree (``{'encoder', 'decoder'}``)."""
+    return _to_tree(vae_state, random_vae_tree(cfg, None), model)
+
+
+def conditioner_tree(lc: LatentConditioner, lc_cfg: LCConfig, cfg: VAEConfig,
+                     input_shape: int) -> dict:
+    """A port ``LatentConditioner`` -> the JAX MLP conditioner's ``params``."""
+    return _to_tree(conditioner_state,
+                    random_conditioner_tree(lc_cfg, cfg, input_shape, None), lc)
+
+
 # -- random trees in the JAX layout -------------------------------------------
 
-def _he(rng: np.random.Generator, shape, fan_in: int) -> np.ndarray:
+def _he(rng: Optional[np.random.Generator], shape, fan_in: int) -> np.ndarray:
+    if rng is None:  # a skeleton: the path is all that is read
+        return np.empty(0, np.float32)
     bound = np.sqrt(6.0 / fan_in)
     return rng.uniform(-bound, bound, shape).astype(np.float32)
 
 
-def _small(rng: np.random.Generator, n: int, around: float = 0.0) -> np.ndarray:
+def _small(rng: Optional[np.random.Generator], n: int, around: float = 0.0) -> np.ndarray:
+    if rng is None:
+        return np.empty(0, np.float32)
     return (around + 0.1 * rng.standard_normal(n)).astype(np.float32)
 
 

@@ -1,6 +1,7 @@
-"""Losses of the VAE (``simulgen_vae_tpu/losses.py``): the KL terms, the
+"""Losses (``simulgen_vae_tpu/losses.py``): the VAE's KL terms, the
 reconstruction flavors, the low-residual reconstruction pair and the KL
-warm-up schedule."""
+warm-up schedule; the latent conditioner's enhanced blend and cosine
+"perceptual" term; ``log_sum_exp``."""
 
 from __future__ import annotations
 
@@ -120,3 +121,55 @@ def beta_schedule(epoch: int, n_epochs: int, init_beta: float = 1e-4,
     start, end = int(n_epochs * start_frac), int(n_epochs * end_frac)
     slope = (beta_target - init_beta) / max(end - start, 1)
     return min(max((epoch - start) * slope + init_beta, init_beta), beta_target)
+
+
+# -- the latent conditioner's enhanced losses ---------------------------------
+
+def compute_enhanced_loss(y_pred1, y_pred2, y1, y2, config: dict):
+    """A weighted MSE / MAE / smooth-L1 blend on the main and the hierarchical
+    latents, ``main_weight * blend(main) + hier_weight * blend(hier)``;
+    weights from ``config`` (defaults 0.2, 0.3, 0.5, beta 0.1; 0.9, 0.1)."""
+    mse_w = config.get("mse_weight", 0.2)
+    mae_w = config.get("mae_weight", 0.3)
+    hub_w = config.get("huber_weight", 0.5)
+    hub_beta = config.get("huber_beta", 0.1)
+
+    def blend(pred, tgt):
+        out = mse_w * mse_loss(pred, tgt)
+        if mae_w > 0:
+            out = out + mae_w * mae_loss(pred, tgt)
+        if hub_w > 0:
+            out = out + hub_w * smooth_l1_loss(pred, tgt, beta=hub_beta)
+        return out
+
+    loss_main = blend(y_pred1, y1)
+    loss_hier = blend(y_pred2, y2)
+    return (config.get("main_weight", 0.9) * loss_main
+            + config.get("hier_weight", 0.1) * loss_hier)
+
+
+def compute_perceptual_loss(y_pred1, y_pred2, y1, y2, config: dict):
+    """``perceptual_weight`` x (1 - mean cosine similarity) over the last axis,
+    main plus hierarchical; 0.0 when the weight is not positive (default)."""
+    w = config.get("perceptual_weight", 0)
+    if w <= 0:
+        return 0.0
+
+    def cos(a, b):
+        num = torch.sum(a * b, dim=-1)
+        den = (torch.linalg.vector_norm(a, dim=-1)
+               * torch.linalg.vector_norm(b, dim=-1) + 1e-8)
+        return torch.mean(num / den)
+
+    perceptual_main = 1.0 - cos(y_pred1, y1)
+    hier_dim = y_pred2.shape[-1]
+    perceptual_hier = 1.0 - cos(y_pred2.reshape(-1, hier_dim),
+                                y2.reshape(-1, hier_dim))
+    return (perceptual_main + perceptual_hier) * w
+
+
+def log_sum_exp(x: torch.Tensor) -> torch.Tensor:
+    """Stable log-sum-exp over axis 1, with the JAX function's broadcasting
+    of the max (``m[:, :, None] + log(sum(exp(x - m), 1))``)."""
+    m = torch.amax(x, dim=1, keepdim=True)
+    return m[:, :, None] + torch.log(torch.sum(torch.exp(x - m), dim=1))

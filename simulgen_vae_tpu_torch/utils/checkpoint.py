@@ -13,7 +13,8 @@ package's orbax checkpoints is not this module's job.
 The trained models of ``model_save/`` (``SimulGen-VAE``,
 ``LatentConditioner``) are flax msgpack files: :func:`load_flax_model` and
 :func:`save_flax_model` read and write them without flax
-(``utils/msgpack_tree.py``).
+(``utils/msgpack_tree.py``). :func:`save_latents` and :func:`save_l2_loss`
+write the training CLI's other artifacts in the JAX package's layout.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import os
 import re
 from typing import Any, List, Optional
 
+import numpy as np
 import torch
 
 from simulgen_vae_tpu_torch.utils import msgpack_tree
@@ -128,3 +130,18 @@ def save_flax_model(path: str, tree: dict) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         msgpack_tree.dump(tree, f)
+
+
+def save_latents(save_dir: str, latent_vectors: np.ndarray,
+                 hierarchical: np.ndarray) -> None:
+    """``latent_vectors.npy`` [P, latent_dim_end] and ``xs.npy``
+    [P, n_hier, latent_dim] in ``save_dir``."""
+    os.makedirs(save_dir, exist_ok=True)
+    np.save(os.path.join(save_dir, "latent_vectors"), latent_vectors)
+    np.save(os.path.join(save_dir, "xs"), hierarchical)
+
+
+def save_l2_loss(path: str, reconstruction_loss: np.ndarray) -> None:
+    """The per-sample reconstruction MSEs, one ``%e`` line each
+    (``SimulGen-VAE_L2_loss.txt``)."""
+    np.savetxt(path, reconstruction_loss, fmt="%e")

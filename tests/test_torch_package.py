@@ -1,6 +1,8 @@
 """The port stands alone: no JAX, flax or JAX-package import, nor msgpack,
-sklearn or pandas, which the card's machine lacks; and its entry points refuse
-to fall back to the CPU when CUDA was asked for and is absent."""
+sklearn or pandas, which the card's machine lacks, and matplotlib, PIL and
+tensorboardX (also absent there) only inside the functions that use them; and
+its entry points refuse to fall back to the CPU when CUDA was asked for and
+is absent."""
 
 import ast
 import os
@@ -15,6 +17,7 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "simulgen_vae_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "simulgen_vae_tpu", "scripts",
              "msgpack", "sklearn", "pandas")
+LAZY = ("matplotlib", "PIL", "tensorboardX")
 
 
 def _modules():
@@ -35,7 +38,7 @@ def test_importing_every_module_loads_no_jax():
     code = (
         "import sys\n"
         f"for m in {names!r}: __import__(m)\n"
-        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + LAZY!r}]\n"
         "from simulgen_vae_tpu_torch.ops import _build\n"
         "assert not _build._LIBS, 'a kernel library was loaded at import time'\n"
         "print('BAD', bad)\n"
@@ -60,11 +63,31 @@ def test_no_forbidden_import_in_source(path):
         assert not set(roots) & set(FORBIDDEN), f"{path}:{node.lineno} imports {roots}"
 
 
+@pytest.mark.parametrize("path", [p for p, _ in _modules()],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_plotting_and_tensorboard_are_imported_inside_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:   # the module's own statements, not function bodies
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            continue
+        for sub in ast.walk(node):
+            if isinstance(sub, ast.Import):
+                roots = [a.name.split(".")[0] for a in sub.names]
+            elif isinstance(sub, ast.ImportFrom) and sub.level == 0:
+                roots = [sub.module.split(".")[0]]
+            else:
+                continue
+            assert not set(roots) & set(LAZY), f"{path}:{sub.lineno} imports {roots}"
+
+
 def test_the_stack_modules_are_among_those_checked():
     names = {name for _, name in _modules()}
     for mod in ("ops.fused_adamw", "train.nan_guard", "train.optim", "utils.checkpoint",
                 "utils.preemption", "train.vae_trainer", "utils.msgpack_tree", "ops.quant",
-                "data.images", "data.scaler", "generate"):
+                "data.images", "data.scaler", "generate", "cli", "__main__",
+                "train.lc_trainer", "data.dataset", "evaluation.evaluator",
+                "evaluation.reconstruction", "evaluation.plotter", "utils.logging",
+                "utils.summary"):
         assert f"simulgen_vae_tpu_torch.{mod}" in names
 
 
