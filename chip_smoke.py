@@ -154,7 +154,36 @@ Phases, each printing its own lines; any failure exits non-zero:
              the trained model_save/ for the 32 rows (--quantize none):
              (32, 200, 95008), finite, within rel-L2 1e-6 of load_pipeline +
              generate in this process under the CLI's flags; --quantize int8
-             against it (printed, no gate).
+             against it (printed, no gate);
+10. images : the image conditioners at the flagship widths (conditioner
+             filters 32 .. 1024, 256 x 256 images) on phase 9's trained VAE,
+             latents and dataset, in its work directory. The card has no
+             OpenCV: IMAGE_RUNNER runs the training CLI with only
+             data.images.read_latent_conditioner_dataset_img replaced by 32
+             binary outline images from --seed (seeded_images; it prints a
+             line saying so). First the shipped configuration (input_type
+             image, use_e2e_training 1, Huber, LC_alpha 1000, reg 0.001,
+             batch 64 -> min(64, n_train)), then input_type image_vit through
+             LCTrainer with augmentation, each ``--lc_only=1``: exit 0, the
+             eight model_save/ files with LatentConditioner rewritten, the
+             latents as phase 9 left them, finite losses; the E2E process
+             launches gn_act_onepass, gn_stats, gn_apply, gn_bwd_onepass,
+             gn_bwd_stats, gn_bwd_apply and fused_adamw. In that process,
+             after its counts are read, the E2E loss and the conditioner's
+             gradients at fit's batch sizes (23 training rows forward and
+             backward, 9 validation rows forward) through those GroupNorm
+             kernels against the plain version (e2e_routes): bf16 as trained
+             (losses 1e-2 relative, the whole gradient rel-L2 1e-2) and f32,
+             TF32 off (losses 1e-4, every gradient rel-L2 1e-3). Each trained
+             model_save/ served by load_pipeline + generate from 16 images in
+             f32 (TF32 off) within rel-L2 1e-6 of make_pipeline on the tree
+             the trainer saved, kept in its process; its conditioner on the
+             card against the same one on the CPU within max-abs 1e-4.
+             Printed, not gated: each run's wall time, stages, peak memory
+             and epoch times; batch-16 decode p50 and device time through
+             the CNN, ViT and CSV pipelines and the conditioners' own device
+             time, in turns; the trained CNN's raw-kernel (served) output
+             against its forward through W / sigma on one checkpoint.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
@@ -186,6 +215,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pickle
 import re
@@ -2222,15 +2252,17 @@ def write_config(root: Path, cfg, lc_cfg, n_in: int, rows: int, rng, epochs: int
     np.savetxt(root / "params.csv", rng.uniform(-2.0, 3.0, (rows, n_in)), delimiter=",")
 
 
-def run_module(module: str, args: list, cwd: Path, what: str, timeout: int = 600):
-    """``python -m MODULE ARGS`` through CLI_RUNNER in its own process, the
-    package found beside this script: (the completed process, its launch
+def run_module(module: str, args: list, cwd: Path, what: str, timeout: int = 600,
+               runner: str = CLI_RUNNER):
+    """``python -m MODULE ARGS`` through ``runner`` (CLI_RUNNER, or
+    IMAGE_RUNNER, which takes its own arguments first) in its own process,
+    the package found beside this script: (the completed process, its launch
     counts, its peak device bytes, its seconds). A non-zero exit raises."""
     here = Path(__file__).resolve().parent
     env = dict(os.environ)
     env["PYTHONPATH"] = str(here) + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
     t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-c", CLI_RUNNER, module, *args], cwd=cwd, env=env,
+    run = subprocess.run([sys.executable, "-c", runner, module, *args], cwd=cwd, env=env,
                          capture_output=True, text=True, timeout=timeout)
     seconds = time.perf_counter() - t0
     if run.returncode != 0:
@@ -2473,8 +2505,9 @@ CLI_MODEL_SAVE = ("SimulGen-VAE", "LatentConditioner", "scaler.pkl", "latent_vec
                   "latent_conditioner_input_scaler.pkl")
 # Written to the work directory: the dataset (2.43 GB), two VAE checkpoints
 # (parameters and both AdamW moments in f32, 4.84 GB each), the model
-# (1.61 GB) and the generated fields (2.43 GB a serve).
-CLI_DISK_BYTES = 16e9
+# (1.61 GB), the generated fields (2.43 GB a serve) and, in phase 10, the
+# fields served from 16 images (1.22 GB).
+CLI_DISK_BYTES = 18e9
 EPOCH_LINE = re.compile(r"^(\S+ \S+) - INFO - \[Epoch (\d+)/(\d+)\] Loss: (\S+) .* "
                         r"Time: ([\d.]+)s", re.M)
 
@@ -2516,7 +2549,7 @@ def _epoch_lines(text: str, total: int) -> list:
 
 
 def _work_dir():
-    """A temporary directory with room for phase 9, under TMPDIR or, where
+    """A temporary directory with room for phases 9 and 10, under TMPDIR or, where
     that is too small, beside this script (git-ignored ``_scratch/``)."""
     import shutil
     import tempfile
@@ -2526,15 +2559,15 @@ def _work_dir():
         free = shutil.disk_usage(base).free
         if free >= CLI_DISK_BYTES:
             return tempfile.TemporaryDirectory(dir=base), base, free
-    raise AssertionError(f"phase 9 needs {CLI_DISK_BYTES / 1e9:.0f} GB of disk; "
+    raise AssertionError(f"phases 9-10 need {CLI_DISK_BYTES / 1e9:.0f} GB of disk; "
                          f"{base} has {free / 1e9:.1f} GB free")
 
 
-def phase_cli_train(args, card):
+def phase_cli_train(args, card, root: Path, base: str, free: int):
     """Phase 9: train the flagship geometry through the training CLI in its
-    own process, check its artifacts, rerun the conditioner alone, and serve
-    the trained model through the generate CLI. Returns (the training
-    process's launch counts, the result dict)."""
+    own process in the work directory ``root``, check its artifacts, rerun
+    the conditioner alone, and serve the trained model through the generate
+    CLI. Returns (the training process's launch counts, the result dict)."""
     from simulgen_vae_tpu_torch import generate as tgen
     from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
     from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
@@ -2542,106 +2575,518 @@ def phase_cli_train(args, card):
 
     cfg = VAEConfig(num_time=T, num_node=READOUT_C, latent_dim_end=32, latent_dim=8,
                     num_filter_enc=[1024, 512, 256, 128], small=True)
-    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024])
+    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024], input_type="csv")
     n_in = 484
     result = {}
-    work, base, free = _work_dir()
-    with work as tmp:
-        root = Path(tmp)
-        result["dataset_s"] = write_dataset(root / "dataset1.pickle", CLI_SAMPLES, T,
-                                            cfg.num_node, args.seed)
-        write_config(root, cfg, lc_cfg, n_in, CLI_SAMPLES, np.random.default_rng(args.seed),
-                     epochs=CLI_EPOCHS, recon_iter=2, lc_epochs=CLI_LC_EPOCHS, lc_batch=B)
-        print(f"cli-train: work directory under {base} ({free / 1e9:.0f} GB free); dataset "
-              f"({CLI_SAMPLES}, {T}, {cfg.num_node}) f32 written in {result['dataset_s']:.1f} s")
-        torch.cuda.empty_cache()
-        common = ["--preset=1", "--plot=2", "--size=small", "--dtype", "bfloat16",
-                  "--condition", "condition.txt", "--device", "cuda"]
-        started = time.time()
-        run, launches, peak, seconds = run_module(
-            "simulgen_vae_tpu_torch",
-            [*common, "--lc_only=0", "--epochs", str(CLI_EPOCHS),
-             "--lc_epochs", str(CLI_LC_EPOCHS)], root, "the training CLI", timeout=900)
-        ended = time.time()
-        (OUT_DIR / "chip_smoke_cli_train.log").write_text(run.stdout + "\n" + run.stderr)
-        vae, lc = _epoch_lines(run.stderr, CLI_EPOCHS), _epoch_lines(run.stderr, CLI_LC_EPOCHS)
-        if len(vae) != CLI_EPOCHS or len(lc) != CLI_LC_EPOCHS:
-            raise AssertionError(f"{len(vae)} VAE and {len(lc)} LC epoch lines logged")
-        # the stages between the log lines' stamps (millisecond clock of this host)
-        stages = {"start to the first VAE epoch logged": vae[0][2] - started,
-                  "the other VAE epochs, checkpoints between": vae[-1][2] - vae[0][2],
-                  "VAE checkpoint, model file, latent extraction, LC set-up":
-                      lc[0][2] - vae[-1][2],
-                  "the other LC epochs": lc[-1][2] - lc[0][2],
-                  "LC model file, comparison, exit": ended - lc[-1][2]}
-        result.update(train_s=seconds, train_peak_bytes=peak, launches=launches,
-                      vae_epoch_s=[e[1] for e in vae], lc_epoch_s=[e[1] for e in lc],
-                      lc_loss_first=lc[0][0], lc_loss_last=lc[-1][0], stages_s=stages)
-        print(f"cli-train: [{card}] python -m simulgen_vae_tpu_torch --dtype bfloat16 --epochs "
-              f"{CLI_EPOCHS} --lc_epochs {CLI_LC_EPOCHS}: exit 0 in {seconds:.1f} s (its own "
-              f"process), peak device memory {peak / 2**30:.2f} GiB; VAE epochs "
-              + ", ".join(f"{e[1]:.2f}" for e in vae) + f" s; LC epochs: first {lc[0][1]:.3f} "
-              f"s, the rest {sum(e[1] for e in lc[1:]):.3f} s in all; LC train loss first "
-              f"{lc[0][0]} -> last {lc[-1][0]}; launches "
-              f"{ {k: launches[k] for k in CLI_TRAIN_KERNELS} }")
-        print(f"cli-train: [{card}] stages (s, from the log's stamps): "
-              + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
-        missing = [k for k in CLI_TRAIN_KERNELS if launches[k] <= 0]
-        if missing:
-            raise AssertionError(f"kernels of the training path never launched: {missing}")
+    result["dataset_s"] = write_dataset(root / "dataset1.pickle", CLI_SAMPLES, T,
+                                        cfg.num_node, args.seed)
+    write_config(root, cfg, lc_cfg, n_in, CLI_SAMPLES, np.random.default_rng(args.seed),
+                 epochs=CLI_EPOCHS, recon_iter=2, lc_epochs=CLI_LC_EPOCHS, lc_batch=B)
+    print(f"cli-train: work directory under {base} ({free / 1e9:.0f} GB free); dataset "
+          f"({CLI_SAMPLES}, {T}, {cfg.num_node}) f32 written in {result['dataset_s']:.1f} s")
+    torch.cuda.empty_cache()
+    common = ["--preset=1", "--plot=2", "--size=small", "--dtype", "bfloat16",
+              "--condition", "condition.txt", "--device", "cuda"]
+    started = time.time()
+    run, launches, peak, seconds = run_module(
+        "simulgen_vae_tpu_torch",
+        [*common, "--lc_only=0", "--epochs", str(CLI_EPOCHS),
+         "--lc_epochs", str(CLI_LC_EPOCHS)], root, "the training CLI", timeout=900)
+    ended = time.time()
+    (OUT_DIR / "chip_smoke_cli_train.log").write_text(run.stdout + "\n" + run.stderr)
+    vae, lc = _epoch_lines(run.stderr, CLI_EPOCHS), _epoch_lines(run.stderr, CLI_LC_EPOCHS)
+    if len(vae) != CLI_EPOCHS or len(lc) != CLI_LC_EPOCHS:
+        raise AssertionError(f"{len(vae)} VAE and {len(lc)} LC epoch lines logged")
+    # the stages between the log lines' stamps (millisecond clock of this host)
+    stages = {"start to the first VAE epoch logged": vae[0][2] - started,
+              "the other VAE epochs, checkpoints between": vae[-1][2] - vae[0][2],
+              "VAE checkpoint, model file, latent extraction, LC set-up":
+                  lc[0][2] - vae[-1][2],
+              "the other LC epochs": lc[-1][2] - lc[0][2],
+              "LC model file, comparison, exit": ended - lc[-1][2]}
+    result.update(train_s=seconds, train_peak_bytes=peak, launches=launches,
+                  vae_epoch_s=[e[1] for e in vae], lc_epoch_s=[e[1] for e in lc],
+                  lc_loss_first=lc[0][0], lc_loss_last=lc[-1][0], stages_s=stages)
+    print(f"cli-train: [{card}] python -m simulgen_vae_tpu_torch --dtype bfloat16 --epochs "
+          f"{CLI_EPOCHS} --lc_epochs {CLI_LC_EPOCHS}: exit 0 in {seconds:.1f} s (its own "
+          f"process), peak device memory {peak / 2**30:.2f} GiB; VAE epochs "
+          + ", ".join(f"{e[1]:.2f}" for e in vae) + f" s; LC epochs: first {lc[0][1]:.3f} "
+          f"s, the rest {sum(e[1] for e in lc[1:]):.3f} s in all; LC train loss first "
+          f"{lc[0][0]} -> last {lc[-1][0]}; launches "
+          f"{ {k: launches[k] for k in CLI_TRAIN_KERNELS} }")
+    print(f"cli-train: [{card}] stages (s, from the log's stamps): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+    missing = [k for k in CLI_TRAIN_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels of the training path never launched: {missing}")
 
-        models = root / "model_save"
-        if sorted(os.listdir(models)) != sorted(CLI_MODEL_SAVE):
-            raise AssertionError(f"model_save/ holds {sorted(os.listdir(models))}")
-        lv, xs = np.load(models / "latent_vectors.npy"), np.load(models / "xs.npy")
-        l2 = np.loadtxt(root / "SimulGen-VAE_L2_loss.txt")
-        ok = (lv.shape == (CLI_SAMPLES, 32) and xs.shape == (CLI_SAMPLES, 3, 8)
-              and l2.shape == (CLI_SAMPLES,) and all(np.isfinite(a).all() for a in (lv, xs, l2)))
-        result.update(l2_mean=float(l2.mean()), model_bytes=(models / "SimulGen-VAE").stat().st_size)
-        print(f"cli-train: model_save/ holds the eight artifacts; latent_vectors {lv.shape}, "
-              f"xs {xs.shape}, {l2.shape[0]} L2 lines (mean MSE {l2.mean():.4g}) -> "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("the training CLI's artifacts have wrong shapes or values")
+    models = root / "model_save"
+    if sorted(os.listdir(models)) != sorted(CLI_MODEL_SAVE):
+        raise AssertionError(f"model_save/ holds {sorted(os.listdir(models))}")
+    lv, xs = np.load(models / "latent_vectors.npy"), np.load(models / "xs.npy")
+    l2 = np.loadtxt(root / "SimulGen-VAE_L2_loss.txt")
+    ok = (lv.shape == (CLI_SAMPLES, 32) and xs.shape == (CLI_SAMPLES, 3, 8)
+          and l2.shape == (CLI_SAMPLES,) and all(np.isfinite(a).all() for a in (lv, xs, l2)))
+    result.update(l2_mean=float(l2.mean()), model_bytes=(models / "SimulGen-VAE").stat().st_size)
+    print(f"cli-train: model_save/ holds the eight artifacts; latent_vectors {lv.shape}, "
+          f"xs {xs.shape}, {l2.shape[0]} L2 lines (mean MSE {l2.mean():.4g}) -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the training CLI's artifacts have wrong shapes or values")
 
-        run, _, peak2, seconds = run_module(
-            "simulgen_vae_tpu_torch",
-            [*common, "--lc_only=1", "--lc_epochs", str(CLI_LC_ONLY_EPOCHS)], root,
-            "the training CLI (--lc_only=1)", timeout=900)
-        lc2 = _epoch_lines(run.stderr, CLI_LC_ONLY_EPOCHS)
-        result.update(lc_only_s=seconds, lc_only_peak_bytes=peak2)
-        print(f"cli-train: [{card}] --lc_only=1 --lc_epochs {CLI_LC_ONLY_EPOCHS}: exit 0 in "
-              f"{seconds:.1f} s (its own process), {len(lc2)} LC epochs logged, peak "
-              f"{peak2 / 2**30:.2f} GiB")
+    run, _, peak2, seconds = run_module(
+        "simulgen_vae_tpu_torch",
+        [*common, "--lc_only=1", "--lc_epochs", str(CLI_LC_ONLY_EPOCHS)], root,
+        "the training CLI (--lc_only=1)", timeout=900)
+    lc2 = _epoch_lines(run.stderr, CLI_LC_ONLY_EPOCHS)
+    result.update(lc_only_s=seconds, lc_only_peak_bytes=peak2)
+    print(f"cli-train: [{card}] --lc_only=1 --lc_epochs {CLI_LC_ONLY_EPOCHS}: exit 0 in "
+          f"{seconds:.1f} s (its own process), {len(lc2)} LC epochs logged, peak "
+          f"{peak2 / 2**30:.2f} GiB")
 
-        torch.cuda.empty_cache()
-        fields, serve_launches, result["serve_s"] = run_cli(root, "none", "cli-train")
-        if tuple(fields.shape) != (CLI_SAMPLES, T, cfg.num_node) \
-                or not bool(fields.isfinite().all()):
-            raise AssertionError(f"served {tuple(fields.shape)} or non-finite values")
-        inputs = np.float32(MinMaxScaler.load(
-            str(models / "latent_conditioner_input_scaler.pkl")).transform(
-            read_latent_conditioner_dataset(str(root / "params.csv"))))
-        with torch_defaults():
-            pipe = tgen.load_pipeline(str(root / "condition.txt"), str(root / "preset.txt"),
-                                      model_dir=str(models), device="cuda", dtype=torch.float32)
-            want = tgen.generate(pipe, inputs, max_batch=B)
-        rel = _rel_l2(fields, want)
-        result.update(serve_vs_memory_rel_l2=rel, serve_launches=serve_launches)
-        print(f"cli-train: the trained model served by the generate CLI (--quantize none) vs "
-              f"load_pipeline + generate here: rel-L2 {rel:.3g} -> "
-              f"{'ok' if rel <= 1e-6 else 'FAIL'} (at most 1e-6)")
-        if rel > 1e-6:
-            raise AssertionError("the served trained model disagrees with the in-memory pipeline")
-        del want, pipe
-        torch.cuda.empty_cache()
-        q_fields, _, result["serve_int8_s"] = run_cli(root, "int8", "cli-train")
-        result["int8_vs_float_rel_l2"] = _rel_l2(q_fields, fields)
-        print(f"cli-train: int8 against float on the trained weights: rel-L2 "
-              f"{result['int8_vs_float_rel_l2']:.4f} (printed, not gated)")
-        del fields, q_fields
+    torch.cuda.empty_cache()
+    fields, serve_launches, result["serve_s"] = run_cli(root, "none", "cli-train")
+    if tuple(fields.shape) != (CLI_SAMPLES, T, cfg.num_node) \
+            or not bool(fields.isfinite().all()):
+        raise AssertionError(f"served {tuple(fields.shape)} or non-finite values")
+    inputs = np.float32(MinMaxScaler.load(
+        str(models / "latent_conditioner_input_scaler.pkl")).transform(
+        read_latent_conditioner_dataset(str(root / "params.csv"))))
+    with torch_defaults():
+        pipe = tgen.load_pipeline(str(root / "condition.txt"), str(root / "preset.txt"),
+                                  model_dir=str(models), device="cuda", dtype=torch.float32)
+        want = tgen.generate(pipe, inputs, max_batch=B)
+    rel = _rel_l2(fields, want)
+    result.update(serve_vs_memory_rel_l2=rel, serve_launches=serve_launches)
+    print(f"cli-train: the trained model served by the generate CLI (--quantize none) vs "
+          f"load_pipeline + generate here: rel-L2 {rel:.3g} -> "
+          f"{'ok' if rel <= 1e-6 else 'FAIL'} (at most 1e-6)")
+    if rel > 1e-6:
+        raise AssertionError("the served trained model disagrees with the in-memory pipeline")
+    del want, pipe
+    torch.cuda.empty_cache()
+    q_fields, _, result["serve_int8_s"] = run_cli(root, "int8", "cli-train")
+    result["int8_vs_float_rel_l2"] = _rel_l2(q_fields, fields)
+    print(f"cli-train: int8 against float on the trained weights: rel-L2 "
+          f"{result['int8_vs_float_rel_l2']:.4f} (printed, not gated)")
+    del fields, q_fields
     torch.cuda.empty_cache()
     return launches, result
+
+
+# -- phase 10: the image conditioners ------------------------------------------
+
+IMAGE_SIDE = 256
+IMAGE_E2E_EPOCHS, IMAGE_LC_EPOCHS = 8, 16
+IMAGE_KERNELS = ("gn_act_onepass", "gn_stats", "gn_apply", "gn_bwd_onepass", "gn_bwd_stats",
+                 "gn_bwd_apply", "fused_adamw")
+# The shipped input_data/condition.txt's conditioner and E2E settings, added
+# to phase 9's condition file (its geometry, latents and dataset).
+IMAGE_CONDITION_EXTRA = """\
+latent_conditioner_weight_decay\t1e-5
+latent_conditioner_dropout_rate\t0.2
+use_spatial_attention\t1
+'
+%End-to-End Training Configuration
+use_e2e_training\t{e2e}
+e2e_loss_function\tHuber
+e2e_vae_model_path\tmodel_save/SimulGen-VAE
+use_latent_regularization\t1
+LC_alpha\t1000
+latent_reg_weight\t0.001
+"""
+# Runs the training CLI (argv after the module: seed, images, where to save
+# the served fields, then the CLI's arguments) with the image reader replaced
+# by seeded_images, keeping the conditioner tree handed to save_flax_model and
+# what E2ETrainer.fit was given and returned; prints the launch counts and
+# peak memory of the run, then serves the first B images through
+# make_pipeline on that in-memory tree in f32 (TF32 off) and, after E2E
+# training, holds its loss and gradients through the GroupNorm kernels against
+# the plain version (e2e_routes).
+IMAGE_RUNNER = """\
+import json, os, runpy, sys
+import numpy as np
+import torch
+import chip_smoke
+from simulgen_vae_tpu_torch import cli
+from simulgen_vae_tpu_torch.data import images
+module = sys.argv.pop(1)
+seed, count, served = int(sys.argv.pop(1)), int(sys.argv.pop(1)), sys.argv.pop(1)
+pixels = chip_smoke.seeded_images(count, seed)
+images.read_latent_conditioner_dataset_img = lambda *a, **k: (pixels, (256, 256))
+print(f"images: data.images.read_latent_conditioner_dataset_img replaced by {count} "
+      f"binary {chip_smoke.IMAGE_SIDE}x{chip_smoke.IMAGE_SIDE} images made from seed {seed} "
+      "(no OpenCV on this machine)")
+kept, fitted = {}, []
+save = cli.save_flax_model
+def keep(path, tree):
+    kept[os.path.basename(path)] = tree
+    save(path, tree)
+cli.save_flax_model = keep
+fit = cli.E2ETrainer.fit
+def keep_fit(self, *a, **k):
+    out = fit(self, *a, **k)
+    fitted.append((self, a[:4], out[0]))
+    return out
+cli.E2ETrainer.fit = keep_fit
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+from simulgen_vae_tpu_torch.ops import fused_adamw, gather_augment, groupnorm_gelu, quant
+print("launches: " + json.dumps({**groupnorm_gelu.LAUNCHES, **quant.LAUNCHES,
+                                 **gather_augment.LAUNCHES, **fused_adamw.LAUNCHES}))
+print("peak_bytes: " + str(torch.cuda.max_memory_allocated()))
+if code == 0:
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.config import (LCConfig, VAEConfig, parse_condition_file,
+                                               parse_training_parameters, read_preset)
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+    from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
+    args = cli.build_parser().parse_args(sys.argv[1:])
+    raw = parse_training_parameters(parse_condition_file(args.condition))
+    _, _, enc, lc_filter = read_preset(args.preset_file)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    tree = kept["LatentConditioner"]
+    pipe = tgen.make_pipeline(
+        VAEConfig.from_condition(raw, enc), LCConfig.from_condition(raw, lc_filter),
+        load_flax_model("model_save/SimulGen-VAE")["params"], tree["params"],
+        *(MinMaxScaler.load(f"model_save/{n}") for n in
+          ("latent_vectors_scaler.pkl", "xs_scaler.pkl", "scaler.pkl")),
+        device="cuda", dtype=torch.float32, lc_batch_stats=tree["batch_stats"])
+    b = chip_smoke.B
+    np.save(served, tgen.generate(pipe, np.float32(pixels[:b] / 255.0), max_batch=b).cpu().numpy())
+    if fitted:
+        print("e2e_routes: " + json.dumps(chip_smoke.e2e_routes(*fitted[0])))
+sys.exit(code)
+"""
+def _grads_close(have: dict, want: dict, tol: float) -> tuple:
+    """(ok, worst): every gradient within rel-L2 ``tol`` of its own norm or,
+    where it cancels to noise (a bias before a training-mode BatchNorm: norm
+    under 1e-4 of the whole gradient's), within ``tol * 1e-2`` of the whole
+    gradient's norm; ``worst`` its largest rel-L2 among the others."""
+    total = math.sqrt(sum(float(g.double().square().sum()) for g in want.values()))
+    ok, worst = True, 0.0
+    for k, g in want.items():
+        err = float(torch.linalg.vector_norm((have[k] - g).double()))
+        size = float(torch.linalg.vector_norm(g.double()))
+        if size <= 1e-4 * total:
+            ok &= err <= tol * 1e-2 * total
+        else:
+            worst = max(worst, err / size)
+            ok &= err <= tol * size
+    return ok, worst
+
+
+def e2e_routes(trainer, arrays, state) -> dict:
+    """The E2E loss and the conditioner's gradients through the GroupNorm
+    kernels (#2-#7) and through their plain version (plain_group_norm) on the
+    card, at the batch sizes E2ETrainer.fit gives the decoder: a training
+    batch of min(batch, n_train) rows (its noise, dropout masks and decode
+    noise the same for both routes) forward and backward into z and xs, and a
+    validation batch of min(batch, n_val) rows forward in eval mode. In the
+    decoder's trained dtype (bf16: each loss within 1e-2 relative, the whole
+    gradient within rel-L2 1e-2) and in f32 with TF32 off (each loss 1e-4,
+    every gradient rel-L2 1e-3 as _grads_close says). Raises on a miss; leaves
+    the trainer and the state as it found them. These launches are not the
+    main path's: the caller reads the counts before."""
+    from simulgen_vae_tpu_torch.models import blocks
+    from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
+    from simulgen_vae_tpu_torch.train.lc_trainer import forward_model
+
+    n = arrays[0].shape[0]
+    n_val = int(n * 0.3)  # fit's default hold-out
+    b_train, b_val = min(trainer.batch_size, n - n_val), min(trainer.batch_size, n_val)
+
+    def rows(b):
+        return [torch.from_numpy(np.float32(a[:b])).to("cuda") for a in arrays]
+
+    found = trainer.generator.get_state()
+    train = trainer._augment(*rows(b_train))
+    val = rows(b_val)
+    model, trained_dtype = state.model, trainer.vae_dtype
+    gen_state = trainer.generator.get_state()
+    buffers = {k: b.clone() for k, b in model.named_buffers()}
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    out = {"train_rows": b_train, "val_rows": b_val}
+    try:
+        for dtype, loss_tol, grad_tol in ((trained_dtype, 1e-2, None),
+                                          (torch.float32, 1e-4, 1e-3)):
+            blocks.set_compute_dtype(trainer.vae, dtype)
+            trainer.vae_dtype = dtype
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            got = {}
+            for route in ("kernels", "plain"):
+                with torch.no_grad():
+                    for k, b in model.named_buffers():
+                        b.copy_(buffers[k])
+                for p in model.parameters():
+                    p.grad = None
+                trainer.generator.set_state(gen_state)
+                ctx = plain_group_norm(blocks, gg) if route == "plain" else contextlib.nullcontext()
+                with ctx:
+                    with torch.no_grad():
+                        val_loss, _ = trainer.loss_fn(
+                            forward_model(state, trainer.sn_filter, update=False), *val)
+                    loss, _ = trainer.loss_fn(forward_model(state, trainer.sn_filter, update=True),
+                                              *train, torch.Generator("cuda").manual_seed(7))
+                    loss.backward()
+                got[route] = (float(loss), float(val_loss),
+                              {k: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                               for k, p in model.named_parameters()})
+            (lk, vk, gk), (lp, vp, gp) = got["kernels"], got["plain"]
+            loss_rel, val_rel = abs(lk - lp) / abs(lp), abs(vk - vp) / abs(vp)
+            whole = math.sqrt(sum(float((gk[k] - gp[k]).double().square().sum()) for k in gk)
+                              / sum(float(g.double().square().sum()) for g in gp.values()))
+            grads_ok, worst = _grads_close(gk, gp, grad_tol or 1.0)
+            ok = (loss_rel <= loss_tol and val_rel <= loss_tol
+                  and (grads_ok if grad_tol else whole <= 1e-2))
+            label = "bf16" if dtype == torch.bfloat16 else "f32"
+            out[label] = dict(loss_kernels=lk, loss_plain=lp, loss_rel=loss_rel,
+                              val_loss_kernels=vk, val_loss_plain=vp, val_loss_rel=val_rel,
+                              grad_rel_l2=whole, worst_grad_rel_l2=worst, ok=bool(ok))
+            print(f"images: E2E kernels vs plain GroupNorm, {label}, {b_train} training rows "
+                  f"(loss and gradients) and {b_val} validation rows: loss {lk:.7g} vs {lp:.7g} "
+                  f"(rel {loss_rel:.3g}), validation {vk:.7g} vs {vp:.7g} (rel {val_rel:.3g}), "
+                  f"whole gradient rel-L2 {whole:.3g}, worst tensor {worst:.3g} -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"E2E kernel and plain routes disagree ({label})")
+            del got, gk, gp
+    finally:
+        blocks.set_compute_dtype(trainer.vae, trained_dtype)
+        trainer.vae_dtype = trained_dtype
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        trainer.generator.set_state(found)
+        with torch.no_grad():
+            for k, b in model.named_buffers():
+                b.copy_(buffers[k])
+        for p in model.parameters():
+            p.grad = None
+    return out
+
+
+def seeded_images(n: int, seed: int) -> np.ndarray:
+    """``n`` binary ``IMAGE_SIDE``-square outlines (one to three filled
+    ellipses each) from ``seed``, as the image reader returns them:
+    ``[n, side^2]`` f64 of 0 / 255."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:IMAGE_SIDE, :IMAGE_SIDE]
+    out = np.zeros((n, IMAGE_SIDE, IMAGE_SIDE))
+    for i in range(n):
+        for _ in range(rng.integers(1, 4)):
+            cy, cx = rng.uniform(0.2, 0.8, 2) * IMAGE_SIDE
+            ry, rx = rng.uniform(0.08, 0.3, 2) * IMAGE_SIDE
+            out[i][((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0] = 255.0
+    return out.reshape(n, -1)
+
+
+def run_image_cli(root: Path, kind: str, e2e: bool, epochs: int, seed: int, common: list):
+    """The training CLI with ``--lc_only=1`` on ``kind`` images (IMAGE_RUNNER)
+    in its own process: (the completed process, its launch counts, its peak
+    bytes, its seconds, the served fields on the card, its stages)."""
+    text = (root / "condition.txt").read_text()
+    for old, new in (("input_type\tcsv", f"input_type\t{kind}"),
+                     ("param_dir\tparams.csv", "param_dir\t/images"),
+                     ("param_data_type\t.csv", "param_data_type\t.png"),
+                     (f"latent_conditioner_batch\t{B}", "latent_conditioner_batch\t64")):
+        if old not in text:
+            raise AssertionError(f"phase 9's condition file lacks {old!r}")
+        text = text.replace(old, new)
+    condition = root / f"condition_{kind}.txt"
+    condition.write_text(text + IMAGE_CONDITION_EXTRA.format(e2e=int(e2e)))
+    import shutil
+
+    shutil.rmtree(root / "checkpoints" / "latent_conditioner", ignore_errors=True)
+    served = root / f"served_{kind}.npy"
+    args = [str(seed), str(CLI_SAMPLES), str(served),
+            *common, "--condition", condition.name, "--lc_only=1", "--lc_epochs", str(epochs)]
+    started = time.time()
+    run, launches, peak, seconds = run_module("simulgen_vae_tpu_torch", args, root,
+                                              f"the training CLI on {kind} images",
+                                              timeout=900, runner=IMAGE_RUNNER)
+    (OUT_DIR / f"chip_smoke_images_{kind}.log").write_text(run.stdout + "\n" + run.stderr)
+    print(next(ln for ln in run.stdout.splitlines() if ln.startswith("images: ")))
+    epochs_logged = _epoch_lines(run.stderr, epochs)
+    if len(epochs_logged) != epochs:
+        raise AssertionError(f"{len(epochs_logged)} of {epochs} {kind} epochs logged")
+    stages = {"start to the first LC epoch logged": epochs_logged[0][2] - started,
+              "the other LC epochs": epochs_logged[-1][2] - epochs_logged[0][2],
+              "LC model file, comparison, serving the kept tree, exit":
+                  time.time() - epochs_logged[-1][2]}
+    fields = torch.from_numpy(np.load(served)).to("cuda")
+    served.unlink()
+    return run, launches, peak, seconds, fields, epochs_logged, stages
+
+
+def _image_pipeline(root: Path, kind: str, tgen):
+    return tgen.load_pipeline(str(root / f"condition_{kind}.txt"), str(root / "preset.txt"),
+                              model_dir=str(root / "model_save"), device="cuda",
+                              dtype=torch.float32)
+
+
+def sn_gap(root: Path, kind: str, cfg_geometry) -> dict:
+    """The trained CNN's served output (raw kernels, as the files hold them)
+    against its forward through W / sigma from the stored u (the state the
+    training normalised), on the same checkpoint: rel-L2 of each output."""
+    from simulgen_vae_tpu_torch import convert
+    from simulgen_vae_tpu_torch.config import (LCConfig, parse_condition_file,
+                                               parse_training_parameters, read_preset)
+    from simulgen_vae_tpu_torch.models.conditioner_cnn import sn_filter
+    from simulgen_vae_tpu_torch.train.lc_trainer import LCTrainer
+    from simulgen_vae_tpu_torch.utils.checkpoint import CheckpointManager
+
+    raw = parse_training_parameters(parse_condition_file(str(root / f"condition_{kind}.txt")))
+    lc_cfg = LCConfig.from_condition(raw, read_preset(str(root / "preset.txt"))[3])
+    trainer = LCTrainer(convert.image_conditioner(lc_cfg, cfg_geometry, "cuda"), 1, 1e-3, B,
+                        device="cuda", sn_filter=sn_filter)
+    manager = CheckpointManager(str(root / "checkpoints" / "latent_conditioner"))
+    state = manager.restore(trainer.init_state())
+    x = torch.from_numpy(np.float32(seeded_images(B, 0) / 255.0)).to("cuda")
+    with torch.no_grad():
+        served = state.model(x)
+    normed = trainer.predict_fn(state)(x)
+    return {"epoch": int(state.epoch), "main_rel_l2": _rel_l2(served[0], normed[0]),
+            "hier_rel_l2": _rel_l2(served[1], normed[1])}
+
+
+def phase_images(args, card, root: Path) -> tuple:
+    """Phase 10: the image conditioners at the flagship widths on phase 9's
+    trained VAE, latents and dataset (its work directory ``root``): the
+    shipped configuration (CNN, E2E through the frozen decoder), then the
+    ViT through LCTrainer with augmentation, each by the training CLI with
+    --lc_only=1; each trained model_save/ served. Returns (the E2E process's
+    launch counts, the ViT process's, the result dict)."""
+    from simulgen_vae_tpu_torch import convert
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.config import VAEConfig
+    from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
+    from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
+
+    cfg = VAEConfig(num_time=T, num_node=READOUT_C, latent_dim_end=32, latent_dim=8,
+                    num_filter_enc=[1024, 512, 256, 128], small=True)
+    common = ["--preset=1", "--plot=2", "--size=small", "--dtype", "bfloat16", "--device", "cuda"]
+    models = root / "model_save"
+    result, launches, pipes = {}, {}, {}
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    # phase 9's CSV pipeline, before the image runs overwrite its conditioner
+    pipes["csv"] = tgen.load_pipeline(str(root / "condition.txt"), str(root / "preset.txt"),
+                                      model_dir=str(models), device="cuda",
+                                      dtype=torch.float32)
+    csv_inputs = np.float32(pipes["csv"]["input_scaler"].transform(
+        read_latent_conditioner_dataset(str(root / "params.csv"))))[:B]
+    pixels = np.float32(seeded_images(CLI_SAMPLES, args.seed) / 255.0)
+    lv_before = np.load(models / "latent_vectors.npy")
+    for kind, e2e, epochs in (("image", True, IMAGE_E2E_EPOCHS),
+                              ("image_vit", False, IMAGE_LC_EPOCHS)):
+        tag = f"{kind} ({'E2E' if e2e else 'LCTrainer'})"
+        written = (models / "LatentConditioner").stat().st_mtime_ns
+        torch.cuda.empty_cache()
+        run, counts, peak, seconds, served, logged, stages = run_image_cli(
+            root, kind, e2e, epochs, args.seed, common)
+        launches[kind] = counts
+        losses = [e[0] for e in logged]
+        r = dict(cli_s=seconds, peak_bytes=peak, epoch_s=[e[1] for e in logged],
+                 loss_first=losses[0], loss_last=losses[-1], stages_s=stages,
+                 launches={k: counts[k] for k in IMAGE_KERNELS})
+        print(f"images: [{card}] {tag}: python -m simulgen_vae_tpu_torch --lc_only=1 "
+              f"--lc_epochs {epochs}: exit 0 in {seconds:.1f} s (its own process), peak "
+              f"device memory {peak / 2**30:.2f} GiB; epochs (1 step each, then the "
+              "validation) " + ", ".join(f"{e:.3f}" for e in r["epoch_s"])
+              + f" s; train loss {losses[0]} -> {losses[-1]}; launches {r['launches']}")
+        print(f"images: [{card}] {tag} stages (s, from the log's stamps): "
+              + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+        lv, xs = np.load(models / "latent_vectors.npy"), np.load(models / "xs.npy")
+        ok = (sorted(os.listdir(models)) == sorted(CLI_MODEL_SAVE)
+              and (models / "LatentConditioner").stat().st_mtime_ns > written
+              and lv.shape == (CLI_SAMPLES, 32) and xs.shape == (CLI_SAMPLES, 3, 8)
+              and np.array_equal(lv, lv_before) and np.isfinite(losses).all())
+        print(f"images: {tag}: model_save/ holds the eight artifacts, LatentConditioner "
+              f"rewritten, latents {lv.shape} {xs.shape} as phase 9 left them, losses finite "
+              f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {kind} run's artifacts or losses are wrong")
+        if e2e:
+            missing = [k for k in IMAGE_KERNELS if counts[k] <= 0]
+            if missing:
+                raise AssertionError(f"kernels of the E2E path never launched: {missing}")
+            r["kernels_vs_plain"] = json.loads(next(
+                ln for ln in run.stdout.splitlines() if ln.startswith("e2e_routes: "))[12:])
+            for ln in run.stdout.splitlines():
+                if ln.startswith("images: E2E kernels vs plain"):
+                    print(f"{ln} [{card}]")
+
+        # serving the files against the tree the trainer saved, kept in its process
+        pipes[kind] = _image_pipeline(root, kind, tgen)
+        got = tgen.generate(pipes[kind], pixels[:B], max_batch=B)
+        rel = _rel_l2(got, served)
+        finite = bool(got.isfinite().all()) and tuple(got.shape) == (B, T, cfg.num_node)
+        print(f"images: {tag}: load_pipeline + generate from {B} images (f32, TF32 off) vs "
+              f"make_pipeline on the trainer's in-memory tree in its process: rel-L2 "
+              f"{rel:.3g} -> {'ok' if rel <= 1e-6 and finite else 'FAIL'} (at most 1e-6)")
+        if rel > 1e-6 or not finite:
+            raise AssertionError(f"the served {kind} model disagrees with the trained tree")
+        del got, served
+        # the conditioner on the card against the same conditioner on the CPU
+        tree = load_flax_model(str(models / "LatentConditioner"))
+        cpu_lc = convert.conditioner_from_jax(tree["params"], pipes[kind]["lc_cfg"], cfg, "cpu",
+                                              batch_stats=tree.get("batch_stats"))
+        x4 = pixels[:4]
+        with torch.no_grad():
+            want = cpu_lc(torch.from_numpy(x4))
+            got = pipes[kind]["lc"](torch.from_numpy(x4).to("cuda"))
+        err = max(_err(g.cpu(), w) for g, w in zip(got, want))
+        print(f"images: {tag}: conditioner on the card vs on the CPU (f32, TF32 off), 4 "
+              f"images: max abs {err:.3g} -> {'ok' if err <= 1e-4 else 'FAIL'} (at most 1e-4)")
+        if err > 1e-4:
+            raise AssertionError(f"the {kind} conditioner differs between the card and the CPU")
+        r.update(served_vs_memory_rel_l2=rel, card_vs_cpu_max_abs=err)
+        if kind == "image":
+            r["sn_gap"] = sn_gap(root, kind, cfg)
+            print(f"images: the trained CNN served with raw kernels (as JAX serves it) vs its "
+                  f"forward through W / sigma (the state training normalised), checkpoint "
+                  f"epoch {r['sn_gap']['epoch']}, {B} images: rel-L2 main "
+                  f"{r['sn_gap']['main_rel_l2']:.4g}, hierarchical "
+                  f"{r['sn_gap']['hier_rel_l2']:.4g} (printed, not gated)")
+        result[kind] = r
+
+    # batch-16 decode through each pipeline, and the conditioners alone, in turns
+    inputs = {"csv": torch.as_tensor(csv_inputs, device="cuda"),
+              "image": torch.as_tensor(pixels[:B], device="cuda"),
+              "image_vit": torch.as_tensor(pixels[:B], device="cuda")}
+    fns = {k: tgen.make_generate_fn(p, max_batch=B) for k, p in pipes.items()}
+    timing = {}
+    for kind in list(fns) + list(fns)[::-1]:
+        fn, batch = fns[kind], inputs[kind]
+        for _ in range(2):
+            fn(batch)
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn(batch)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        dev = decode_device(fn, batch, calls=2)
+        with torch.no_grad():
+            lc_dev = decode_device(pipes[kind]["lc"], batch, calls=3)
+        timing.setdefault(kind, []).append(dict(p50_ms=float(np.percentile(lat, 50)),
+                                                conditioner_device_ms=lc_dev["device_ms"],
+                                                conditioner_kernels=lc_dev["kernels"], **dev))
+    for kind, runs in timing.items():
+        print(f"images: [{card}] batch-16 decode through the {kind} pipeline (f32, TF32 off): "
+              "p50 " + " / ".join(f"{r['p50_ms']:.3f}" for r in runs) + " ms, device "
+              + " / ".join(f"{r['device_ms']:.3f}" for r in runs) + " ms; the conditioner "
+              "alone " + " / ".join(f"{r['conditioner_device_ms']:.3f}" for r in runs)
+              + f" ms of device time, {runs[0]['conditioner_kernels']:.0f} kernels")
+    result.update(decode=timing, seconds=time.perf_counter() - t_phase)
+    print(f"images: phase 10 took {result['seconds']:.1f} s")
+    del pipes, fns, inputs
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return launches["image"], launches["image_vit"], result
 
 
 # -- --ab: two versions of a kernel family on one card -------------------------
@@ -3009,7 +3454,7 @@ def main(argv=None) -> int:
     # 3a. the flagship pipeline (built before phase 2 to learn the shapes)
     cfg = VAEConfig(num_time=T, num_node=95008, latent_dim_end=32, latent_dim=8,
                     num_filter_enc=[1024, 512, 256, 128], small=True)
-    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024])
+    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024], input_type="csv")
     n_in = 484
     rng = np.random.default_rng(args.seed)
     vae_params = {"decoder": convert.random_decoder_tree(cfg, rng)}
@@ -3194,11 +3639,18 @@ def main(argv=None) -> int:
             k["launches_artifacts"] = cli_launches[k["name"]]
     kernels.append(int8_kernel)
 
-    # 9. the training CLI at the flagship geometry
-    cli_launches, cli_train = phase_cli_train(args, card)
+    # 9. the training CLI at the flagship geometry; 10. the image conditioners
+    # on its trained VAE, in its work directory
+    work, base, free = _work_dir()
+    with work as tmp:
+        cli_launches, cli_train = phase_cli_train(args, card, Path(tmp), base, free)
+        e2e_launches, vit_launches, images = phase_images(args, card, Path(tmp))
     for k in kernels:
-        if k["name"] in cli_launches:
-            k["launches_cli_train"] = cli_launches[k["name"]]
+        for key, counts in (("launches_cli_train", cli_launches),
+                            ("launches_images_e2e", e2e_launches),
+                            ("launches_images_vit", vit_launches)):
+            if k["name"] in counts:
+                k[key] = counts[k["name"]]
     result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
                   decode_p75_ms=decode_p75, decode_calls=DECODE_CALLS,
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
@@ -3206,7 +3658,7 @@ def main(argv=None) -> int:
                   readout_sass=sass, onepass_launch=onepass, gn_stats_launch=stats_launch,
                   repairs=repairs,
                   fused_train=fused, stack_train=stack, artifacts=artifacts,
-                  cli_train=cli_train,
+                  cli_train=cli_train, images=images,
                   profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))

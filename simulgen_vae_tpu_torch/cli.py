@@ -21,12 +21,19 @@ is none raises. matplotlib draws the PNGs where it is installed; without it
 each PNG set is skipped with one line saying so, and ``--plot 0|1`` (the
 dataset plots, asked for explicitly) raises before training starts.
 
-Not ported, and refused with the ROADMAP item that brings them: the image
-conditioners (``input_type`` image, image_vit, image_pca) and end-to-end
-training (Queue 1 items 4-5), and a device mesh (``--mesh_data`` /
-``--mesh_model`` other than one device; Queue 1 item 7). ``--lc_only=1``
-reads the port's VAE checkpoint (``checkpoints/vae/ckpt_*.pt``), not the
-JAX package's orbax one.
+The conditioner follows the condition file's ``input_type``: the MLP on
+the CSV (``csv``), the CNN (``image``, spectral norm on its ``sn_*``
+layers) or the ViT (``image_vit``) on the images of ``param_dir`` (OpenCV's
+reader, imported where it reads; pixels / 255). Images train through
+``LCTrainer`` with augmentation, or with ``use_e2e_training`` through
+``E2ETrainer`` and the frozen decoder. The ``LatentConditioner`` file holds
+``{"params", "batch_stats"}`` with the raw kernels, as JAX's CLI saves it.
+
+Not ported, and refused with the ROADMAP item that brings them: the PCA
+input type (``image_pca``, Queue 1 item 5) and a device mesh
+(``--mesh_data`` / ``--mesh_model`` other than one device; Queue 1 item 7).
+``--lc_only=1`` reads the port's VAE checkpoint (``checkpoints/vae/
+ckpt_*.pt``), not the JAX package's orbax one.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from simulgen_vae_tpu_torch.config import (
     read_preset,
 )
 from simulgen_vae_tpu_torch.data.dataset import input_dataset, reduce_dataset
-from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
+from simulgen_vae_tpu_torch.data import images
 from simulgen_vae_tpu_torch.data.scaler import data_scaler, latent_conditioner_scaler
 from simulgen_vae_tpu_torch.evaluation import (
     ReconstructionEvaluator,
@@ -62,7 +69,9 @@ from simulgen_vae_tpu_torch.evaluation.plotter import (
     temporal_plotter,
 )
 from simulgen_vae_tpu_torch.generate import resolve_device
+from simulgen_vae_tpu_torch.models.conditioner_cnn import sn_filter
 from simulgen_vae_tpu_torch.models.conditioner_mlp import LatentConditioner
+from simulgen_vae_tpu_torch.train.lc_e2e_trainer import E2ETrainer
 from simulgen_vae_tpu_torch.train.lc_trainer import LCTrainer
 from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
 from simulgen_vae_tpu_torch.utils import preemption
@@ -74,9 +83,6 @@ from simulgen_vae_tpu_torch.utils.checkpoint import (
 )
 from simulgen_vae_tpu_torch.utils.logging import MetricsLogger
 from simulgen_vae_tpu_torch.utils.summary import train_state_summary
-
-UNPORTED_INPUT_TYPES = ("image", "image_vit", "image_pca")
-
 
 def initialize_folder(folder_name: str) -> None:
     """Create ``folder_name`` and delete everything in it."""
@@ -163,16 +169,14 @@ def _refuse_unported(args, lc_cfg: LCConfig) -> None:
         raise NotImplementedError(
             "a device mesh (--mesh_data / --mesh_model) is not ported yet (ROADMAP "
             "Queue 1 item 7); the port trains on one device")
-    if lc_cfg.input_type in UNPORTED_INPUT_TYPES or lc_cfg.use_e2e_training:
-        what = ("end-to-end training" if lc_cfg.use_e2e_training
-                else f"the {lc_cfg.input_type!r} latent conditioner")
+    if lc_cfg.input_type == "image_pca":
         raise NotImplementedError(
-            f"{what} is not ported yet (ROADMAP Queue 1 items 4-5); the port trains "
-            "input_type csv")
-    if lc_cfg.input_type != "csv":
+            "the 'image_pca' input type (data/pca.py) is not ported yet (ROADMAP Queue 1 "
+            "item 5); the port trains input_type csv, image and image_vit")
+    if lc_cfg.input_type not in ("csv", *convert.IMAGE_INPUT_TYPES):
         raise NotImplementedError(
             f"Unrecognized latent_conditioner_data_type: {lc_cfg.input_type}. "
-            'The port supports "csv" (MLP)')
+            'Supported options: "image" (CNN), "image_vit" (ViT), "csv" (MLP)')
 
 
 def main(argv=None) -> int:
@@ -295,8 +299,7 @@ def main(argv=None) -> int:
                                         hierarchical, new_x_train, device)
 
 
-def _maybe_resume_lc(args, trainer: LCTrainer, lc_ckpt: CheckpointManager,
-                     total_epochs: int):
+def _maybe_resume_lc(args, trainer, lc_ckpt: CheckpointManager, total_epochs: int):
     """The LC's initial state (restored from the latest checkpoint under
     ``--resume``) and the epochs left to train."""
     state = trainer.init_state(args.seed)
@@ -309,20 +312,35 @@ def _maybe_resume_lc(args, trainer: LCTrainer, lc_ckpt: CheckpointManager,
     return state, remaining
 
 
+def read_conditioner_inputs(lc_cfg: LCConfig) -> np.ndarray:
+    """The conditioner's inputs: pixels / 255 of the images of ``param_dir``,
+    or the CSV scaled by a fresh ``latent_conditioner_input_scaler.pkl``."""
+    if lc_cfg.input_type in convert.IMAGE_INPUT_TYPES:
+        print("Loading image data...")
+        physical_input, _ = images.read_latent_conditioner_dataset_img(
+            lc_cfg.param_dir, lc_cfg.param_data_type)
+        return physical_input / 255.0
+    print("Loading csv data for MLP...")
+    physical_input = images.read_latent_conditioner_dataset(lc_cfg.param_dir)
+    physical_input, _ = latent_conditioner_scaler(
+        physical_input, "./model_save/latent_conditioner_input_scaler.pkl")
+    return physical_input
+
+
 def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_model,
                                  latent_vectors, hierarchical, new_x_train,
                                  device) -> int:
-    """Scale the CSV inputs and the latents, train the MLP conditioner, save
-    it and compare its reconstructions with the VAE's own. Returns the exit
+    """Read the conditioner's inputs, scale the latents, train the conditioner
+    (through the frozen decoder with ``use_e2e_training`` on images), save it
+    and compare its reconstructions with the VAE's own. Returns the exit
     code (75 when preempted)."""
     num_param = latent_vectors.shape[0]
     out_latent = latent_vectors.reshape(num_param, cfg.latent_dim_end)
     xs_vectors = hierarchical.reshape(num_param, -1)
 
-    print("Loading csv data for MLP...")
-    physical_input = read_latent_conditioner_dataset(lc_cfg.param_dir)
-    physical_input, _ = latent_conditioner_scaler(
-        physical_input, "./model_save/latent_conditioner_input_scaler.pkl")
+    data_type = lc_cfg.input_type
+    is_image = data_type in convert.IMAGE_INPUT_TYPES
+    physical_input = read_conditioner_inputs(lc_cfg)
     out_latent, lv_scaler = latent_conditioner_scaler(
         out_latent, "./model_save/latent_vectors_scaler.pkl")
     out_hier_flat, xs_scaler = latent_conditioner_scaler(
@@ -331,22 +349,43 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
     out_hier = out_hier_flat.reshape(num_param, size2, cfg.latent_dim)
     n_in = physical_input.shape[-1]
 
-    lc_model = LatentConditioner(lc_cfg.filters, cfg.latent_dim_end, n_in, cfg.latent_dim,
-                                 size2, device, lc_cfg.dropout_rate)
+    lc_sn = None
+    if is_image:
+        lc_model = convert.image_conditioner(lc_cfg, cfg, device,
+                                             image_side=int(round(np.sqrt(n_in))))
+        lc_sn = sn_filter if data_type == "image" else None
+    else:
+        lc_model = LatentConditioner(lc_cfg.filters, cfg.latent_dim_end, n_in, cfg.latent_dim,
+                                     size2, device, lc_cfg.dropout_rate)
     logger = MetricsLogger(log_dir="./LatentConditionerRuns", name="LatentConditioner")
     print("Starting LatentConditioner training...")
     lc_ckpt = CheckpointManager("checkpoints/latent_conditioner",
                                 save_interval_epochs=max(lc_cfg.epochs // 10, 1))
-    trainer = LCTrainer(lc_model, epochs=lc_cfg.epochs, lr=lc_cfg.lr,
-                        batch_size=lc_cfg.batch_size, weight_decay=lc_cfg.weight_decay,
-                        loss_mode=args.lc_loss_mode, device=device, seed=args.seed)
-    lc_state, remaining = _maybe_resume_lc(args, trainer, lc_ckpt, lc_cfg.epochs)
-    print(train_state_summary(lc_state, "LatentConditioner (csv)"))
-    lc_state, _ = trainer.fit(
-        physical_input, out_latent, out_hier, args.seed, state=lc_state,
-        epochs=remaining, ckpt_manager=lc_ckpt,
-        log_fn=lambda e, m: logger.log(e, m, lc_cfg.epochs),
-    )
+    log_fn = lambda e, m: logger.log(e, m, lc_cfg.epochs)  # noqa: E731
+    if is_image and lc_cfg.use_e2e_training:
+        print("Using end-to-end latent conditioner training")
+        trainer = E2ETrainer(
+            lc_model, vae_model, lv_scaler, xs_scaler, epochs=lc_cfg.epochs, lr=lc_cfg.lr,
+            batch_size=lc_cfg.batch_size, weight_decay=lc_cfg.weight_decay,
+            loss_function=lc_cfg.e2e_loss_function, lc_alpha=lc_cfg.lc_alpha,
+            use_latent_regularization=lc_cfg.use_latent_regularization,
+            latent_reg_weight=lc_cfg.latent_reg_weight, sn_filter=lc_sn, device=device,
+            seed=args.seed)
+        lc_state, remaining = _maybe_resume_lc(args, trainer, lc_ckpt, lc_cfg.epochs)
+        print(train_state_summary(lc_state, "LatentConditioner (E2E)"))
+        lc_state, _ = trainer.fit(physical_input, out_latent, out_hier, new_x_train,
+                                  args.seed, state=lc_state, epochs=remaining,
+                                  ckpt_manager=lc_ckpt, log_fn=log_fn)
+    else:
+        trainer = LCTrainer(lc_model, epochs=lc_cfg.epochs, lr=lc_cfg.lr,
+                            batch_size=lc_cfg.batch_size, weight_decay=lc_cfg.weight_decay,
+                            loss_mode=args.lc_loss_mode, device=device, seed=args.seed,
+                            is_image_data=is_image, sn_filter=lc_sn)
+        lc_state, remaining = _maybe_resume_lc(args, trainer, lc_ckpt, lc_cfg.epochs)
+        print(train_state_summary(lc_state, f"LatentConditioner ({data_type})"))
+        lc_state, _ = trainer.fit(physical_input, out_latent, out_hier, args.seed,
+                                  state=lc_state, epochs=remaining, ckpt_manager=lc_ckpt,
+                                  log_fn=log_fn)
     logger.close()
     lc_ckpt.close()
 
@@ -356,16 +395,21 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
               f"(exit {preemption.EX_TEMPFAIL})")
         return preemption.EX_TEMPFAIL
 
-    save_flax_model("model_save/LatentConditioner", {
-        "params": convert.conditioner_tree(lc_state.model, lc_cfg, cfg, n_in),
-        "batch_stats": {},
-    })
+    # the raw kernels (no sigma) and the BatchNorms' running statistics
+    save_flax_model("model_save/LatentConditioner",
+                    convert.conditioner_variables(lc_state.model, lc_cfg, cfg, n_in))
 
     print("LatentConditioner training completed successfully")
     print("Starting reconstruction evaluation...")
+    if isinstance(trainer, E2ETrainer):  # the raw weights in eval mode, as JAX's CLI compares
+        @torch.no_grad()
+        def predict(x):
+            return lc_state.model(x)
+    else:
+        predict = trainer.predict_fn(lc_state)
     evaluator = ReconstructionEvaluator(vae_model, batch_size=cfg.batch_size, seed=args.seed)
     evaluator.evaluate_reconstruction_comparison(
-        trainer.predict_fn(lc_state), physical_input, out_latent, out_hier, new_x_train,
+        predict, physical_input, out_latent, out_hier, new_x_train,
         lv_scaler, xs_scaler, save_dir="checkpoints",
     )
 

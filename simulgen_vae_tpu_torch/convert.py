@@ -23,10 +23,20 @@ trained port module into the tree the JAX package's ``save_flax_model``
 writes: the ``*_state`` walk runs over a skeleton whose leaves are their own
 paths (:data:`PATHS`), which maps each port name to its JAX path and layout,
 and each tensor goes back through the inverse layout rule.
+
+The image conditioners (CNN, simple CNN, ViT) are mapped by
+:func:`image_conditioner_paths`: ``{port name: (layout, JAX path)}`` read off
+the port module, over the whole flax variables tree (``params`` and
+``batch_stats``), with 2-D convs (HWIO ``[kh, kw, in, out]`` <-> ``[out, in,
+kh, kw]``) and the attention's ``DenseGeneral`` kernels (``[in, heads,
+head_dim]`` and ``[heads, head_dim, out]`` <-> ``nn.Linear`` over ``heads *
+head_dim``) among its layouts. Both directions read the same map, so a leaf
+that one side lacks raises, named.
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from typing import Dict, Optional
 
 import numpy as np
@@ -34,8 +44,13 @@ import torch
 from torch import nn
 
 from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
+from simulgen_vae_tpu_torch.models.conditioner_cnn import LatentConditionerImg
 from simulgen_vae_tpu_torch.models.conditioner_mlp import LatentConditioner
+from simulgen_vae_tpu_torch.models.conditioner_simple_cnn import SimpleLatentConditionerImg
+from simulgen_vae_tpu_torch.models.conditioner_vit import LatentConditionerViT
 from simulgen_vae_tpu_torch.models.vae import VAE
+
+IMAGE_INPUT_TYPES = ("image", "image_vit")
 
 State = Dict[str, np.ndarray]
 
@@ -278,8 +293,15 @@ def vae_from_jax(decoder_tree, cfg: VAEConfig, device,
     return vae.eval()
 
 
-def conditioner_from_jax(tree, lc_cfg: LCConfig, cfg: VAEConfig,
-                         device) -> LatentConditioner:
+def conditioner_from_jax(tree, lc_cfg: LCConfig, cfg: VAEConfig, device,
+                         batch_stats=None) -> nn.Module:
+    """The conditioner of ``lc_cfg.input_type`` from its JAX ``params`` tree
+    (and, for the CNN, its ``batch_stats``), in eval mode: the CNN
+    (``image``), the ViT (``image_vit``) or the MLP (any other)."""
+    if lc_cfg.input_type in IMAGE_INPUT_TYPES:
+        variables = {"params": tree, "batch_stats": batch_stats or {}}
+        lc = image_conditioner(lc_cfg, cfg, device, variables)
+        return load_image_conditioner(lc, variables).eval()
     input_shape = np.shape(tree["input_norm"]["scale"])[0]
     lc = LatentConditioner(lc_cfg.filters, cfg.latent_dim_end, input_shape,
                            cfg.latent_dim, cfg.num_hier, device, lc_cfg.dropout_rate)
@@ -288,12 +310,6 @@ def conditioner_from_jax(tree, lc_cfg: LCConfig, cfg: VAEConfig,
 
 
 # -- the port's modules -> JAX trees --------------------------------------------
-
-# The layouts back, laid out on the module's device (a card transposes the
-# flagship's [5120, 5120, 5] kernels far faster than numpy does).
-_INVERSE = {"conv": lambda t: t.permute(2, 1, 0), "dense": lambda t: t.t(),
-            "vec": lambda t: t}
-
 
 def _path_tree(tree, prefix=()) -> dict:
     """``tree`` with each leaf replaced by its path (a tuple of keys)."""
@@ -314,7 +330,7 @@ def _to_tree(state_fn, skeleton: dict, module: nn.Module) -> dict:
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        t = _INVERSE[layout](tensors[name].detach().float()).contiguous()
+        t = _to_flax(layout, tensors[name].detach().float()).contiguous()
         node[path[-1]] = t.cpu().numpy()
     return out
 
@@ -325,11 +341,23 @@ def vae_tree(model: VAE, cfg: VAEConfig) -> dict:
     return _to_tree(vae_state, random_vae_tree(cfg, None), model)
 
 
-def conditioner_tree(lc: LatentConditioner, lc_cfg: LCConfig, cfg: VAEConfig,
-                     input_shape: int) -> dict:
-    """A port ``LatentConditioner`` -> the JAX MLP conditioner's ``params``."""
-    return _to_tree(conditioner_state,
-                    random_conditioner_tree(lc_cfg, cfg, input_shape, None), lc)
+def conditioner_tree(lc: nn.Module, lc_cfg: LCConfig, cfg: VAEConfig,
+                     input_shape: Optional[int] = None) -> dict:
+    """A port conditioner -> the JAX conditioner's ``params`` (the MLP's
+    needs its ``input_shape``)."""
+    return conditioner_variables(lc, lc_cfg, cfg, input_shape)["params"]
+
+
+def conditioner_variables(lc: nn.Module, lc_cfg: LCConfig, cfg: VAEConfig,
+                          input_shape: Optional[int] = None) -> dict:
+    """A port conditioner -> ``{"params", "batch_stats"}``, the tree the JAX
+    CLI saves as ``model_save/LatentConditioner`` (``batch_stats`` empty but
+    for the CNNs')."""
+    if lc_cfg.input_type in IMAGE_INPUT_TYPES:
+        return image_conditioner_variables(lc)
+    return {"params": _to_tree(conditioner_state,
+                               random_conditioner_tree(lc_cfg, cfg, input_shape, None), lc),
+            "batch_stats": {}}
 
 
 # -- random trees in the JAX layout -------------------------------------------
@@ -458,3 +486,211 @@ def random_conditioner_tree(lc_cfg: LCConfig, cfg: VAEConfig, input_shape: int,
     tree["xs_out"] = _rand_mlp_head(rng, filt[-1], hidden,
                                     cfg.latent_dim * cfg.num_hier)
     return tree
+
+
+# -- the image conditioners ----------------------------------------------------
+
+def _path_recorders():
+    out: dict = {}
+
+    def conv(port, *path):
+        out[f"{port}.weight"] = ("conv2d", ("params", *path, "kernel"))
+
+    def dense(port, *path):
+        out[f"{port}.weight"] = ("dense", ("params", *path, "kernel"))
+        out[f"{port}.bias"] = ("vec", ("params", *path, "bias"))
+
+    def norm(port, *path):
+        out[f"{port}.weight"] = ("vec", ("params", *path, "scale"))
+        out[f"{port}.bias"] = ("vec", ("params", *path, "bias"))
+
+    def batch_norm(port, *path):
+        norm(port, *path)
+        out[f"{port}.mean"] = ("vec", ("batch_stats", *path, "mean"))
+        out[f"{port}.var"] = ("vec", ("batch_stats", *path, "var"))
+
+    return out, conv, dense, norm, batch_norm
+
+
+def _cnn_paths(m: LatentConditionerImg) -> dict:
+    out, conv, dense, norm, batch_norm = _path_recorders()
+    conv("sn_initial_conv", "sn_initial_conv")
+    norm("norm0", "GroupNorm_0")
+    for i, block in enumerate(m.layers):
+        p, j = f"layers.{i}", f"layer_{i}"
+        conv(f"{p}.sn_conv1", j, "sn_conv1")
+        norm(f"{p}.norm1", j, "GroupNorm_0")
+        conv(f"{p}.sn_conv2", j, "sn_conv2")
+        norm(f"{p}.norm2", j, "GroupNorm_1")
+        if block.se is not None:
+            dense(f"{p}.se.fc1", j, "SqueezeExcitation_0", "Dense_0")
+            dense(f"{p}.se.fc2", j, "SqueezeExcitation_0", "Dense_1")
+        if block.spatial is not None:
+            conv(f"{p}.spatial.conv", j, "SpatialAttention_0", "Conv_0")
+        if block.sn_skip is not None:
+            conv(f"{p}.sn_skip", j, "sn_skip")
+            norm(f"{p}.skip_norm", j, "GroupNorm_2")
+    dense("sn_fp1", "sn_fp1")
+    norm("ln1", "LayerNorm_0")
+    dense("sn_fp2", "sn_fp2")
+    norm("ln2", "LayerNorm_1")
+    for head in ("latent_main", "xs"):
+        for k in (1, 2):
+            dense(f"{head}.layer{k}.sn_linear", f"{head}_layer{k}", "sn_linear")
+            batch_norm(f"{head}.layer{k}.norm", f"{head}_layer{k}", "BatchNorm_0")
+        dense(f"{head}.skip_proj", f"{head}_skip_proj")
+        dense(f"{head}.output", f"{head}_output")
+    return out
+
+
+def _simple_cnn_paths(m: SimpleLatentConditionerImg) -> dict:
+    out, conv, dense, _, batch_norm = _path_recorders()
+    for i in range(len(m.convs)):
+        conv(f"convs.{i}", f"Conv_{i}")
+        batch_norm(f"norms.{i}", f"BatchNorm_{i}")
+    for j, port in enumerate(("dense0", "dense1", "latent_main", "xs")):
+        dense(port, f"Dense_{j}")
+    return out
+
+
+def _vit_paths(m: LatentConditionerViT) -> dict:
+    out, _, dense, norm, _ = _path_recorders()
+    h = m.num_heads
+    dense("patch_embed", "patch_embed")
+    out["pos_embed"] = ("vec", ("params", "pos_embed"))
+    for i in range(len(m.blocks)):
+        p, j = f"blocks.{i}", f"block_{i}"
+        attn = (j, "MultiHeadDotProductAttention_0")
+        norm(f"{p}.ln1", j, "LayerNorm_0")
+        for name in ("query", "key", "value"):
+            out[f"{p}.attn.{name}.weight"] = (("heads_in", h), ("params", *attn, name, "kernel"))
+            out[f"{p}.attn.{name}.bias"] = (("heads_bias", h), ("params", *attn, name, "bias"))
+        out[f"{p}.attn.out.weight"] = (("heads_out", h), ("params", *attn, "out", "kernel"))
+        out[f"{p}.attn.out.bias"] = ("vec", ("params", *attn, "out", "bias"))
+        norm(f"{p}.ln2", j, "LayerNorm_1")
+        dense(f"{p}.fc1", j, "Dense_0")
+        dense(f"{p}.fc2", j, "Dense_1")
+    norm("norm", "LayerNorm_0")
+    dense("latent_main_head", "latent_main_head")
+    dense("xs_head", "xs_head")
+    return out
+
+
+def image_conditioner_paths(model: nn.Module) -> Dict[str, tuple]:
+    """``{port state-dict name: (layout, JAX path)}`` of an image
+    conditioner; each path starts with ``params`` or ``batch_stats``."""
+    for cls, fn in ((LatentConditionerImg, _cnn_paths),
+                    (SimpleLatentConditionerImg, _simple_cnn_paths),
+                    (LatentConditionerViT, _vit_paths)):
+        if isinstance(model, cls):
+            return fn(model)
+    raise TypeError(f"not an image conditioner: {type(model).__name__}")
+
+
+def flax_ndim(layout) -> Optional[int]:
+    """The rank of a leaf of ``layout`` in the flax tree (None: as the port's)."""
+    kind = layout if isinstance(layout, str) else layout[0]
+    return {"conv2d": 4, "dense": 2, "heads_in": 3, "heads_out": 3,
+            "heads_bias": 2}.get(kind)
+
+
+def _from_flax(layout, a: np.ndarray) -> np.ndarray:
+    kind = layout if isinstance(layout, str) else layout[0]
+    a = _np(a)
+    if kind == "conv2d":
+        return a.transpose(3, 2, 0, 1)
+    if kind == "dense":
+        return a.T
+    if kind == "heads_in":
+        return a.reshape(a.shape[0], -1).T
+    if kind == "heads_out":
+        return a.reshape(-1, a.shape[-1]).T
+    if kind == "heads_bias":
+        return a.reshape(-1)
+    return a
+
+
+def _to_flax(layout, t: torch.Tensor) -> torch.Tensor:
+    """A port tensor back in the flax layout, on the tensor's device (a card
+    transposes the flagship's [5120, 5120, 5] kernels far faster than numpy
+    does)."""
+    kind = layout if isinstance(layout, str) else layout[0]
+    if kind == "conv":
+        return t.permute(2, 1, 0)
+    if kind == "conv2d":
+        return t.permute(2, 3, 1, 0)
+    if kind == "dense":
+        return t.t()
+    if kind == "heads_in":
+        return t.t().reshape(t.shape[1], layout[1], -1)
+    if kind == "heads_out":
+        return t.t().reshape(layout[1], -1, t.shape[0])
+    if kind == "heads_bias":
+        return t.reshape(layout[1], -1)
+    return t
+
+
+def _leaf(tree, path: tuple):
+    """``tree[path[0]][path[1]]...``; a plain dict without the key raises a
+    KeyError naming the path (a tree read from a file names its file too)."""
+    node = tree
+    for i, key in enumerate(path):
+        if not isinstance(node, Mapping) or (isinstance(node, dict) and key not in node):
+            raise KeyError(f"{'/'.join(path[: i + 1])} is missing")
+        node = node[key]
+    return node
+
+
+def _leaf_paths(tree, prefix=()) -> list:
+    out = []
+    for k, v in tree.items():
+        out += _leaf_paths(v, prefix + (k,)) if isinstance(v, Mapping) else [prefix + (k,)]
+    return out
+
+
+def load_image_conditioner(model: nn.Module, variables) -> nn.Module:
+    """Copy flax ``{"params", "batch_stats"}`` into an image conditioner. A
+    leaf the model has and the tree lacks raises a KeyError naming its path,
+    a leaf the tree has and the model lacks a ValueError naming it."""
+    paths = image_conditioner_paths(model)
+    state = {name: _from_flax(layout, _leaf(variables, path))
+             for name, (layout, path) in paths.items()}
+    extra = set(_leaf_paths(variables)) - {p for _, p in paths.values()}
+    if extra:
+        raise ValueError("leaves the conditioner does not have: "
+                         + ", ".join("/".join(p) for p in sorted(extra)[:8]))
+    return load_state(model, state)
+
+
+def image_conditioner_variables(model: nn.Module) -> dict:
+    """An image conditioner -> its flax ``{"params", "batch_stats"}`` (f32
+    numpy leaves, ``batch_stats`` empty for the ViT)."""
+    tensors = model.state_dict()
+    out: dict = {"params": {}, "batch_stats": {}}
+    for name, (layout, path) in image_conditioner_paths(model).items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _to_flax(layout, tensors[name].detach().float()).contiguous().cpu().numpy()
+    return out
+
+
+def image_conditioner(lc_cfg: LCConfig, cfg: VAEConfig, device,
+                      variables: Optional[dict] = None, image_side: int = 256) -> nn.Module:
+    """The port module of ``lc_cfg.input_type`` (``image``: the CNN,
+    ``image_vit``: the ViT for ``image_side``-pixel squares, or for the side
+    its ``variables``' ``pos_embed`` gives), as ``generate.load_pipeline``
+    builds it in JAX."""
+    if lc_cfg.input_type == "image":
+        return LatentConditionerImg(lc_cfg.filters, cfg.latent_dim_end, cfg.latent_dim,
+                                    cfg.num_hier, lc_cfg.dropout_rate,
+                                    lc_cfg.use_spatial_attention, device)
+    if lc_cfg.input_type == "image_vit":
+        side = image_side
+        if variables is not None:
+            tokens = np.shape(_leaf(variables, ("params", "pos_embed")))[1]
+            side = int(round(np.sqrt(tokens))) * 16
+        return LatentConditionerViT(cfg.latent_dim_end, cfg.latent_dim, cfg.num_hier,
+                                    dropout_rate=lc_cfg.dropout_rate, image_side=side,
+                                    device=device)
+    raise ValueError(f"not an image input type: {lc_cfg.input_type!r}")

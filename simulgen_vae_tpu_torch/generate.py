@@ -1,14 +1,23 @@
 """Serving: design parameters -> simulation fields (``simulgen_vae_tpu/generate.py``).
 
-The pipeline runs the MLP conditioner, inverse-scales its latents, decodes
+The pipeline runs the latent conditioner of the condition file's
+``input_type`` (the MLP on CSV rows, the CNN on ``image``, the ViT on
+``image_vit``), inverse-scales its latents, decodes
 deterministically (``mode='fix'``) and, optionally, inverse-scales the field
 to physical units, all on one device. :func:`load_pipeline` builds it from a
 trained ``model_save/`` directory as the JAX package writes it (flax msgpack
 models and sklearn scaler pickles, read without flax or sklearn);
 :func:`make_pipeline` builds it from JAX parameter trees in memory.
-``quantize="int8"`` serves the decoder's products in int8 (``ops/quant.py``).
+``quantize="int8"`` serves the decoder's products in int8 (``ops/quant.py``);
+the conditioner stays float.
+
+An image conditioner is served from its ``{"params", "batch_stats"}`` with
+the raw kernels, as the JAX package serves it: the files hold the weights
+before spectral norm, and nothing divides them by sigma here (ROADMAP Queue
+3 records what that does to a CNN trained with spectral norm).
 
 CLI:  python -m simulgen_vae_tpu_torch.generate --inputs params.csv --out gen.npy
+      python -m simulgen_vae_tpu_torch.generate --inputs new_images --out gen.npy
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); asking for CUDA where there is none raises.
@@ -32,13 +41,15 @@ from simulgen_vae_tpu_torch.config import (
     parse_training_parameters,
     read_preset,
 )
-from simulgen_vae_tpu_torch.convert import conditioner_from_jax, decoder_state, vae_from_jax
+from simulgen_vae_tpu_torch.convert import (
+    IMAGE_INPUT_TYPES,
+    conditioner_from_jax,
+    decoder_state,
+    vae_from_jax,
+)
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
 from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
 from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
-
-UNPORTED_CONDITIONERS = ("image", "image_vit")
-
 
 def resolve_device(device=None) -> torch.device:
     """``cuda`` by default; raises when CUDA was asked for and is absent."""
@@ -51,20 +62,22 @@ def resolve_device(device=None) -> torch.device:
 def make_pipeline(cfg: VAEConfig, lc_cfg: LCConfig, vae_params: dict,
                   lc_params: dict, lv_scaler: MinMaxScaler,
                   xs_scaler: MinMaxScaler, data_scaler: MinMaxScaler,
-                  device=None, dtype: torch.dtype = torch.bfloat16) -> dict:
+                  device=None, dtype: torch.dtype = torch.bfloat16,
+                  lc_batch_stats: Optional[dict] = None) -> dict:
     """The in-memory counterpart of :func:`load_pipeline`.
 
     ``vae_params`` is the JAX VAE ``params`` tree (only ``['decoder']`` is
-    read, and kept for the int8 mirror, which quantizes its f32 weights) and
-    ``lc_params`` the conditioner's. The decoder computes in ``dtype``; the
-    conditioner and the scalers stay in f32.
+    read, and kept for the int8 mirror, which quantizes its f32 weights),
+    ``lc_params`` the conditioner's of ``lc_cfg.input_type`` and
+    ``lc_batch_stats`` the CNN's BatchNorm statistics. The decoder computes
+    in ``dtype``; the conditioner and the scalers stay in f32.
     """
     device = resolve_device(device)
     return dict(
         cfg=cfg, lc_cfg=lc_cfg, device=device, dtype=dtype,
         vae=vae_from_jax(vae_params["decoder"], cfg, device, dtype),
         decoder_tree=vae_params["decoder"],
-        lc=conditioner_from_jax(lc_params, lc_cfg, cfg, device),
+        lc=conditioner_from_jax(lc_params, lc_cfg, cfg, device, batch_stats=lc_batch_stats),
         lv_scaler=lv_scaler.to(device), xs_scaler=xs_scaler.to(device),
         data_scaler=data_scaler.to(device),
     )
@@ -99,33 +112,34 @@ def load_pipeline(condition: str = "input_data/condition.txt",
     writes: ``SimulGen-VAE`` (``{"params"}``), ``LatentConditioner``
     (``{"params", "batch_stats"}``) and the four scaler pickles, with the
     geometry from ``condition`` and ``preset_file``. The decoder computes in
-    ``dtype``, f32 by default as in the JAX package. Only the CSV (MLP)
-    conditioner is served; a missing weight raises a KeyError naming it."""
+    ``dtype``, f32 by default as in the JAX package. The CSV conditioner
+    also reads ``latent_conditioner_input_scaler.pkl`` (kept as
+    ``input_scaler``); the image conditioners take pixels / 255. A missing
+    weight raises a KeyError naming it."""
     device = resolve_device(device)
     raw = parse_training_parameters(parse_condition_file(condition))
     _, _, num_filter_enc, lc_filter = read_preset(preset_file)
     cfg = VAEConfig.from_condition(raw, num_filter_enc, small=(size == "small"))
     lc_cfg = LCConfig.from_condition(raw, lc_filter)
-    if lc_cfg.input_type in UNPORTED_CONDITIONERS:
-        raise NotImplementedError(
-            f"the {lc_cfg.input_type!r} latent conditioner is not ported yet "
-            "(ROADMAP Queue 1 item 6); the port serves input_type csv")
 
     def path(name):
         return os.path.join(model_dir, name)
 
     vae_vars = _Loaded(load_flax_model(path("SimulGen-VAE")), path("SimulGen-VAE"))
     lc_vars = _Loaded(load_flax_model(path("LatentConditioner")), path("LatentConditioner"))
+    scalers = [MinMaxScaler.load(path(name)) for name in
+               ("latent_vectors_scaler.pkl", "xs_scaler.pkl", "scaler.pkl")]
+    if lc_cfg.input_type in IMAGE_INPUT_TYPES:
+        return make_pipeline(cfg, lc_cfg, vae_vars["params"], lc_vars["params"], *scalers,
+                             device=device, dtype=dtype,
+                             lc_batch_stats=lc_vars.get("batch_stats", {}))
     input_scaler = MinMaxScaler.load(path("latent_conditioner_input_scaler.pkl"))
     width = np.shape(lc_vars["params"]["input_norm"]["scale"])[0]
     if input_scaler.scale_.shape[-1] != width:
         raise ValueError(f"the input scaler has {input_scaler.scale_.shape[-1]} features, "
                          f"the conditioner {width} inputs")
-    pipe = make_pipeline(
-        cfg, lc_cfg, vae_vars["params"], lc_vars["params"],
-        MinMaxScaler.load(path("latent_vectors_scaler.pkl")),
-        MinMaxScaler.load(path("xs_scaler.pkl")), MinMaxScaler.load(path("scaler.pkl")),
-        device=device, dtype=dtype)
+    pipe = make_pipeline(cfg, lc_cfg, vae_vars["params"], lc_vars["params"], *scalers,
+                         device=device, dtype=dtype)
     pipe["input_scaler"] = input_scaler
     return pipe
 
@@ -287,14 +301,16 @@ def generate(pipeline: dict, inputs, descale_output: bool = True,
 
 
 def main(argv=None) -> int:
-    from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
+    from simulgen_vae_tpu_torch.data import images
 
     ap = argparse.ArgumentParser(
         description="Generate simulation fields from design parameters "
                     "(conditioner -> decoder, no solver)")
-    ap.add_argument("--inputs", required=True, help="CSV of parameters")
+    ap.add_argument("--inputs", required=True,
+                    help="CSV of parameters, or a directory of images under the working "
+                         "directory (read with OpenCV)")
     ap.add_argument("--input_type", default=None, choices=[None, "csv", "image"],
-                    help="default: from condition.txt input_type (only csv is served)")
+                    help="default: from condition.txt input_type")
     ap.add_argument("--out", default="output/generated.npy")
     ap.add_argument("--condition", default="input_data/condition.txt")
     ap.add_argument("--preset_file", default="preset.txt")
@@ -320,11 +336,14 @@ def main(argv=None) -> int:
                          device=args.device)
     input_type = args.input_type or (
         "image" if pipe["lc_cfg"].input_type.startswith("image") else "csv")
-    if input_type != "csv":
-        raise NotImplementedError("image inputs are not ported yet (ROADMAP Queue 1 "
-                                  "item 6); the port serves CSV inputs")
-    inputs = np.asarray(pipe["input_scaler"].transform(
-        read_latent_conditioner_dataset(args.inputs)))
+    if input_type == "image":
+        param_dir = args.inputs if args.inputs.startswith("/") else "/" + args.inputs
+        raw, _ = images.read_latent_conditioner_dataset_img(
+            param_dir, pipe["lc_cfg"].param_data_type)
+        inputs = raw / 255.0
+    else:
+        inputs = np.asarray(pipe["input_scaler"].transform(
+            images.read_latent_conditioner_dataset(args.inputs)))
     fields = generate(pipe, np.float32(inputs), descale_output=not args.raw_scale,
                       quantize=quantize, max_batch=args.max_batch).cpu().numpy()
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

@@ -21,12 +21,23 @@ per kernel: JAX's bucketing of small kernels is a TPU dispatch fix.
 
 Names: state is keyed by the parameter's name in the model (for example
 ``decoder.dec_block.0.conv.weight``), as ``named_parameters`` gives it.
+
+A ``filter_fn`` on those names (the image CNN conditioner's
+``models.conditioner_cnn.sn_filter``, JAX's ``filter_fn`` on parameter
+paths) selects the layers instead: every ``nn.Linear``, ``nn.Conv2d``,
+``Conv1d`` and ``Dense`` whose kernel name it accepts. A 2-D conv kernel
+``[out, in, kh, kw]`` is viewed as ``[out, in*kh*kw]``, JAX's HWIO as
+``[kh*kw*in, out]``: the same sigma and ``u``. :func:`spectral_normalize`
+keeps sigma's gradient with respect to the kernels (``u`` and ``v`` are
+constants), so a forward on its output trains through ``W / sigma`` as
+JAX's ``spectral_normalize`` does; under ``torch.no_grad`` it is the
+serving copy.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
@@ -36,12 +47,19 @@ from simulgen_vae_tpu_torch.models.blocks import Conv1d, Dense, FusedPointwiseNo
 EPS = 1e-12
 
 
-def sn_layers(model: nn.Module) -> Dict[str, nn.Module]:
-    """``{kernel parameter name: layer}`` for every spectrally normalised layer."""
+def sn_layers(model: nn.Module, filter_fn: Optional[Callable[[str], bool]] = None
+              ) -> Dict[str, nn.Module]:
+    """``{kernel parameter name: layer}`` for every spectrally normalised
+    layer: every VAE layer, or with ``filter_fn`` the linear and conv layers
+    whose kernel name it accepts."""
     out = {}
     for name, mod in model.named_modules():
         prefix = f"{name}." if name else ""
-        if isinstance(mod, (Conv1d, Dense)):
+        if filter_fn is not None:
+            if (isinstance(mod, (nn.Linear, nn.Conv2d, Conv1d, Dense))
+                    and filter_fn(prefix + "weight")):
+                out[prefix + "weight"] = mod
+        elif isinstance(mod, (Conv1d, Dense)):
             out[prefix + "weight"] = mod
         elif isinstance(mod, FusedPointwiseNormTanh):
             out[prefix + "kernel"] = mod
@@ -58,11 +76,12 @@ def _out_rest(mod: nn.Module) -> torch.Tensor:
     return w.reshape(w.shape[0], -1)
 
 
-def init_sn_state(model: nn.Module, generator: Optional[torch.Generator] = None
+def init_sn_state(model: nn.Module, generator: Optional[torch.Generator] = None,
+                  filter_fn: Optional[Callable[[str], bool]] = None
                   ) -> Dict[str, torch.Tensor]:
     """One random f32 unit vector ``u`` [out] per kernel."""
     state = {}
-    for name, mod in sn_layers(model).items():
+    for name, mod in sn_layers(model, filter_fn).items():
         w = _kernel(mod)
         u = torch.randn(w.shape[0], generator=generator, device=w.device)
         state[name] = u / (torch.linalg.vector_norm(u) + EPS)
@@ -107,31 +126,33 @@ def compute_sigmas(model: nn.Module, state: Dict[str, torch.Tensor],
     return inv_sigmas, new_u
 
 
-@torch.no_grad()
 def spectral_normalize(model: nn.Module, state: Dict[str, torch.Tensor],
                        update: bool = False,
-                       compute_dtype: Optional[torch.dtype] = None):
+                       compute_dtype: Optional[torch.dtype] = None,
+                       filter_fn: Optional[Callable[[str], bool]] = None):
     """``(normed, new_state)``: every spectrally normalised kernel divided by
     its leading singular value (the JAX ``spectral_normalize``), keyed by
     kernel name and shaped as the parameter; the model is not touched.
-    ``update=False`` reuses the stored ``u`` (eval, torch's semantics):
-    ``sigma = |M u|``; ``update=True`` runs one power iteration first. With
-    ``compute_dtype`` the matvecs run on the kernel cast to that dtype and the
-    normalised kernels come out in it."""
+    ``v = M u / |M u|`` from the stored ``u``; ``update=False`` (eval,
+    torch's semantics) keeps ``u``, ``update=True`` moves it to ``M^T v /
+    |M^T v|`` (one power iteration); then ``sigma = v . M u``. ``u`` and
+    ``v`` are constants, so ``normed`` has
+    the gradient of ``W / sigma(W)``. With ``compute_dtype`` the matvecs run
+    on the kernel cast to that dtype and the normalised kernels come out in
+    it."""
     normed, new_u = {}, {}
-    for name, mod in sn_layers(model).items():
-        kernel = _kernel(mod).detach()
-        w = _out_rest(mod).detach()
-        w = w.to(compute_dtype if compute_dtype is not None else torch.float32)
+    for name, mod in sn_layers(model, filter_fn).items():
+        kernel = _kernel(mod)
+        w = _out_rest(mod).to(compute_dtype if compute_dtype is not None else torch.float32)
         u = state[name]
-        if update:
-            v = (u.to(w.dtype) @ w).float()
+        with torch.no_grad():
+            wd = w.detach()
+            v = (u.to(wd.dtype) @ wd).float()                      # M u, [rest]
             v = v / (torch.linalg.vector_norm(v) + EPS)
-            u = (w @ v.to(w.dtype)).float()
-            u = u / (torch.linalg.vector_norm(u) + EPS)
-        mu = (u.to(w.dtype) @ w).float()                          # M u, [rest]
-        v = mu / (torch.linalg.vector_norm(mu) + EPS)
-        sigma = v @ mu
+            if update:
+                u = (wd @ v.to(wd.dtype)).float()                  # M^T v, [out]
+                u = u / (torch.linalg.vector_norm(u) + EPS)
+        sigma = v @ (u.to(w.dtype) @ w).float()
         out_dtype = compute_dtype if compute_dtype is not None else kernel.dtype
         normed[name] = (w / sigma.to(out_dtype)).to(out_dtype).reshape(kernel.shape)
         new_u[name] = u

@@ -1,14 +1,19 @@
 """Latent-conditioner trainer on one card (``simulgen_vae_tpu/train/lc_trainer.py``
-``LCTrainer``), for the CSV (MLP) conditioner.
+``LCTrainer``), for the CSV (MLP) and the image (CNN, ViT) conditioners.
 
 An epoch takes ``n // batch`` batches of a fresh permutation (the last
 partial batch is dropped; ``batch = min(batch_size, n)``). Each batch:
 
+* images (``is_image_data``): ``data.image_augmentation.augment_images``
+  (``prob=.8, apply_prob=.5``), drawn from the trainer's ``torch.Generator``;
 * mixup with probability .02: ``lam ~ Beta(0.2, 0.2)`` against a permutation
   of the batch, on the inputs and both targets;
 * input noise with probability .05, ``sigma = .01``;
-* the conditioner's forward with dropout (masks from the trainer's
-  ``torch.Generator``), loss ``10 * MSE(main) + MSE(hier)`` or, in
+* the conditioner's forward in training mode (dropout masks from the
+  trainer's ``torch.Generator``, BatchNorms on the batch's statistics and
+  updating their running ones), through ``W / sigma`` on the layers
+  ``sn_filter`` selects (one power iteration a step, the ``u`` vectors in
+  the state and its checkpoints; ``models.spectral_norm``), loss ``10 * MSE(main) + MSE(hier)`` or, in
   ``"enhanced"`` mode, the MSE / MAE / smooth-L1 blend plus the cosine term;
 * the global gradient norm, a clip at 10 (``g / norm * 10`` above it, as
   optax's ``clip_by_global_norm``), then AdamW (b1 .9, b2 .999, eps 1e-8,
@@ -32,9 +37,8 @@ non-finite train loss (``train.nan_guard``), saves through
 ``utils.checkpoint.CheckpointManager`` and stops early on a preemption
 request (``utils.preemption``). The state has the fields that manager saves.
 
-Not ported: image inputs (their augmentation and the CNN / ViT
-conditioners, ROADMAP Queue 1 item 4) and spectral norm, which only the CNN
-conditioner takes.
+Evaluation and :meth:`LCTrainer.predict_fn` run in eval mode (running
+statistics, no dropout) through ``W / sigma`` from the stored ``u``.
 """
 
 from __future__ import annotations
@@ -49,12 +53,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from simulgen_vae_tpu_torch.data.image_augmentation import augment_images
 from simulgen_vae_tpu_torch.generate import resolve_device
 from simulgen_vae_tpu_torch.losses import (
     compute_enhanced_loss,
     compute_perceptual_loss,
     mse_loss,
 )
+from simulgen_vae_tpu_torch.models.spectral_norm import init_sn_state, spectral_normalize
 from simulgen_vae_tpu_torch.train.nan_guard import rollback
 from simulgen_vae_tpu_torch.train.optim import FusedAdamW
 from simulgen_vae_tpu_torch.train.schedules import lc_warmup_cosine
@@ -70,18 +76,44 @@ WARMUP_EPOCHS = 100
 
 @dataclasses.dataclass
 class LCTrainState:
-    model: nn.Module  # f32 parameters
+    model: nn.Module  # f32 parameters (and the BatchNorms' running statistics)
     opt_state: dict   # FusedAdamW: count, mu, nu (f32, keyed by parameter name)
-    sn_u: dict        # empty: the MLP conditioner has no spectral norm
+    sn_u: dict        # spectral-norm u per normalised kernel (empty without sn_filter)
     epoch: int = 0
     rng: Optional[dict] = None  # the trainer's generator states at the last save
 
 
+class SpectrallyNormalised:
+    """A conditioner called through ``W / sigma`` on the layers ``filter_fn``
+    selects: ``u`` from ``sn_u``, one power iteration when ``update``; the
+    moved vectors are left in :attr:`new_u`. Called as the model is."""
+
+    def __init__(self, model: nn.Module, sn_u: dict, filter_fn, update: bool):
+        self.model, self.sn_u, self.filter_fn, self.update = model, sn_u, filter_fn, update
+        self.new_u = sn_u
+
+    def __call__(self, x, generator=None, **kwargs):
+        normed, self.new_u = spectral_normalize(self.model, self.sn_u, update=self.update,
+                                                filter_fn=self.filter_fn)
+        return torch.func.functional_call(self.model, normed, (x, generator), kwargs)
+
+
+def forward_model(state: LCTrainState, sn_filter, update: bool):
+    """The state's model as a loss calls it: through ``W / sigma`` where
+    ``sn_filter`` selects layers (``update``: one power iteration)."""
+    if sn_filter is None:
+        return state.model
+    return SpectrallyNormalised(state.model, state.sn_u, sn_filter, update)
+
+
 @torch.no_grad()
 def init_conditioner(model: nn.Module, seed: int) -> nn.Module:
-    """The JAX module's init, drawn on the CPU from ``seed``: He-uniform
-    dense kernels (bound sqrt(6 / fan_in)), zero biases, unit LayerNorms."""
+    """The JAX module's init, drawn on the CPU from ``seed``: an image
+    conditioner's own (``init_weights``), else the MLP's He-uniform dense
+    kernels (bound sqrt(6 / fan_in)), zero biases, unit LayerNorms."""
     gen = torch.Generator().manual_seed(seed)
+    if hasattr(model, "init_weights"):
+        return model.init_weights(gen)
     for m in model.modules():
         if isinstance(m, nn.Linear):
             bound = math.sqrt(6.0 / m.in_features)
@@ -94,16 +126,28 @@ def init_conditioner(model: nn.Module, seed: int) -> nn.Module:
 
 
 class LCTrainer:
+    """The latent-conditioner trainer; ``E2ETrainer`` (``train.lc_e2e_trainer``)
+    subclasses it, overriding the loss, the batch augmentation, the rate and
+    the clip, and keeping the best validation state (:attr:`track_best`)."""
+
+    STEP_METRICS, EVAL_METRICS = STEP_METRICS, EVAL_METRICS
+    stage = "lc"        # nan_guard's name for the run
+    track_best = False  # fit returns the last state, not the best validated one
+
     def __init__(self, model: nn.Module, epochs: int, lr: float, batch_size: int,
                  weight_decay: float = 1e-4, loss_mode: str = "standard",
-                 device=None, seed: int = 0):
-        """``model`` is the architecture (a ``LatentConditioner``);
-        :meth:`init_state` trains a copy of it."""
+                 device=None, seed: int = 0, is_image_data: bool = False,
+                 sn_filter: Optional[Callable[[str], bool]] = None):
+        """``model`` is the architecture (a conditioner of ``models``);
+        :meth:`init_state` trains a copy of it. ``is_image_data`` augments
+        the inputs as images; ``sn_filter`` (a predicate on parameter names)
+        turns spectral norm on for the layers it accepts."""
         if loss_mode not in ("standard", "enhanced"):
             raise ValueError(f"loss_mode must be 'standard' or 'enhanced', got {loss_mode!r}")
         self.model = model
         self.epochs, self.lr, self.batch_size = epochs, lr, batch_size
         self.loss_mode = loss_mode
+        self.is_image_data, self.sn_filter = is_image_data, sn_filter
         self.warmup_epochs = min(WARMUP_EPOCHS, max(epochs // 2, 1))
         self.device = resolve_device(device)
         self.opt = FusedAdamW(b1=0.9, b2=0.999, eps=1e-8, weight_decay=weight_decay)
@@ -113,9 +157,16 @@ class LCTrainer:
 
     # -- state ---------------------------------------------------------------
 
+    def _init_model(self, seed: int) -> nn.Module:
+        return init_conditioner(copy.deepcopy(self.model).to(self.device), seed)
+
     def init_state(self, seed: int = 0) -> LCTrainState:
-        model = init_conditioner(copy.deepcopy(self.model).to(self.device), seed)
-        return LCTrainState(model, self.opt.init(dict(model.named_parameters())), {})
+        model = self._init_model(seed)
+        sn_u = {}
+        if self.sn_filter is not None:
+            sn_u = init_sn_state(model, torch.Generator(self.device).manual_seed(seed),
+                                 self.sn_filter)
+        return LCTrainState(model, self.opt.init(dict(model.named_parameters())), sn_u)
 
     def rng_state(self) -> dict:
         return {"numpy": self.rng.bit_generator.state,
@@ -129,7 +180,8 @@ class LCTrainer:
 
     def loss_fn(self, model: nn.Module, x: torch.Tensor, y1: torch.Tensor,
                 y2: torch.Tensor, generator: Optional[torch.Generator] = None):
-        """``(loss, metrics)``; ``generator`` turns dropout on."""
+        """``(loss, metrics)``; ``generator`` turns training mode on (dropout,
+        and the BatchNorms on the batch's statistics)."""
         y_pred1, y_pred2 = model(x, generator)
         a, b = mse_loss(y_pred1, y1), mse_loss(y_pred2, y2)
         if self.loss_mode == "enhanced":
@@ -139,29 +191,43 @@ class LCTrainer:
             loss = a * 10.0 + b
         return loss, {"loss": loss.detach(), "loss_y1": a.detach(), "loss_y2": b.detach()}
 
-    def apply_grads(self, state: LCTrainState, grads: Dict[str, torch.Tensor],
-                    lr: float) -> torch.Tensor:
-        """Clip ``grads`` at global norm 10 and apply AdamW in place; returns
-        the norm before clipping (a 0-d device tensor)."""
+    def lr_at(self, epoch: int) -> float:
+        return lc_warmup_cosine(epoch, self.lr, self.epochs, self.warmup_epochs)
+
+    def clip(self, grads: Dict[str, torch.Tensor]):
+        """``(clipped, norm)``: ``grads`` scaled to global norm 10 above it,
+        as one factor on the device; ``norm`` the global norm before."""
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads.values()))))
         keep = norm < CLIP_NORM
-        clipped = {k: torch.where(keep, g, g / norm * CLIP_NORM) for k, g in grads.items()}
+        return {k: torch.where(keep, g, g / norm * CLIP_NORM) for k, g in grads.items()}, norm
+
+    def apply_grads(self, state: LCTrainState, grads: Dict[str, torch.Tensor],
+                    lr: float) -> torch.Tensor:
+        """:meth:`clip` ``grads`` and apply AdamW in place; returns the norm
+        before clipping (a 0-d device tensor)."""
+        clipped, norm = self.clip(grads)
         self.opt.apply(clipped, state.opt_state, dict(state.model.named_parameters()), lr)
         return norm
 
-    def _step(self, state: LCTrainState, x, y1, y2, lr: float) -> Dict[str, torch.Tensor]:
+    def _step(self, state: LCTrainState, batch, lr: float) -> Dict[str, torch.Tensor]:
         model = state.model
         for p in model.parameters():
             p.grad = None
-        loss, metrics = self.loss_fn(model, x, y1, y2, self.generator)
+        forward = forward_model(state, self.sn_filter, update=True)
+        loss, metrics = self.loss_fn(forward, *batch, self.generator)
         loss.backward()
+        if self.sn_filter is not None:
+            state.sn_u = forward.new_u
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in model.named_parameters()}
         metrics["grad_norm"] = self.apply_grads(state, grads, lr)
         return metrics
 
     def _augment(self, x, y1, y2):
-        """Mixup (p .02) and input noise (p .05), decided on the host."""
+        """Image augmentation (on the device), then mixup (p .02) and input
+        noise (p .05), decided on the host."""
+        if self.is_image_data:
+            x = augment_images(x, self.generator, prob=0.8, apply_prob=0.5)
         do_mix = self.rng.random() < MIXUP_PROB
         lam = float(self.rng.beta(MIXUP_ALPHA, MIXUP_ALPHA))
         partner = self.rng.permutation(x.shape[0])
@@ -174,41 +240,53 @@ class LCTrainer:
 
     # -- epochs --------------------------------------------------------------
 
-    def train_epoch(self, state: LCTrainState, x: torch.Tensor, y1: torch.Tensor,
-                    y2: torch.Tensor):
-        """One epoch over device tensors ``x`` [n, features], ``y1`` [n, z],
-        ``y2`` [n, size2, latent]. Returns ``(state, metrics)``: step means as
+    def train_epoch(self, state: LCTrainState, *data: torch.Tensor):
+        """One epoch over device tensors (``x`` [n, features], ``y1`` [n, z],
+        ``y2`` [n, size2, latent], and what else the loss takes), each batch
+        through :meth:`_augment`. Returns ``(state, metrics)``: step means as
         0-d device tensors, plus ``lr``."""
-        n = x.shape[0]
+        n = data[0].shape[0]
         bsz = min(self.batch_size, n)
         num_batches = max(n // bsz, 1)
-        lr = lc_warmup_cosine(state.epoch, self.lr, self.epochs, self.warmup_epochs)
+        lr = self.lr_at(state.epoch)
         perm = self.rng.permutation(n)[: num_batches * bsz].reshape(num_batches, bsz)
         steps = []
-        for idx in torch.as_tensor(perm, device=x.device):
-            batch = self._augment(*(t.index_select(0, idx) for t in (x, y1, y2)))
-            steps.append(self._step(state, *batch, lr))
+        for idx in torch.as_tensor(perm, device=data[0].device):
+            batch = self._augment(*(t.index_select(0, idx) for t in data))
+            steps.append(self._step(state, batch, lr))
         state.epoch += 1
-        mean = torch.stack([torch.stack([m[k] for k in STEP_METRICS]) for m in steps]).mean(0)
-        metrics = {k: mean[i] for i, k in enumerate(STEP_METRICS)}
+        mean = torch.stack([torch.stack([m[k] for k in self.STEP_METRICS])
+                            for m in steps]).mean(0)
+        metrics = {k: mean[i] for i, k in enumerate(self.STEP_METRICS)}
         metrics["lr"] = lr
         return state, metrics
 
     @torch.no_grad()
-    def eval_epoch(self, state: LCTrainState, x: torch.Tensor, y1: torch.Tensor,
-                   y2: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Mean loss metrics over ``n // batch`` batches in order, no dropout."""
-        n = x.shape[0]
+    def eval_epoch(self, state: LCTrainState, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Mean loss metrics over ``n // batch`` batches in order, eval mode,
+        no augmentation."""
+        n = data[0].shape[0]
         bsz = min(self.batch_size, n)
         num_batches = max(n // bsz, 1)
         total = None
+        model = forward_model(state, self.sn_filter, update=False)
         for i in range(num_batches):
             rows = slice(i * bsz, (i + 1) * bsz)
-            _, m = self.loss_fn(state.model, x[rows], y1[rows], y2[rows])
-            vals = torch.stack([m[k] for k in EVAL_METRICS])
+            _, m = self.loss_fn(model, *(t[rows] for t in data))
+            vals = torch.stack([m[k] for k in self.EVAL_METRICS])
             total = vals if total is None else total + vals
         mean = total / num_batches
-        return {k: mean[i] for i, k in enumerate(EVAL_METRICS)}
+        return {k: mean[i] for i, k in enumerate(self.EVAL_METRICS)}
+
+    @staticmethod
+    def _snapshot(state: LCTrainState) -> LCTrainState:
+        """A copy of ``state`` that later steps do not change."""
+        opt = {"count": state.opt_state["count"],
+               **{k: {n: t.clone() for n, t in state.opt_state[k].items()}
+                  for k in ("mu", "nu")}}
+        return LCTrainState(copy.deepcopy(state.model), opt,
+                            {k: u.clone() for k, u in state.sn_u.items()}, state.epoch,
+                            state.rng)
 
     @staticmethod
     def _read_back(metrics: Dict) -> Dict[str, float]:
@@ -232,9 +310,21 @@ class LCTrainer:
         Returns ``(state, history)``, history holding per-epoch numpy arrays.
         ``fit(state=...)`` on a restored state continues from its epoch with
         the generators' saved states."""
+        return self._fit((x, y1, y2), seed=seed, state=state, val_split=val_split,
+                         val_every=val_every, overfit_threshold=overfit_threshold,
+                         log_fn=log_fn, epochs=epochs, ckpt_manager=ckpt_manager,
+                         nan_guard=nan_guard, nan_guard_max_retries=nan_guard_max_retries)
+
+    def _fit(self, arrays, *, seed, state, val_split, val_every, overfit_threshold, log_fn,
+             epochs, ckpt_manager, nan_guard, nan_guard_max_retries):
+        """The epoch loop of both trainers on the numpy ``arrays`` :meth:`loss_fn`
+        takes. With :attr:`track_best` it returns the state of the best
+        validation loss (the current one on a preemption request, so
+        ``--resume`` continues it) and rolls back to that state when no
+        checkpoint exists."""
         epochs = self.epochs if epochs is None else epochs
-        x, y1, y2 = (np.nan_to_num(np.asarray(a, np.float32), nan=0.0) for a in (x, y1, y2))
-        n = x.shape[0]
+        arrays = [np.nan_to_num(np.asarray(a, np.float32), nan=0.0) for a in arrays]
+        n = arrays[0].shape[0]
         n_val = int(n * val_split)
         perm = np.random.default_rng(seed).permutation(n)
         tr, va = perm[: n - n_val], perm[n - n_val:]
@@ -243,20 +333,22 @@ class LCTrainer:
 
         def on_device(rows):
             return [torch.from_numpy(np.ascontiguousarray(a[rows])).to(self.device)
-                    for a in (x, y1, y2)]
+                    for a in arrays]
 
         train, val_data = on_device(tr), on_device(va)
         state = self.init_state(seed) if state is None else state
         if state.rng is not None:
             self.load_rng_state(state.rng)
 
-        def save(force: bool = False) -> None:
+        def save(s: LCTrainState, force: bool = False) -> None:
             if ckpt_manager is not None:
-                state.rng = self.rng_state()
-                ckpt_manager.maybe_save(state, int(state.epoch), force=force)
+                s.rng = self.rng_state()
+                ckpt_manager.maybe_save(s, int(state.epoch), force=force)
 
         history: Dict[str, list] = {}
-        val = {"loss": float("inf"), "loss_y1": 0.0, "loss_y2": 0.0}
+        val = dict.fromkeys(self.EVAL_METRICS, 0.0)
+        val["loss"] = float("inf")
+        best_val, best_state, preempted = float("inf"), state, False
         base_epoch = int(state.epoch)
         epoch, nan_retries, nan_fail_epoch = 0, 0, -1
         while epoch < epochs:
@@ -265,10 +357,12 @@ class LCTrainer:
             metrics = self._read_back(metrics)
 
             if nan_guard and not np.isfinite(metrics["loss"]):
+                # the best state is finite (a NaN validation loss never wins)
                 nan_fail_epoch = max(nan_fail_epoch, epoch)
                 state, epoch, history = rollback(
                     state, epoch, base_epoch, history, ckpt_manager, nan_retries,
-                    nan_guard_max_retries, stage="lc")
+                    nan_guard_max_retries, stage=self.stage,
+                    fallback_state=self._snapshot(best_state) if self.track_best else None)
                 nan_retries += 1
                 continue
             if nan_retries and epoch > nan_fail_epoch:
@@ -284,27 +378,32 @@ class LCTrainer:
 
             metrics.update({f"val_{k}": v for k, v in val.items()})
             metrics["epoch_time"] = time.perf_counter() - t0
+            if self.track_best and metrics["val_loss"] < best_val:
+                best_val, best_state = metrics["val_loss"], self._snapshot(state)
             for k, v in metrics.items():
                 history.setdefault(k, []).append(v)
             if log_fn is not None:
                 log_fn(epoch, metrics)
-            save()
+            save(state)
             if preemption.requested():
+                preempted = True
                 break  # cooperative stop: the forced save below, then return
             epoch += 1
 
-        save(force=True)
+        final = best_state if self.track_best and not preempted else state
+        save(final, force=True)
         if ckpt_manager is not None:
             ckpt_manager.wait()
-        state.rng = self.rng_state()
-        return state, {k: np.asarray(v) for k, v in history.items()}
+        final.rng = self.rng_state()
+        return final, {k: np.asarray(v) for k, v in history.items()}
 
     # -- inference -----------------------------------------------------------
 
     def predict_fn(self, state: LCTrainState):
-        """Deterministic forward: inputs ``[n, features]`` -> ``(y1, y2)``
-        tensors on the trainer's device."""
-        model = state.model
+        """Deterministic forward (eval mode, ``W / sigma`` from the stored
+        ``u``): inputs ``[n, features]`` -> ``(y1, y2)`` tensors on the
+        trainer's device."""
+        model = forward_model(state, self.sn_filter, update=False)
 
         @torch.no_grad()
         def fn(x):

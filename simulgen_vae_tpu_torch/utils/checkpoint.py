@@ -2,7 +2,8 @@
 ``CheckpointManager``), in a format of the port's own.
 
 One file per saved epoch, ``ckpt_<epoch>.pt``: ``torch.save`` of the
-parameters, the AdamW moments in their dtype, the step count, the
+parameters, the module's buffers (the image conditioners' BatchNorm running
+statistics; none in the VAE), the AdamW moments in their dtype, the step count, the
 spectral-norm ``u`` vectors, the epoch, and the trainer's generator states
 (``VAETrainState.rng``), all on the CPU. A save copies the state to the host
 once, writes to a temporary name and renames it, so a reader never sees half
@@ -75,6 +76,7 @@ class CheckpointManager:
             return False
         payload = {
             "params": _to_cpu(dict(state.model.named_parameters())),
+            "buffers": _to_cpu(dict(state.model.named_buffers())),
             "mu": _to_cpu(state.opt_state["mu"]),
             "nu": _to_cpu(state.opt_state["nu"]),
             "count": int(state.opt_state["count"]),
@@ -102,6 +104,7 @@ class CheckpointManager:
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
         with torch.no_grad():
             _copy_into(dict(state.model.named_parameters()), payload["params"], "params")
+            _copy_into(dict(state.model.named_buffers()), payload.get("buffers", {}), "buffers")
             _copy_into(state.opt_state["mu"], payload["mu"], "mu")
             _copy_into(state.opt_state["nu"], payload["nu"], "nu")
             _copy_into(state.sn_u, payload["sn_u"], "sn_u")

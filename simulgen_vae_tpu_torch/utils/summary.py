@@ -3,8 +3,8 @@
 
 A torchinfo-style table of a module's parameters grouped by the first
 ``depth`` parts of their names, then the rest of the train state (AdamW
-moments, spectral-norm vectors): the bottom line is the device memory one
-train state holds. Counted from the tensors' shapes and dtypes; nothing is
+moments, spectral-norm vectors, the image conditioners' BatchNorm
+statistics): the bottom line is the device memory one train state holds. Counted from the tensors' shapes and dtypes; nothing is
 allocated.
 """
 
@@ -46,9 +46,9 @@ def _tensors(tree) -> list:
 
 
 def model_summary(module: nn.Module, name: str = "model", depth: int = 2,
-                  opt_state=None, sn_u=None) -> str:
-    """The parameter table of ``module``; ``opt_state`` / ``sn_u`` add the
-    train state's other rows and its total."""
+                  opt_state=None, sn_u=None, batch_stats=None) -> str:
+    """The parameter table of ``module``; ``opt_state`` / ``sn_u`` /
+    ``batch_stats`` add the train state's other rows and its total."""
     groups = _group(_leaf_stats(module.named_parameters()), depth)
     rows = [(k, *v) for k, v in sorted(groups.items())]
 
@@ -67,7 +67,8 @@ def model_summary(module: nn.Module, name: str = "model", depth: int = 2,
                  f"{total_n:>13,}  {_mb(total_b):>10}")
 
     state_b = total_b
-    for label, tree in (("optimizer state", opt_state), ("spectral-norm u", sn_u)):
+    for label, tree in (("optimizer state", opt_state), ("spectral-norm u", sn_u),
+                        ("batch stats", batch_stats)):
         if not tree:
             continue
         s = _leaf_stats(_tensors(tree))
@@ -84,6 +85,8 @@ def model_summary(module: nn.Module, name: str = "model", depth: int = 2,
 
 
 def train_state_summary(state, name: str, depth: int = 2) -> str:
-    """The table of a trainer's state (``VAETrainState``, ``LCTrainState``)."""
+    """The table of a trainer's state (``VAETrainState``, ``LCTrainState``);
+    the module's buffers are its batch statistics."""
     return model_summary(state.model, name=name, depth=depth,
-                         opt_state=state.opt_state, sn_u=state.sn_u)
+                         opt_state=state.opt_state, sn_u=state.sn_u,
+                         batch_stats=dict(state.model.named_buffers()))

@@ -34,7 +34,7 @@ def test_conditioner_matches_jax(filters, n_in, x_scale):
 
     cfg = VAEConfig(latent_dim_end=z_end, latent_dim=hier,
                     num_filter_enc=[4] * (size2 + 1))
-    lc = convert.conditioner_from_jax(params, LCConfig(filters=filters), cfg, "cpu")
+    lc = convert.conditioner_from_jax(params, LCConfig(filters=filters, input_type="csv"), cfg, "cpu")
     with torch.inference_mode():
         got1, got2 = lc(torch.from_numpy(x))
     assert got2.shape == (5, size2, hier)

@@ -216,7 +216,7 @@ def test_summary_counts_the_parameters_jax_counts():
     conditioner tree."""
     filters, n_in = [8, 16, 16], 12
     cfg = tconfig.VAEConfig(latent_dim_end=8, latent_dim=4, num_filter_enc=[4] * 4)
-    lc_cfg = tconfig.LCConfig(filters=filters)
+    lc_cfg = tconfig.LCConfig(filters=filters, input_type="csv")
     tree = convert.random_conditioner_tree(lc_cfg, cfg, n_in, np.random.default_rng(0))
     lc = convert.conditioner_from_jax(tree, lc_cfg, cfg, "cpu")
 

@@ -149,7 +149,7 @@ def test_comparison_matches_jax_and_skips_pngs_without_matplotlib(
     lc_params = jax.jit(lambda k: jlc.init({"params": k, "dropout": k}, jnp.zeros((1, n_in)),
                                            deterministic=True))(jax.random.PRNGKey(5))["params"]
     lc = convert.conditioner_from_jax(jax.tree_util.tree_map(np.asarray, lc_params),
-                                      LCConfig(filters=filters), CFG, "cpu")
+                                      LCConfig(filters=filters, input_type="csv"), CFG, "cpu")
     y1, y2 = _latents(6)
     want = JaxEvaluator(_jax_vae(), jax_params, T).evaluate_reconstruction_comparison(
         lambda x: jlc.apply({"params": lc_params}, x, deterministic=True), inputs, y1, y2,

@@ -28,7 +28,7 @@ ENC = [32, 16, 8, 4]
 LC_FILTERS, N_IN = [8, 16, 16], 12
 CFG = VAEConfig(num_time=T, num_node=NODE, latent_dim_end=Z, latent_dim=HIER,
                 num_filter_enc=ENC)
-LC_CFG = LCConfig(filters=LC_FILTERS)
+LC_CFG = LCConfig(filters=LC_FILTERS, input_type="csv")
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,8 @@ JAX-initialized parameters, at T = 8, 300 nodes, encoder filters
 and chunked (``--max_batch 2`` on 5 rows), and in int8 (the tolerance
 ``tests/test_torch_quant.py`` states). Artifacts written by the port's own
 writers give JAX's ``main`` the same output. The module entry point runs once
-as a subprocess; ``load_pipeline`` names a missing weight and refuses the
-image conditioners.
+as a subprocess; ``load_pipeline`` names a missing weight, also of an image
+conditioner asked for over an MLP conditioner's file.
 """
 
 import os
@@ -198,12 +198,17 @@ def test_load_pipeline_names_a_missing_weight(jax_artifacts, tmp_path):
                            model_dir=str(root / "model_save"), device="cpu")
 
 
-@pytest.mark.parametrize("input_type", ["image", "image_vit"])
-def test_load_pipeline_refuses_unported_conditioners(jax_artifacts, tmp_path, input_type):
+@pytest.mark.parametrize("input_type, leaf", [("image", "sn_initial_conv"),
+                                              ("image_vit", "pos_embed")])
+def test_load_pipeline_refuses_unported_conditioners(jax_artifacts, tmp_path, input_type,
+                                                     leaf):
+    """An image condition over an MLP conditioner's file: the image
+    conditioners are served now (tests/test_torch_cli_images.py), so the
+    refusal is the first missing weight, named with its file."""
     root = _copy(jax_artifacts, tmp_path / "copy")
     (root / "condition.txt").write_text(
         CONDITION.replace("input_type\tcsv", f"input_type\t{input_type}"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+    with pytest.raises(KeyError, match=f"LatentConditioner/params/{leaf} is missing"):
         tgen.load_pipeline(str(root / "condition.txt"), str(root / "preset.txt"),
                            model_dir=str(root / "model_save"), device="cpu")
 

@@ -33,7 +33,7 @@ from simulgen_vae_tpu_torch.utils.checkpoint import CheckpointManager
 
 FILTERS, N_IN, Z, HIER, SIZE2, N = [8, 16, 16], 12, 8, 4, 3, 12
 CFG = VAEConfig(latent_dim_end=Z, latent_dim=HIER, num_filter_enc=[4] * (SIZE2 + 1))
-LC_CFG = LCConfig(filters=FILTERS, dropout_rate=0.0)
+LC_CFG = LCConfig(filters=FILTERS, dropout_rate=0.0, input_type="csv")
 
 
 @pytest.fixture(scope="module")

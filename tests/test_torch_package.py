@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, flax or JAX-package import, nor msgpack,
-sklearn or pandas, which the card's machine lacks, and matplotlib, PIL and
-tensorboardX (also absent there) only inside the functions that use them; and
-its entry points refuse to fall back to the CPU when CUDA was asked for and
-is absent."""
+sklearn or pandas, which the card's machine lacks, and matplotlib, PIL,
+tensorboardX and OpenCV (also absent there) only inside the functions that use
+them; and its entry points refuse to fall back to the CPU when CUDA was asked
+for and is absent."""
 
 import ast
 import os
@@ -17,7 +17,7 @@ REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "simulgen_vae_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "simulgen_vae_tpu", "scripts",
              "msgpack", "sklearn", "pandas")
-LAZY = ("matplotlib", "PIL", "tensorboardX")
+LAZY = ("matplotlib", "PIL", "tensorboardX", "cv2")
 
 
 def _modules():
@@ -87,7 +87,9 @@ def test_the_stack_modules_are_among_those_checked():
                 "data.images", "data.scaler", "generate", "cli", "__main__",
                 "train.lc_trainer", "data.dataset", "evaluation.evaluator",
                 "evaluation.reconstruction", "evaluation.plotter", "utils.logging",
-                "utils.summary"):
+                "utils.summary", "models.conditioner_cnn", "models.conditioner_simple_cnn",
+                "models.conditioner_vit", "models.flax_layers", "data.image_augmentation",
+                "train.lc_e2e_trainer"):
         assert f"simulgen_vae_tpu_torch.{mod}" in names
 
 
