@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (simulgen_vae_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--reps 20] [--profile]
-    python3 chip_smoke.py --ab {onepass,gn-bwd,gn-stats,gn-stats-clusters,readout-bwd} TREE ...
+    python3 chip_smoke.py --ab {onepass,gn-bwd,gn-stats,gn-stats-clusters,readout-bwd,stream} TREE ...
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -104,8 +104,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              and of gather_augment, none of readout_bwd_dy, the counted
              fused_adamw sweeps, one power iteration in the epoch; fit for 3
              epochs of 2 steps with a CheckpointManager, a restore into a new
-             trainer and one more epoch, bit-equal to an uninterrupted run; one
-             streamed epoch of 4 steps from pinned host memory; one step from
+             trainer and one more epoch, bit-equal to an uninterrupted run; the
+             streamed epoch's host gather (vae_trainer.gather_rows: one bf16
+             batch cast row by row into pinned memory, the same bits on the
+             card as index_select in f32 cast there; its ms a batch against
+             index_select f32, in turns); one streamed epoch of 4 steps
+             through it (finite metrics, step p50); one step from
              one state, batch and noise with the dy-free backward through its
              kernel, through its plain version and with the materializing
              backward (tolerances of phase 6), and the kernel AdamW against the
@@ -184,6 +188,28 @@ Phases, each printing its own lines; any failure exits non-zero:
              the CNN, ViT and CSV pipelines and the conditioners' own device
              time, in turns; the trained CNN's raw-kernel (served) output
              against its forward through W / sigma on one checkpoint.
+11. pca    : the image_pca input type on phase 9's trained VAE, latents and
+             dataset, in its work directory. PCA_RUNNER runs the training CLI
+             --lc_only=1 --lc_epochs 16 with input_type image_pca and only
+             data.images.read_raw_images replaced by 32 grayscale 256 x 256
+             images from --seed (seeded_gray_images: smooth shapes plus noise
+             over 0-255; it prints a line saying so): the PCA (256 components
+             asked for, 32 kept) is fitted on the card in that process and the
+             MLP trains on the scaled coefficients at the flagship widths.
+             Gated: exit 0, the eight model_save/ files and pca_full_comp32.pkl,
+             the input scaler 256 columns wide, finite losses, gn_act_onepass,
+             gn_stats, gn_apply and fused_adamw launched; in that process
+             (pca_checks) the components [32, 65536] f32 with output_shape
+             (16, 16) and rows orthonormal within 1e-4, the card's fit against
+             the same fit on the CPU (components and coefficients within 1e-3
+             up to sign, the null-space component left out),
+             utils.profiling.device_memory_mb's peak equal to
+             torch.cuda.max_memory_allocated, and utils.profiling.trace of a
+             decode writing a file under chiprun_out/pca_trace/ with a CUDA
+             kernel event; load_pipeline + generate on 16 rows of the scaled
+             coefficients (f32, TF32 off) within rel-L2 1e-6 of make_pipeline
+             on the tree the trainer saved. Printed: the process's wall time,
+             the PCA fit's seconds, peak memory.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
@@ -206,7 +232,9 @@ gn_stats on each map of a decode and a step, with hashes of gn_bwd_stats'
 outputs; gn-stats-clusters: gn_stats' measurement builds with clusters of 5
 to 8. MODE readout-bwd: readout_bwd_fused and both backward segments
 (dy-free, materializing) at every phase 7 shape, in bf16, device only, with
-a hash of readout_matmul_stats' outputs at two shapes.
+a hash of readout_matmul_stats' outputs at two shapes. MODE stream: the
+streamed epoch's step times at phase 5's configuration on the tree's own
+host gather route, with hashes of train/vae_trainer.py.
 """
 
 from __future__ import annotations
@@ -1915,6 +1943,50 @@ def compare_backwards(trainer, state, batch, beta, rc, label, loss_tol, grad_tol
     return result, gk
 
 
+GATHER_BATCHES = 3   # batches a turn when timing the host gathers
+
+
+def stream_gather(host: np.ndarray, seed: int, card: str) -> dict:
+    """The streamed epoch's host gather (vae_trainer.gather_rows): one batch
+    cast row by row to bf16 into pinned memory, copied to the card, has the
+    same bits as the same rows gathered by index_select in f32, copied and
+    cast on the card; then the gather's ms a batch, the bf16 row-wise cast
+    against index_select f32 (the route before it) into pinned buffers, in
+    turns (cast, index_select, index_select, cast)."""
+    from simulgen_vae_tpu_torch.train.vae_trainer import gather_rows
+
+    rng = np.random.default_rng(seed)
+    host_t = torch.from_numpy(host)
+    shape = (B, *host.shape[1:])
+    bufs = {torch.bfloat16: torch.empty(shape, dtype=torch.bfloat16, pin_memory=True),
+            torch.float32: torch.empty(shape, dtype=torch.float32, pin_memory=True)}
+    idx = rng.integers(0, host.shape[0], size=B)
+    got = gather_rows(host_t, idx, bufs[torch.bfloat16]).to("cuda")
+    want = torch.index_select(host_t, 0, torch.from_numpy(idx)).to("cuda").to(torch.bfloat16)
+    same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    del got, want
+    print(f"stack: one batch of {B} rows cast row by row to bf16 on the host vs index_select "
+          f"in f32 cast on the card: same bits {same} -> {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the streamed gather's bf16 rows differ from the cast route")
+    routes = {"cast_bf16": lambda i: gather_rows(host_t, i, bufs[torch.bfloat16]),
+              "index_select_f32": lambda i: torch.index_select(
+                  host_t, 0, torch.from_numpy(i), out=bufs[torch.float32])}
+    turns = {}
+    for name in ("cast_bf16", "index_select_f32", "index_select_f32", "cast_bf16"):
+        batches = [rng.integers(0, host.shape[0], size=B) for _ in range(GATHER_BATCHES)]
+        t0 = time.perf_counter()
+        for i in batches:
+            routes[name](i)
+        turns.setdefault(name, []).append((time.perf_counter() - t0) * 1e3 / GATHER_BATCHES)
+    print(f"timing: [{card}] host gather of a {B}-row batch ({B * host[0].nbytes / 1e9:.2f} "
+          f"GB of f32 rows) into pinned memory, in turns: "
+          + "; ".join(f"{k} " + " / ".join(f"{v:.1f}" for v in ms) + " ms"
+                      for k, ms in turns.items())
+          + f" ({torch.get_num_threads()} threads)")
+    return dict(same_bits=same, gather_ms=turns, threads=torch.get_num_threads())
+
+
 def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     """Phase 7: the benched train stack. Returns (per-kernel dicts, result dict)."""
     import tempfile
@@ -2032,8 +2104,9 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     del resumed, whole, restored, second, mgr
     torch.cuda.empty_cache()
 
-    # one streamed epoch from pinned host memory
+    # one streamed epoch from pinned host memory, cast row by row to bf16 there
     host = data.float().cpu().numpy()
+    gather = stream_gather(host, args.seed, card)
     marks = []
     real_step = trainer.train_step
     trainer.train_step = lambda *a: marks.append(time.perf_counter()) or real_step(*a)
@@ -2049,9 +2122,13 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     if not np.isfinite(float(sm["loss"])) or len(stream_ms) != steps:
         raise AssertionError(f"streamed epoch: loss {float(sm['loss'])}, {len(stream_ms)} steps")
     del host
-    print(f"timing: [{card}] streamed epoch ({steps} steps, f32 host rows gathered into pinned "
-          f"buffers, partners from the dataset): step p50 {stream_p50:.1f} ms, min/max "
-          f"{stream_ms.min():.1f}/{stream_ms.max():.1f} ms, loss {float(sm['loss']):.6g}")
+    finite = all(np.isfinite(float(v)) for v in sm.values())
+    print(f"timing: [{card}] streamed epoch ({steps} steps, f32 host rows cast row by row "
+          f"to bf16 into pinned buffers, partners from the dataset): "
+          f"step p50 {stream_p50:.1f} ms, min/max {stream_ms.min():.1f}/{stream_ms.max():.1f} "
+          f"ms, loss {float(sm['loss']):.6g}; metrics finite: {finite}")
+    if not finite:
+        raise AssertionError(f"streamed epoch: non-finite metrics {sm}")
 
     # times: AdamW over the model's parameters, then four stacks' steps in turns
     adamw_rows = time_fused_adamw(FusedAdamW, fa, state.model, args.reps, card)
@@ -2140,6 +2217,7 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     result = dict(metrics=metrics, launches=launches, steps=steps, adamw_sweeps_per_step=sweeps,
                   step_checks=checks, segments=segments, adamw=adamw_rows, step_p50_ms=step_p50,
                   stream_step_p50_ms=stream_p50, stream_step_ms=stream_ms.tolist(),
+                  stream_gather=gather,
                   device_busy_ms=busy, wide_matmuls_in_2_steps=wide_mm, resume_bit_equal=resume_ok, peak_gb=peak_gb)
     return kernels, result
 
@@ -3089,6 +3167,290 @@ def phase_images(args, card, root: Path) -> tuple:
     return launches["image"], launches["image_vit"], result
 
 
+# -- phase 11: the image_pca input type ------------------------------------------
+
+PCA_LC_EPOCHS = 16
+PCA_KERNELS = ("gn_act_onepass", "gn_stats", "gn_apply", "fused_adamw")
+PCA_COMPONENTS = 256            # the PCA reader's default
+PCA_SIDE = 16                   # its coefficients as a 16 x 16 square: the MLP's width
+# 256 components asked for; 32 samples keep 32, and the file is named by what
+# was kept, as in the JAX package
+PCA_FILE = f"pca_full_comp{CLI_SAMPLES}.pkl"
+# Runs the training CLI (argv after the module: seed, images, where to save the
+# served inputs and fields, then the CLI's arguments) with only the raw image
+# read replaced by seeded_gray_images, keeping the conditioner tree handed to
+# save_flax_model and timing each PCA fit; prints the launch counts and peak
+# memory of the run, then pca_checks' results.
+PCA_RUNNER = """\
+import json, os, runpy, sys, time
+import torch
+import chip_smoke
+from simulgen_vae_tpu_torch import cli
+from simulgen_vae_tpu_torch.data import images, pca
+module = sys.argv.pop(1)
+seed, count, served = int(sys.argv.pop(1)), int(sys.argv.pop(1)), sys.argv.pop(1)
+pixels = chip_smoke.seeded_gray_images(count, seed)
+images.read_raw_images = lambda *a, **k: pixels
+print(f"pca: data.images.read_raw_images replaced by {count} grayscale "
+      f"{chip_smoke.IMAGE_SIDE}x{chip_smoke.IMAGE_SIDE} images made from seed {seed} (smooth "
+      "shapes plus noise over 0-255, not binary; no OpenCV on this machine)")
+kept, fits = {}, []
+save = cli.save_flax_model
+def keep(path, tree):
+    kept[os.path.basename(path)] = tree
+    save(path, tree)
+cli.save_flax_model = keep
+fit = pca.PCAPreprocessor.fit
+def timed_fit(self, *a, **k):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fit(self, *a, **k)
+    fits.append({"device": str(self.device), "seconds": time.perf_counter() - t0})
+    return out
+pca.PCAPreprocessor.fit = timed_fit
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    code = 0
+except SystemExit as e:
+    code = e.code
+from simulgen_vae_tpu_torch.ops import fused_adamw, gather_augment, groupnorm_gelu, quant
+print("launches: " + json.dumps({**groupnorm_gelu.LAUNCHES, **quant.LAUNCHES,
+                                 **gather_augment.LAUNCHES, **fused_adamw.LAUNCHES}))
+print("peak_bytes: " + str(torch.cuda.max_memory_allocated()))
+if code == 0:
+    print("pca_fits: " + json.dumps(fits))
+    print("pca_checks: " + json.dumps(chip_smoke.pca_checks(pixels, kept["LatentConditioner"],
+                                                           sys.argv[1:], served)))
+sys.exit(code)
+"""
+
+
+def seeded_gray_images(n: int, seed: int) -> np.ndarray:
+    """``n`` grayscale ``IMAGE_SIDE``-square images from ``seed``, as the raw
+    reader returns them (``[n, side, side]`` uint8): a background level, one
+    to three smooth Gaussian shapes and noise of std 8, rounded and clipped
+    to 0-255."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:IMAGE_SIDE, :IMAGE_SIDE] / IMAGE_SIDE
+    out = np.empty((n, IMAGE_SIDE, IMAGE_SIDE), np.uint8)
+    for i in range(n):
+        img = np.full((IMAGE_SIDE, IMAGE_SIDE), rng.uniform(10, 60))
+        for _ in range(rng.integers(1, 4)):
+            cy, cx = rng.uniform(0.2, 0.8, 2)
+            ry, rx = rng.uniform(0.05, 0.3, 2)
+            img += rng.uniform(60, 190) * np.exp(-((yy - cy) / ry) ** 2 - ((xx - cx) / rx) ** 2)
+        img += rng.normal(0.0, 8.0, (IMAGE_SIDE, IMAGE_SIDE))
+        out[i] = np.clip(np.round(img), 0, 255)
+    return out
+
+
+def _trace_kernels(path: Path) -> int:
+    """CUDA kernel events in a Chrome trace file."""
+    events = json.loads(path.read_text())["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel" and WARM_KERNEL not in e.get("name", ""))
+
+
+def pca_checks(pixels: np.ndarray, tree: dict, argv: list, served: str) -> dict:
+    """In the training CLI's process, after it ran with input_type image_pca
+    on the card: utils.profiling's peak against torch's; the saved PCA (its
+    components' shape, dtype and orthonormal rows, within 1e-4; the output
+    square) and the same fit on the CPU (components and coefficients within
+    1e-3 up to each component's sign, coefficients against the largest one,
+    the null-space component, singular value below 1e-5 of the largest, left
+    out); then, in f32 with TF32 off, make_pipeline on the conditioner tree
+    the trainer saved decodes B rows of the scaled coefficients (the inputs
+    and fields saved to ``served`` for the caller to serve from the files),
+    traced by utils.profiling.trace into chiprun_out/pca_trace/, whose file
+    must hold a CUDA kernel event. Returns the numbers with an ``ok`` for
+    each gate."""
+    from simulgen_vae_tpu_torch import cli
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.config import (LCConfig, VAEConfig, parse_condition_file,
+                                               parse_training_parameters, read_preset)
+    from simulgen_vae_tpu_torch.data.pca import PCAPreprocessor
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+    from simulgen_vae_tpu_torch.utils import profiling
+    from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
+
+    out = {}
+    mem = profiling.device_memory_mb("cuda")
+    torch_peak = torch.cuda.max_memory_allocated() / 2**20
+    out["memory"] = dict(mem, torch_peak_mb=torch_peak,
+                         ok=mem["peak_bytes_in_use_mb"] == torch_peak)
+
+    card = PCAPreprocessor(CLI_SAMPLES, save_dir="model_save", device="cuda").load()
+    comp = card.pca.components_
+    gram = np.abs(comp.astype(np.float64) @ comp.T.astype(np.float64) - np.eye(len(comp))).max()
+    out["saved"] = dict(shape=list(comp.shape), dtype=str(comp.dtype),
+                        output_shape=list(card.output_shape), orthonormal_max_abs=float(gram),
+                        ok=bool(comp.shape == (CLI_SAMPLES, IMAGE_SIDE ** 2)
+                                and comp.dtype == np.float32
+                                and card.output_shape == (PCA_SIDE, PCA_SIDE) and gram <= 1e-4))
+
+    raw = pixels.astype(np.float64)
+    t0 = time.perf_counter()
+    cpu = PCAPreprocessor(PCA_COMPONENTS, save_dir="model_save", device="cpu").fit(raw, save=False)
+    cpu_s = time.perf_counter() - t0
+    ratio = cpu.pca.explained_variance_ratio_
+    keep = np.sqrt(ratio / ratio[0]) >= 1e-5
+    signs = np.where((comp * cpu.pca.components_).sum(1) < 0, -1.0, 1.0)
+    comp_err = float(np.abs(comp * signs[:, None] - cpu.pca.components_)[keep].max())
+    flat = raw.reshape(len(raw), -1)
+    coef_card = card.pca.transform(flat) * signs
+    coef_cpu = cpu.pca.transform(flat)
+    coef_err = float(np.abs(coef_card - coef_cpu)[:, keep].max() / np.abs(coef_cpu).max())
+    flips = int((signs < 0).sum())
+    out["card_vs_cpu"] = dict(components_max_abs=comp_err, coefficients_max_abs_rel=coef_err,
+                              sign_flips=flips, left_out=int((~keep).sum()), cpu_fit_s=cpu_s,
+                              smallest_kept_sv_rel=float(np.sqrt(ratio[keep][-1] / ratio[0])),
+                              ok=comp_err <= 1e-3 and coef_err <= 1e-3)
+
+    args = cli.build_parser().parse_args(argv)
+    raw_cfg = parse_training_parameters(parse_condition_file(args.condition))
+    _, _, enc, lc_filter = read_preset(args.preset_file)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = tgen.make_pipeline(
+        VAEConfig.from_condition(raw_cfg, enc), LCConfig.from_condition(raw_cfg, lc_filter),
+        load_flax_model("model_save/SimulGen-VAE")["params"], tree["params"],
+        *(MinMaxScaler.load(f"model_save/{n}") for n in
+          ("latent_vectors_scaler.pkl", "xs_scaler.pkl", "scaler.pkl")),
+        device="cuda", dtype=torch.float32)
+    scaler = MinMaxScaler.load("model_save/latent_conditioner_input_scaler.pkl")
+    inputs = np.float32(scaler.transform(card.transform(raw[:B]).reshape(B, -1)))
+    trace_dir = OUT_DIR / "pca_trace"
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        before = set(trace_dir.glob("*.json")) if trace_dir.exists() else set()
+        with profiling.trace(str(trace_dir)):
+            for _ in range(WARM_KERNELS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fields = tgen.generate(pipe, inputs, max_batch=B)
+            torch.cuda.synchronize()
+        (written,) = set(trace_dir.glob("*.json")) - before
+        kernels = _trace_kernels(written)
+        if kernels:
+            break
+        written.unlink()
+    out["trace"] = dict(file=str(written.relative_to(OUT_DIR.parent)), attempts=attempt,
+                        kernel_events=kernels, bytes=written.stat().st_size, ok=kernels > 0)
+    np.savez(served, inputs=inputs, fields=fields.cpu().numpy())
+    return out
+
+
+def phase_pca(args, card, root: Path) -> tuple:
+    """Phase 11: the image_pca input type on phase 9's trained VAE, latents
+    and dataset (its work directory ``root``): the training CLI with
+    --lc_only=1 fits the PCA on the card in its own process (PCA_RUNNER) and
+    trains the MLP on the scaled coefficients; its artifacts, the PCA and the
+    served model are checked. Returns (the CLI process's launch counts, the
+    result dict)."""
+    import shutil
+
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+
+    t_phase = time.perf_counter()
+    text = (root / "condition.txt").read_text()
+    for old, new in (("input_type\tcsv", "input_type\timage_pca"),
+                     ("param_dir\tparams.csv", "param_dir\t/images"),
+                     ("param_data_type\t.csv", "param_data_type\t.png")):
+        if old not in text:
+            raise AssertionError(f"phase 9's condition file lacks {old!r}")
+        text = text.replace(old, new)
+    condition = root / "condition_pca.txt"
+    condition.write_text(text)
+    shutil.rmtree(root / "checkpoints" / "latent_conditioner", ignore_errors=True)
+    models = root / "model_save"
+    written = (models / "LatentConditioner").stat().st_mtime_ns
+    lv_before = np.load(models / "latent_vectors.npy")
+    served = root / "served_pca.npz"
+    common = ["--preset=1", "--plot=2", "--size=small", "--dtype", "bfloat16", "--device", "cuda"]
+    torch.cuda.empty_cache()
+    started = time.time()
+    run, launches, peak, seconds = run_module(
+        "simulgen_vae_tpu_torch",
+        [str(args.seed), str(CLI_SAMPLES), str(served), *common, "--condition", condition.name,
+         "--lc_only=1", "--lc_epochs", str(PCA_LC_EPOCHS)],
+        root, "the training CLI on image_pca", timeout=900, runner=PCA_RUNNER)
+    (OUT_DIR / "chip_smoke_pca.log").write_text(run.stdout + "\n" + run.stderr)
+    lines = run.stdout.splitlines()
+    print(next(ln for ln in lines if ln.startswith("pca: ")))
+    logged = _epoch_lines(run.stderr, PCA_LC_EPOCHS)
+    if len(logged) != PCA_LC_EPOCHS:
+        raise AssertionError(f"{len(logged)} of {PCA_LC_EPOCHS} LC epochs logged")
+    fits = json.loads(next(ln for ln in lines if ln.startswith("pca_fits: "))[10:])
+    checks = json.loads(next(ln for ln in lines if ln.startswith("pca_checks: "))[12:])
+    losses = [e[0] for e in logged]
+    stages = {"start to the first LC epoch logged": logged[0][2] - started,
+              "the other LC epochs": logged[-1][2] - logged[0][2],
+              "LC model file, comparison, checks, exit": time.time() - logged[-1][2]}
+    counts = {k: launches[k] for k in PCA_KERNELS}
+    print(f"pca: [{card}] python -m simulgen_vae_tpu_torch --lc_only=1 --lc_epochs "
+          f"{PCA_LC_EPOCHS} (input_type image_pca): exit 0 in {seconds:.1f} s (its own process), "
+          f"peak device memory {peak / 2**30:.2f} GiB; the PCA fit " + ", ".join(
+              f"{f['seconds']:.3f} s on {f['device']}" for f in fits)
+          + f"; LC epochs {', '.join(f'{e[1]:.3f}' for e in logged)} s; train loss "
+          f"{losses[0]} -> {losses[-1]}; launches {counts}")
+    print(f"pca: [{card}] stages (s, from the log's stamps): "
+          + "; ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+
+    scaler = MinMaxScaler.load(str(models / "latent_conditioner_input_scaler.pkl"))
+    lv = np.load(models / "latent_vectors.npy")
+    ok = (sorted(os.listdir(models)) == sorted((*CLI_MODEL_SAVE, PCA_FILE))
+          and (models / "LatentConditioner").stat().st_mtime_ns > written
+          and scaler.scale_.shape == (PCA_SIDE * PCA_SIDE,) and np.array_equal(lv, lv_before)
+          and np.isfinite(losses).all() and [f["device"] for f in fits] == ["cuda"])
+    print(f"pca: model_save/ holds the eight artifacts and {PCA_FILE}, LatentConditioner "
+          f"rewritten, the input scaler {scaler.scale_.shape[0]} columns, the latents as phase 9 "
+          f"left them, losses finite, one PCA fit on the card -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the image_pca run's artifacts or losses are wrong")
+    missing = [k for k in PCA_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels of the image_pca path never launched: {missing}")
+    s, cc, m, tr = checks["saved"], checks["card_vs_cpu"], checks["memory"], checks["trace"]
+    print(f"pca: {PCA_FILE}: components {s['shape']} {s['dtype']}, output_shape "
+          f"{s['output_shape']}, rows orthonormal within {s['orthonormal_max_abs']:.3g} -> "
+          f"{'ok' if s['ok'] else 'FAIL'} (at most 1e-4)")
+    print(f"pca: [{card}] the card's fit vs the same fit on the CPU ({cc['cpu_fit_s']:.2f} s): "
+          f"components max abs {cc['components_max_abs']:.3g}, coefficients max abs "
+          f"{cc['coefficients_max_abs_rel']:.3g} of the largest, up to sign ({cc['sign_flips']} "
+          f"flipped), {cc['left_out']} null-space component left out (the smallest kept singular "
+          f"value {cc['smallest_kept_sv_rel']:.3g} of the largest) -> "
+          f"{'ok' if cc['ok'] else 'FAIL'} (at most 1e-3)")
+    print(f"pca: [{card}] utils.profiling.device_memory_mb in the CLI's process: peak "
+          f"{m['peak_bytes_in_use_mb']:.2f} MiB, torch.cuda.max_memory_allocated "
+          f"{m['torch_peak_mb']:.2f} MiB, in use {m['bytes_in_use_mb']:.2f}, limit "
+          f"{m['bytes_limit_mb']:.0f} MiB -> {'ok' if m['ok'] else 'FAIL'}; utils.profiling.trace "
+          f"of a decode wrote {tr['file']} ({tr['bytes'] / 1e6:.1f} MB, {tr['kernel_events']} "
+          f"kernel events, attempt {tr['attempts']}) -> {'ok' if tr['ok'] else 'FAIL'}")
+    if not (s["ok"] and cc["ok"] and m["ok"] and tr["ok"]):
+        raise AssertionError("the image_pca run's PCA, memory telemetry or trace check failed")
+
+    # serving the files against the tree the trainer saved, kept in its process
+    saved = np.load(served)
+    served.unlink()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    pipe = tgen.load_pipeline(str(condition), str(root / "preset.txt"), model_dir=str(models),
+                              device="cuda", dtype=torch.float32)
+    got = tgen.generate(pipe, saved["inputs"], max_batch=B)
+    rel = _rel_l2(got, torch.from_numpy(saved["fields"]).to("cuda"))
+    finite = bool(got.isfinite().all()) and tuple(got.shape) == (B, T, READOUT_C)
+    print(f"pca: load_pipeline + generate on {B} rows of the scaled coefficients (f32, TF32 "
+          f"off) vs make_pipeline on the trainer's in-memory tree in its process: rel-L2 "
+          f"{rel:.3g} -> {'ok' if rel <= 1e-6 and finite else 'FAIL'} (at most 1e-6)")
+    if rel > 1e-6 or not finite:
+        raise AssertionError("the served image_pca model disagrees with the trained tree")
+    del got, pipe, saved
+    torch.cuda.empty_cache()
+    result = dict(cli_s=seconds, peak_bytes=peak, fits=fits, epoch_s=[e[1] for e in logged],
+                  loss_first=losses[0], loss_last=losses[-1], stages_s=stages, launches=counts,
+                  checks=checks, served_vs_memory_rel_l2=rel,
+                  seconds=time.perf_counter() - t_phase)
+    print(f"pca: phase 11 took {result['seconds']:.1f} s")
+    return launches, result
+
+
 # -- --ab: two versions of a kernel family on one card -------------------------
 
 # (C, launches per decode) of the serving decode's one-pass GroupNorms (G = 8,
@@ -3361,12 +3723,48 @@ def readout_bwd_times(gg, seed: int, reps: int) -> dict:
     return dict(shapes=rows, readout_matmul_stats_sha256=hashes)
 
 
-# MODE -> (what it times, the kernel sources whose hashes name the tree)
-AB_MODES = {"onepass": (onepass_times, ("gn_act_onepass",)),
-            "gn-bwd": (gn_bwd_times, ("gn_bwd_onepass", "gn_bwd_stats")),
-            "gn-stats": (gn_stats_times, ("gn_stats", "gn_bwd_stats")),
-            "gn-stats-clusters": (gn_stats_cluster_times, ("gn_stats",)),
-            "readout-bwd": (readout_bwd_times, ("readout_bwd_fused", "readout_matmul_stats"))}
+def stream_times(gg, seed: int, reps: int) -> dict:
+    """The streamed epoch on the tree's own route, at phase 5's configuration
+    (bf16): 64 f32 host rows of 200 x 95008 made on the card from ``seed``,
+    one warm-up step, then ``reps`` // 5 + 1 epochs of 4 steps, each step from
+    its call to the next (the last to a synchronise). Partners from the
+    dataset, as the CLI streams."""
+    from simulgen_vae_tpu_torch.ops import _build
+    from simulgen_vae_tpu_torch.train import vae_trainer as vt
+
+    _build.build()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    host = (0.3 * torch.randn((TRAIN_SAMPLES, T, READOUT_C), generator=gen,
+                              device="cuda")).cpu().numpy()
+    trainer = vt.VAETrainer(train_config(), device="cuda", seed=seed)
+    state = trainer.init_state(seed)
+    marks, real = [], trainer.train_step
+    trainer.train_step = lambda *a: marks.append(time.perf_counter()) or real(*a)
+    state, _ = trainer.train_epoch_streaming(state, host, max_steps=1)
+    torch.cuda.synchronize()
+    steps, losses = [], []
+    for _ in range(reps // 5 + 1):
+        marks.clear()
+        state, m = trainer.train_epoch_streaming(state, host)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        steps += (np.diff(marks) * 1e3).tolist()
+        losses.append(float(m["loss"]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"streamed epochs: losses {losses}")
+    (key,) = trainer._pinned
+    return dict(step_p50_ms=float(np.percentile(steps, 50)), step_ms=steps, losses=losses,
+                staging_dtype=str(key[1]))
+
+
+# MODE -> (what it times, the package's files whose hashes name the tree)
+AB_MODES = {"onepass": (onepass_times, ("ops/csrc/gn_act_onepass.cu",)),
+            "gn-bwd": (gn_bwd_times, ("ops/csrc/gn_bwd_onepass.cu", "ops/csrc/gn_bwd_stats.cu")),
+            "gn-stats": (gn_stats_times, ("ops/csrc/gn_stats.cu", "ops/csrc/gn_bwd_stats.cu")),
+            "gn-stats-clusters": (gn_stats_cluster_times, ("ops/csrc/gn_stats.cu",)),
+            "readout-bwd": (readout_bwd_times, ("ops/csrc/readout_bwd_fused.cu",
+                                                "ops/csrc/readout_matmul_stats.cu")),
+            "stream": (stream_times, ("train/vae_trainer.py",))}
 
 
 def ab(mode: str, trees, seed: int, reps: int) -> int:
@@ -3393,13 +3791,13 @@ def ab_tree(mode: str, tree: str, seed: int, reps: int) -> int:
     sys.path.insert(0, tree)
     from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
 
-    csrc = Path(tree) / "simulgen_vae_tpu_torch/ops/csrc"
-    if Path(gg.__file__).resolve() != (csrc.parent / "groupnorm_gelu.py").resolve():
+    pkg = Path(tree) / "simulgen_vae_tpu_torch"
+    if Path(gg.__file__).resolve() != (pkg / "ops/groupnorm_gelu.py").resolve():
         raise AssertionError(f"imported {gg.__file__}, not the package in {tree}")
     times, sources = AB_MODES[mode]
     print(json.dumps(dict(
         mode=mode, tree=tree,
-        source_sha256={k: hashlib.sha256((csrc / f"{k}.cu").read_bytes()).hexdigest()[:12]
+        source_sha256={k: hashlib.sha256((pkg / k).read_bytes()).hexdigest()[:12]
                        for k in sources},
         **times(gg, seed, reps))))
     return 0
@@ -3641,14 +4039,17 @@ def main(argv=None) -> int:
 
     # 9. the training CLI at the flagship geometry; 10. the image conditioners
     # on its trained VAE, in its work directory
+    # 11. the image_pca input type, in the same work directory
     work, base, free = _work_dir()
     with work as tmp:
         cli_launches, cli_train = phase_cli_train(args, card, Path(tmp), base, free)
         e2e_launches, vit_launches, images = phase_images(args, card, Path(tmp))
+        pca_launches, pca = phase_pca(args, card, Path(tmp))
     for k in kernels:
         for key, counts in (("launches_cli_train", cli_launches),
                             ("launches_images_e2e", e2e_launches),
-                            ("launches_images_vit", vit_launches)):
+                            ("launches_images_vit", vit_launches),
+                            ("launches_pca", pca_launches)):
             if k["name"] in counts:
                 k[key] = counts[k["name"]]
     result = dict(card=card, kind=kind, seed=args.seed, decode_p50_ms=decode_p50,
@@ -3658,7 +4059,7 @@ def main(argv=None) -> int:
                   readout_sass=sass, onepass_launch=onepass, gn_stats_launch=stats_launch,
                   repairs=repairs,
                   fused_train=fused, stack_train=stack, artifacts=artifacts,
-                  cli_train=cli_train, images=images,
+                  cli_train=cli_train, images=images, pca=pca,
                   profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))

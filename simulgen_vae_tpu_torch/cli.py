@@ -24,13 +24,18 @@ dataset plots, asked for explicitly) raises before training starts.
 The conditioner follows the condition file's ``input_type``: the MLP on
 the CSV (``csv``), the CNN (``image``, spectral norm on its ``sn_*``
 layers) or the ViT (``image_vit``) on the images of ``param_dir`` (OpenCV's
-reader, imported where it reads; pixels / 255). Images train through
+reader, imported where it reads; pixels / 255), or the MLP on the PCA
+coefficients of those images (``image_pca``: a 256-component PCA fitted on
+the raw pixels on the run's device and saved as ``model_save/
+pca_full_comp{k}.pkl``, k the components kept; the coefficients go through a
+fresh ``latent_conditioner_input_scaler.pkl``). Images train through
 ``LCTrainer`` with augmentation, or with ``use_e2e_training`` through
-``E2ETrainer`` and the frozen decoder. The ``LatentConditioner`` file holds
-``{"params", "batch_stats"}`` with the raw kernels, as JAX's CLI saves it.
+``E2ETrainer`` and the frozen decoder; ``image_pca`` trains through
+``LCTrainer`` as the CSV does, with or without ``use_e2e_training``, as in
+JAX's CLI. The ``LatentConditioner`` file holds ``{"params",
+"batch_stats"}`` with the raw kernels, as JAX's CLI saves it.
 
-Not ported, and refused with the ROADMAP item that brings them: the PCA
-input type (``image_pca``, Queue 1 item 5) and a device mesh
+Not ported, and refused with the ROADMAP item that brings it: a device mesh
 (``--mesh_data`` / ``--mesh_model`` other than one device; Queue 1 item 7).
 ``--lc_only=1`` reads the port's VAE checkpoint (``checkpoints/vae/
 ckpt_*.pt``), not the JAX package's orbax one.
@@ -169,14 +174,11 @@ def _refuse_unported(args, lc_cfg: LCConfig) -> None:
         raise NotImplementedError(
             "a device mesh (--mesh_data / --mesh_model) is not ported yet (ROADMAP "
             "Queue 1 item 7); the port trains on one device")
-    if lc_cfg.input_type == "image_pca":
-        raise NotImplementedError(
-            "the 'image_pca' input type (data/pca.py) is not ported yet (ROADMAP Queue 1 "
-            "item 5); the port trains input_type csv, image and image_vit")
-    if lc_cfg.input_type not in ("csv", *convert.IMAGE_INPUT_TYPES):
+    if lc_cfg.input_type not in ("csv", "image_pca", *convert.IMAGE_INPUT_TYPES):
         raise NotImplementedError(
             f"Unrecognized latent_conditioner_data_type: {lc_cfg.input_type}. "
-            'Supported options: "image" (CNN), "image_vit" (ViT), "csv" (MLP)')
+            'Supported options: "image" (CNN), "image_vit" (ViT), '
+            '"image_pca" (PCA->MLP), "csv" (MLP)')
 
 
 def main(argv=None) -> int:
@@ -312,16 +314,22 @@ def _maybe_resume_lc(args, trainer, lc_ckpt: CheckpointManager, total_epochs: in
     return state, remaining
 
 
-def read_conditioner_inputs(lc_cfg: LCConfig) -> np.ndarray:
-    """The conditioner's inputs: pixels / 255 of the images of ``param_dir``,
-    or the CSV scaled by a fresh ``latent_conditioner_input_scaler.pkl``."""
+def read_conditioner_inputs(lc_cfg: LCConfig, device) -> np.ndarray:
+    """The conditioner's inputs: pixels / 255 of the images of ``param_dir``;
+    or, scaled by a fresh ``latent_conditioner_input_scaler.pkl``, the CSV
+    or the PCA coefficients of those images (the PCA fitted on ``device``)."""
     if lc_cfg.input_type in convert.IMAGE_INPUT_TYPES:
         print("Loading image data...")
         physical_input, _ = images.read_latent_conditioner_dataset_img(
             lc_cfg.param_dir, lc_cfg.param_data_type)
         return physical_input / 255.0
-    print("Loading csv data for MLP...")
-    physical_input = images.read_latent_conditioner_dataset(lc_cfg.param_dir)
+    if lc_cfg.input_type == "image_pca":
+        print("Loading image data with PCA preprocessing for MLP...")
+        physical_input, _ = images.read_latent_conditioner_dataset_img_pca(
+            lc_cfg.param_dir, lc_cfg.param_data_type, device=device)
+    else:
+        print("Loading csv data for MLP...")
+        physical_input = images.read_latent_conditioner_dataset(lc_cfg.param_dir)
     physical_input, _ = latent_conditioner_scaler(
         physical_input, "./model_save/latent_conditioner_input_scaler.pkl")
     return physical_input
@@ -340,7 +348,7 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
 
     data_type = lc_cfg.input_type
     is_image = data_type in convert.IMAGE_INPUT_TYPES
-    physical_input = read_conditioner_inputs(lc_cfg)
+    physical_input = read_conditioner_inputs(lc_cfg, device)
     out_latent, lv_scaler = latent_conditioner_scaler(
         out_latent, "./model_save/latent_vectors_scaler.pkl")
     out_hier_flat, xs_scaler = latent_conditioner_scaler(

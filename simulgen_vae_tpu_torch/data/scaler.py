@@ -11,7 +11,8 @@ an unpickler that resolves only the globals such a pickle names (the sklearn
 class, mapped to a plain stub, and numpy's array and dtype reconstructors)
 and the one its own :meth:`MinMaxScaler.save` writes
 (``types.SimpleNamespace``); any other global is refused, so a pickle cannot
-run code. ``save`` writes the five attributes the JAX package's
+run code. ``data/pca.py`` reads its PCA pickles through the same unpickler
+(:func:`restricted_load`). ``save`` writes the five attributes the JAX package's
 ``MinMaxScaler.from_sklearn`` reads, so the JAX package loads it too.
 
 Fitting follows the JAX package bit for bit: :meth:`MinMaxScaler.fit` takes
@@ -58,7 +59,14 @@ class _Unpickler(pickle.Unpickler):
             return _ALLOWED[(module, name)]
         except KeyError:
             raise pickle.UnpicklingError(
-                f"a scaler pickle may not name {module}.{name}") from None
+                f"a scaler or PCA pickle may not name {module}.{name}") from None
+
+
+def restricted_load(f):
+    """Unpickle from the open binary file ``f``, resolving only the globals
+    of ``_ALLOWED``: a scaler pickle's, or a PCA pickle's (``data/pca.py``:
+    a dict of numpy arrays and plain Python values)."""
+    return _Unpickler(f).load()
 
 
 class MinMaxScaler:
@@ -106,7 +114,7 @@ class MinMaxScaler:
         """Read a scaler pickle written by sklearn (the JAX package) or by
         :meth:`save`; the statistics come back as they were stored (f64)."""
         with open(path, "rb") as f:
-            obj = _Unpickler(f).load()
+            obj = restricted_load(f)
         return cls(np.asarray(obj.scale_), np.asarray(obj.min_),
                    tuple(obj.feature_range), np.asarray(obj.data_min_),
                    np.asarray(obj.data_max_))

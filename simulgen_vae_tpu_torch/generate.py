@@ -1,8 +1,9 @@
 """Serving: design parameters -> simulation fields (``simulgen_vae_tpu/generate.py``).
 
 The pipeline runs the latent conditioner of the condition file's
-``input_type`` (the MLP on CSV rows, the CNN on ``image``, the ViT on
-``image_vit``), inverse-scales its latents, decodes
+``input_type`` (the MLP on CSV rows or, for ``image_pca``, on scaled PCA
+coefficients; the CNN on ``image``, the ViT on ``image_vit``),
+inverse-scales its latents, decodes
 deterministically (``mode='fix'``) and, optionally, inverse-scales the field
 to physical units, all on one device. :func:`load_pipeline` builds it from a
 trained ``model_save/`` directory as the JAX package writes it (flax msgpack
@@ -18,6 +19,12 @@ before spectral norm, and nothing divides them by sigma here (ROADMAP Queue
 
 CLI:  python -m simulgen_vae_tpu_torch.generate --inputs params.csv --out gen.npy
       python -m simulgen_vae_tpu_torch.generate --inputs new_images --out gen.npy
+
+The CLI serves ``image_pca`` only from a CSV of PCA coefficients
+(``--input_type csv``), as JAX's does: JAX's CLI reads an ``image_pca``
+image directory as thresholded pixels, which the MLP cannot take, and the
+port refuses it before reading any model or input file (ROADMAP Queue 3
+item 6).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); asking for CUDA where there is none raises.
@@ -331,6 +338,14 @@ def main(argv=None) -> int:
                     help="device to serve on (default cuda; 'cpu' for the plain versions)")
     args = ap.parse_args(argv)
     quantize = None if args.quantize == "none" else args.quantize
+    kind = parse_training_parameters(
+        parse_condition_file(args.condition))["latent_conditioner_data_type"]
+    if kind == "image_pca" and args.input_type != "csv":
+        raise NotImplementedError(
+            "serving input_type image_pca from images is not supported: the PCA is "
+            "fitted at training time and JAX's generate CLI feeds thresholded pixels to "
+            "an MLP that takes PCA coefficients (ROADMAP Queue 3 item 6); pass "
+            "--input_type csv with a CSV of the PCA coefficients")
 
     pipe = load_pipeline(args.condition, args.preset_file, args.size, args.model_dir,
                          device=args.device)

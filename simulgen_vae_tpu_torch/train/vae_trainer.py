@@ -88,6 +88,16 @@ class VAETrainState:
     rng: Optional[dict] = None  # the trainer's generator states at the last save
 
 
+def gather_rows(host: torch.Tensor, indices: np.ndarray, out: torch.Tensor) -> torch.Tensor:
+    """``out[j] = host[indices[j]]`` cast to ``out``'s dtype, row by row into
+    the caller's host buffer: each row is read once and written once, on
+    torch's threads, with no batch of the source dtype in between (bf16 rounds
+    to nearest even, as ``Tensor.to``). Returns ``out``."""
+    for j, i in enumerate(np.asarray(indices).tolist()):
+        out[j].copy_(host[i])
+    return out
+
+
 class VAETrainer:
     def __init__(self, cfg: VAEConfig, aug: AugmentationConfig = AugmentationConfig(),
                  device=None, seed: int = 0, fused_readout: Optional[bool] = None,
@@ -295,8 +305,8 @@ class VAETrainer:
     # -- streaming -----------------------------------------------------------
 
     def _staging(self, shape, dtype, slots: int) -> list:
-        """Reusable host buffers for streamed batches: pinned when the trainer
-        is on a card."""
+        """Reusable host buffers for streamed batches, of the trainer's
+        compute dtype: pinned when the trainer is on a card."""
         key = (tuple(shape), dtype, slots)
         if key not in self._pinned:
             self._pinned = {key: [torch.empty(shape, dtype=dtype,
@@ -315,11 +325,13 @@ class VAETrainer:
         copied to the card on a side stream, so the gather and copy of batch
         i + 1 overlap step i; the host waits for step i - 1 before it stages
         batch i + 1, so at most one batch is in flight beyond the current one.
-        ``partner_mode``: ``"dataset"`` draws the mixup partners from the whole
-        host dataset (a second batch copied per step), ``"batch"`` takes the
-        current batch rolled by one sample. ``max_steps`` truncates the epoch.
-        The host gather stands in for the JAX package's native loader. Returns
-        ``(state, metrics)`` as :meth:`train_epoch`."""
+        The buffers are of the trainer's compute dtype and :func:`gather_rows`
+        casts each row into them as it copies it, so a bf16 trainer sends half
+        the bytes across to the card (as the JAX method does). ``partner_mode``: ``"dataset"`` draws the
+        mixup partners from the whole host dataset (a second batch copied per
+        step), ``"batch"`` takes the current batch rolled by one sample.
+        ``max_steps`` truncates the epoch. Returns ``(state, metrics)`` as
+        :meth:`train_epoch`."""
         if partner_mode not in ("dataset", "batch"):
             raise ValueError(f"partner_mode must be 'dataset' or 'batch', got {partner_mode!r}")
         host = torch.from_numpy(data) if isinstance(data, np.ndarray) else data
@@ -332,15 +344,15 @@ class VAETrainer:
         steps = num_batches if max_steps is None else min(max_steps, num_batches)
         on_card = self.device.type == "cuda"
         per_step = 2 if partner_mode == "dataset" else 1
-        staging = self._staging((bsz, *host.shape[1:]), host.dtype, 2 * per_step)
+        staging = self._staging((bsz, *host.shape[1:]), self.dtype, 2 * per_step)
         side = torch.cuda.Stream(self.device) if on_card else None
 
         def to_device(idx: np.ndarray, buf: torch.Tensor) -> torch.Tensor:
-            torch.index_select(host, 0, torch.from_numpy(idx.astype(np.int64)), out=buf)
+            gather_rows(host, idx, buf)
             if not on_card:
-                return buf.to(self.dtype, copy=True)
+                return buf.clone()
             with torch.cuda.stream(side):
-                return buf.to(self.device, non_blocking=True).to(self.dtype)
+                return buf.to(self.device, non_blocking=True)
 
         def fetch(i: int):
             """Stage batch i (and its partners): host gather, then the copy."""

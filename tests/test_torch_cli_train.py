@@ -12,8 +12,8 @@ columns, 6 + 6 epochs), with ``--device cpu``:
 * with matplotlib blocked through ``sys.modules`` each PNG set is skipped
   with one line, and ``--plot 1`` refuses before training;
 * a requested preemption exits 75 and ``--auto_resume`` finishes the run;
-* no CUDA fallback, and the options not ported (``image_pca``, a mesh)
-  refuse.
+* no CUDA fallback, and the option not ported (a mesh) refuses
+  (``image_pca`` trains: ``tests/test_torch_cli_pca.py``).
 """
 
 import inspect
@@ -190,13 +190,11 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("changes, args, match", [
-    # image inputs train (tests/test_torch_cli_images.py), but not on a mesh
+    # image and image_pca inputs train (tests/test_torch_cli_images.py,
+    # test_torch_cli_pca.py), but not on a mesh
     ((("input_type\tcsv", "input_type\timage"),), ("--mesh_data", "2"), "Queue 1 item 7"),
-    ((("input_type\tcsv", "input_type\timage_pca"),), (), "Queue 1 item 5"),
-    ((("use_e2e_training\t0", "use_e2e_training\t1"),
-      ("input_type\tcsv", "input_type\timage_pca")), (), "Queue 1 item 5"),
     ((), ("--mesh_data", "2"), "Queue 1 item 7"),
-], ids=["image", "image_pca", "e2e", "mesh"])
+], ids=["image", "mesh"])
 def test_unported_options_refuse(tmp_path, changes, args, match):
     condition = CONDITION
     for change in changes:

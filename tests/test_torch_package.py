@@ -1,5 +1,5 @@
 """The port stands alone: no JAX, flax or JAX-package import, nor msgpack,
-sklearn or pandas, which the card's machine lacks, and matplotlib, PIL,
+sklearn, pandas or ml_dtypes, which the card's machine lacks, and matplotlib, PIL,
 tensorboardX and OpenCV (also absent there) only inside the functions that use
 them; and its entry points refuse to fall back to the CPU when CUDA was asked
 for and is absent."""
@@ -16,7 +16,7 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "simulgen_vae_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "simulgen_vae_tpu", "scripts",
-             "msgpack", "sklearn", "pandas")
+             "msgpack", "sklearn", "pandas", "ml_dtypes")
 LAZY = ("matplotlib", "PIL", "tensorboardX", "cv2")
 
 
