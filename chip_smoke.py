@@ -210,6 +210,32 @@ Phases, each printing its own lines; any failure exits non-zero:
              coefficients (f32, TF32 off) within rel-L2 1e-6 of make_pipeline
              on the tree the trainer saved. Printed: the process's wall time,
              the PCA fit's seconds, peak memory.
+12. mesh   : the multi-device layer, the main process's tensors freed first.
+             (a) Two ranks on the one card (tests/torch_ranks.py; gloo
+             with CUDA tensors, since NCCL takes one rank a card), meshes 1 x 2
+             (the node axis split: 47504 nodes and 4 readout groups a rank)
+             and 2 x 1, at the flagship geometry (mesh_rank): one step from
+             one seeded state and batch, no augmentation, f32 with TF32 off,
+             against the same step in one process (rank 0 before the mesh
+             starts): loss within 1e-4 relative, every gradient, gathered,
+             within rel-L2 1e-3; a bf16 fit of 2 epochs of 4 steps (64
+             samples made on the card from --seed) with a CheckpointManager,
+             the launch counts from 0: finite losses, equal on both ranks,
+             #1-#7 and fused_adamw launched on every rank; the checkpoint
+             restored in one process (rank 0) equal to the gathered state bit
+             for bit; make_generate_fn(mesh=...) on 16 of phase 3's requests,
+             f32 (TF32 off) within max-abs 1e-4 of one process, int8 within
+             rel-L2 1e-3 of one process's int8 decoding the same calls (each
+             rank's rows; the card's convolutions pick their algorithm by
+             batch, and int8's rounding magnifies that: one process's int8 in
+             calls of 8 against one call of 16 is printed). Printed, labelled as a
+             one-card rehearsal: each rank's peak memory, step p50 and host
+             time a step in collectives. (b) ``python -m
+             torch.distributed.run --standalone --nproc_per_node 1 -m
+             simulgen_vae_tpu_torch --mesh_data 1 --mesh_model 1 --epochs 1
+             --lc_epochs 2`` (one NCCL rank) in phase 9's work directory:
+             exit 0, ``Mesh: {'data': 1, 'model': 1}`` printed and the eight
+             model_save/ files.
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
@@ -3451,6 +3477,310 @@ def phase_pca(args, card, root: Path) -> tuple:
     return launches, result
 
 
+# -- phase 12: the mesh ----------------------------------------------------------
+
+MESH_SHAPES = ((1, 2), (2, 1))       # (data, model): two ranks rehearse on the one card
+MESH_EPOCHS = 2                      # of four steps (64 samples, 80/20 split, batch 16)
+MESH_REQUESTS = 16
+MESH_DISK_BYTES = 6e9                # one flagship checkpoint: parameters and moments in f32
+MESH_LC_EPOCHS = 2
+
+
+def serving_setup(seed: int):
+    """Phase 3's flagship serving geometry with random trees, scalers and 40
+    requests from ``seed``."""
+    from simulgen_vae_tpu_torch import convert
+    from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
+    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+
+    cfg = VAEConfig(num_time=T, num_node=95008, latent_dim_end=32, latent_dim=8,
+                    num_filter_enc=[1024, 512, 256, 128], small=True)
+    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024], input_type="csv")
+    n_in = 484
+    rng = np.random.default_rng(seed)
+    vae_params = {"decoder": convert.random_decoder_tree(cfg, rng)}
+    lc_params = convert.random_conditioner_tree(lc_cfg, cfg, n_in, rng)
+    scalers = {name: MinMaxScaler(rng.uniform(0.5, 2.0, n).astype(np.float32),
+                                  rng.uniform(-0.3, 0.3, n).astype(np.float32))
+               for name, n in (("lv_scaler", cfg.latent_dim_end),
+                               ("xs_scaler", cfg.num_hier * cfg.latent_dim),
+                               ("data_scaler", cfg.num_node))}
+    inputs = rng.standard_normal((40, n_in)).astype(np.float32)
+    return types.SimpleNamespace(cfg=cfg, lc_cfg=lc_cfg, vae_params=vae_params,
+                                 lc_params=lc_params, scalers=scalers, inputs=inputs)
+
+
+def _train_counts() -> dict:
+    from simulgen_vae_tpu_torch.ops import fused_adamw, gather_augment, groupnorm_gelu
+
+    counts = {**groupnorm_gelu.LAUNCHES, **gather_augment.LAUNCHES, **fused_adamw.LAUNCHES}
+    return {k: counts[k] for k in CLI_TRAIN_KERNELS}
+
+
+def _reset_train_counts() -> None:
+    from simulgen_vae_tpu_torch.ops import fused_adamw, gather_augment, groupnorm_gelu
+
+    for module in (fused_adamw, gather_augment, groupnorm_gelu):
+        module.reset_launch_counts()
+
+
+def run_group(cmd: list, cwd: Path, env: dict, timeout: int) -> subprocess.CompletedProcess:
+    """``subprocess.run`` of a launcher in a session of its own: on the time
+    limit its whole process group (the launcher's workers too) is killed."""
+    import signal
+
+    with subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.PIPE, text=True, start_new_session=True) as proc:
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def mesh_rank(rank: int, world: int, init: str, data_ax: int, model_ax: int, seed: int,
+              work: str) -> None:
+    """One rank of phase 12, in its own process (``tests/torch_ranks.py``):
+    gloo with CUDA tensors, every rank on the one card. Returns its results."""
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.data.augmentation import AugmentationConfig
+    from simulgen_vae_tpu_torch.parallel import (
+        collectives,
+        initialize_distributed,
+        make_mesh,
+        sharding,
+        sync_processes,
+    )
+    from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
+    from simulgen_vae_tpu_torch.utils.checkpoint import CheckpointManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = initialize_distributed("cuda:0", backend="gloo", init_method=init,
+                                    world_size=world, rank=rank)
+    mesh = make_mesh(data_ax, model_ax)
+    out = {"rank": rank, "coords": mesh.coords}
+
+    # one step, f32 with TF32 off, no augmentation: one process (rank 0), then the mesh
+    cfg32 = dataclasses.replace(train_config(), dtype="float32")
+    batch = 0.3 * torch.randn((B, T, READOUT_C), device=device,
+                              generator=torch.Generator(device).manual_seed(seed + 2))
+    no_aug = AugmentationConfig(enabled=False)
+    if rank == 0:
+        single = VAETrainer(cfg32, aug=no_aug, device=device, seed=seed)
+        state = single.init_state(seed)
+        m, _, grads = single.loss_and_grads(state, batch, 0.5,
+                                            generator=torch.Generator(device).manual_seed(7))
+        ref_loss, ref_grads = float(m["loss"]), {k: g.cpu() for k, g in grads.items()}
+        del single, state, m, grads
+        torch.cuda.empty_cache()
+    sync_processes("reference step")
+    trainer = VAETrainer(cfg32, aug=no_aug, device=device, seed=seed)
+    trainer.set_mesh(mesh)
+    state = trainer.init_state(seed)
+    block, rows = trainer.local_batch(batch)
+    m, _, grads = trainer.loss_and_grads(state, block.contiguous(), 0.5,
+                                         generator=torch.Generator(device).manual_seed(7),
+                                         noise_rows=rows)
+    grads = sharding.gather_tree(grads, state.layout.params, state.layout)
+    if rank == 0:
+        rels = {k: _grad_rel(g, ref_grads[k].to(device)) for k, g in grads.items()}
+        worst = max(rels, key=rels.get)
+        out["step"] = dict(loss=float(m["loss"]), loss_one_process=ref_loss,
+                           loss_rel=abs(float(m["loss"]) - ref_loss) / abs(ref_loss),
+                           worst_grad_rel_l2=rels[worst], worst_grad=worst)
+        del ref_grads
+    del trainer, state, m, grads, block, batch
+    torch.cuda.empty_cache()
+
+    # bf16 fit with a checkpoint, the launch counts from 0
+    cfg = train_config()
+    data = (0.3 * torch.randn((TRAIN_SAMPLES, T, READOUT_C), device=device,
+                              generator=torch.Generator(device).manual_seed(seed + 1))
+            ).to(torch.bfloat16)
+    trainer = VAETrainer(cfg, device=device, seed=seed)
+    ckpt_dir = Path(work) / f"mesh_ckpt_{data_ax}x{model_ax}"
+    mgr = CheckpointManager(str(ckpt_dir), save_interval_epochs=MESH_EPOCHS)
+    step_ms, coll_ms, real_apply = [], [], trainer._apply
+
+    def timed_apply(*a, **k):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), collectives.STATS["seconds"]
+        metrics = real_apply(*a, **k)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        coll_ms.append((collectives.STATS["seconds"] - c0) * 1e3)
+        return metrics
+
+    trainer._apply = timed_apply
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    state, hist = trainer.fit(data, seed=seed, epochs=MESH_EPOCHS, val_every=1,
+                              ckpt_manager=mgr, mesh=mesh)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out["fit"] = dict(seconds=seconds, launches=_train_counts(), loss=hist["loss"].tolist(),
+                      val_loss=hist["val_loss"].tolist(), grad_norm=hist["grad_norm"].tolist(),
+                      steps=len(step_ms), step_p50_ms=float(np.median(step_ms)),
+                      collective_ms_per_step=float(np.mean(coll_ms)),
+                      peak_bytes=torch.cuda.max_memory_allocated(device))
+    del data
+
+    # the checkpoint, restored in one process (rank 0), against the gathered state
+    whole = trainer.gather_state(state)
+    if rank == 0:
+        one = VAETrainer(cfg, device=device, seed=seed)
+        restored = CheckpointManager(str(ckpt_dir)).restore(one.init_state(seed + 1))
+        out["checkpoint"] = dict(epoch=mgr.latest_step(), bits_equal=_states_equal(restored, whole),
+                                 bytes=os.path.getsize(mgr._path(mgr.latest_step())))
+        del one, restored
+    del whole, state, trainer
+    torch.cuda.empty_cache()
+    sync_processes("checkpoint read")
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(ckpt_dir)
+
+    # serving: the flagship decode on the mesh against one process, f32 and int8
+    setup = serving_setup(seed)
+    pipe = tgen.make_pipeline(setup.cfg, setup.lc_cfg, setup.vae_params, setup.lc_params,
+                              device=device, dtype=torch.float32, **setup.scalers)
+    inputs = setup.inputs[:MESH_REQUESTS]
+    per_call = MESH_REQUESTS // data_ax       # each rank decodes its rows in one call
+    out["serve"] = {}
+    for mode in (None, "int8"):
+        fn = tgen.make_generate_fn(pipe, max_batch=MESH_REQUESTS, quantize=mode, mesh=mesh)
+        got = fn(inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(inputs)
+        torch.cuda.synchronize()
+        row = dict(ms=(time.perf_counter() - t0) * 1e3, shape=list(got.shape),
+                   finite=bool(got.isfinite().all()))
+        if rank == 0:
+            # one process in one call of 16, and in calls of the ranks' rows
+            whole = tgen.make_generate_fn(pipe, max_batch=MESH_REQUESTS, quantize=mode)(inputs)
+            rows = tgen.make_generate_fn(pipe, max_batch=per_call, quantize=mode)(inputs)
+            row.update(max_abs=_err(got, whole), rel_l2=_rel_l2(got, whole),
+                       rows_max_abs=_err(got, rows), rows_rel_l2=_rel_l2(got, rows),
+                       one_process_calls_rel_l2=_rel_l2(rows, whole))
+            del whole, rows
+        out["serve"][mode or "float32"] = row
+        del got, fn
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def _mesh_gate(tag: str, ranks: list) -> None:
+    first = ranks[0]
+    step, ckpt, serve = first["step"], first["checkpoint"], first["serve"]
+    losses = [r["fit"]["loss"] for r in ranks]
+    problems = []
+    if step["loss_rel"] > 1e-4 or step["worst_grad_rel_l2"] > 1e-3:
+        problems.append(f"step against one process: {step}")
+    if not all(np.isfinite(r["fit"]["loss"]).all() for r in ranks) \
+            or any(x != losses[0] for x in losses):
+        problems.append(f"fit losses not finite or not equal on every rank: {losses}")
+    for r in ranks:
+        missing = [k for k, n in r["fit"]["launches"].items() if n <= 0]
+        if missing:
+            problems.append(f"rank {r['rank']} never launched {missing}")
+    if not ckpt["bits_equal"]:
+        problems.append("the checkpoint restored in one process differs from the gathered state")
+    if serve["float32"]["max_abs"] > 1e-4 or serve["int8"]["rows_rel_l2"] > 1e-3 \
+            or not all(r["serve"][k]["finite"] for r in ranks for k in r["serve"]):
+        problems.append(f"serving on the mesh against one process: {serve}")
+    if problems:
+        raise AssertionError(f"mesh {tag}: " + "; ".join(problems))
+
+
+def phase_mesh(args, card, root: Path) -> tuple:
+    """Phase 12: two ranks on the one card (gloo, CUDA tensors) in meshes
+    1 x 2 and 2 x 1 at the flagship geometry (mesh_rank), then the training
+    CLI under torchrun with one NCCL rank in phase 9's work directory.
+    Returns (per mesh, each rank's launch counts; the result dict)."""
+    import gc
+    import shutil
+
+    here = Path(__file__).resolve().parent
+    sys.path.insert(0, str(here / "tests"))   # by file: a `tests` package may be installed
+    from torch_ranks import spawn_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {"PYTHONPATH": str(here) + (os.pathsep + os.environ["PYTHONPATH"]
+                                      if os.environ.get("PYTHONPATH") else "")}
+    room = shutil.disk_usage(root).free
+    if room < MESH_DISK_BYTES:
+        raise AssertionError(f"phase 12 needs {MESH_DISK_BYTES / 1e9:.0f} GB of disk for a "
+                             f"checkpoint; {root} has {room / 1e9:.1f} GB free")
+    result, launches = {}, {}
+    for d, m in MESH_SHAPES:
+        tag = f"{d}x{m}"
+        t0 = time.perf_counter()
+        logs = OUT_DIR / f"chip_smoke_mesh_{tag}"
+        logs.mkdir(parents=True, exist_ok=True)
+        ranks = spawn_ranks(mesh_rank, d * m, timeout=900, log_dir=str(logs), data_ax=d,
+                            model_ax=m, seed=args.seed, work=str(root))
+        seconds = time.perf_counter() - t0
+        step, ckpt, serve = ranks[0]["step"], ranks[0]["checkpoint"], ranks[0]["serve"]
+        print(f"mesh {tag}: one step (f32, TF32 off) against one process: loss "
+              f"{step['loss']:.7g} vs {step['loss_one_process']:.7g} (rel {step['loss_rel']:.3g}), "
+              f"worst gradient rel-L2 {step['worst_grad_rel_l2']:.3g} ({step['worst_grad']})")
+        for r in ranks:
+            f = r["fit"]
+            print(f"mesh {tag}: [{card}] one-card rehearsal, not a multi-card speed: rank "
+                  f"{r['rank']} {r['coords']}: bf16 fit {len(f['loss'])} epochs, {f['steps']} "
+                  f"steps in {f['seconds']:.1f} s, losses {f['loss']}, step p50 "
+                  f"{f['step_p50_ms']:.1f} ms, {f['collective_ms_per_step']:.1f} ms a step in "
+                  f"collectives (host time), peak {f['peak_bytes'] / 2**30:.2f} GiB in the fit, "
+                  f"{r['peak_bytes'] / 2**30:.2f} GiB in all; launches {f['launches']}")
+        print(f"mesh {tag}: checkpoint of epoch {ckpt['epoch']} ({ckpt['bytes'] / 1e9:.2f} GB) "
+              f"restored in one process equals the gathered state bit for bit: "
+              f"{ckpt['bits_equal']}; serving {MESH_REQUESTS} requests against one process "
+              f"in one call: f32 max-abs {serve['float32']['max_abs']:.3g}, int8 rel-L2 "
+              f"{serve['int8']['rel_l2']:.3g}; against one process in calls of "
+              f"{MESH_REQUESTS // d} (each rank's rows): f32 max-abs "
+              f"{serve['float32']['rows_max_abs']:.3g}, int8 rel-L2 "
+              f"{serve['int8']['rows_rel_l2']:.3g}; one process, calls of {MESH_REQUESTS // d} "
+              f"against one call: f32 rel-L2 {serve['float32']['one_process_calls_rel_l2']:.3g}, "
+              f"int8 {serve['int8']['one_process_calls_rel_l2']:.3g}; decode "
+              f"{serve['float32']['ms']:.1f} ms f32, {serve['int8']['ms']:.1f} ms int8 "
+              f"(rehearsal); {seconds:.1f} s for the mesh")
+        _mesh_gate(tag, ranks)
+        launches[tag] = [r["fit"]["launches"] for r in ranks]
+        result[tag] = dict(seconds=seconds, ranks=ranks)
+
+    # one NCCL rank under torchrun: the training CLI in phase 9's work directory
+    common = ["--preset=1", "--plot=2", "--size=small", "--dtype", "bfloat16",
+              "--condition", "condition.txt", "--device", "cuda"]
+    t0 = time.perf_counter()
+    run = run_group(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", "-m", "simulgen_vae_tpu_torch", *common, "--lc_only=0", "--mesh_data", "1",
+         "--mesh_model", "1", "--epochs", "1", "--lc_epochs", str(MESH_LC_EPOCHS)],
+        root, {**os.environ, **env}, timeout=600)
+    seconds = time.perf_counter() - t0
+    (OUT_DIR / "chip_smoke_mesh_torchrun.log").write_text(run.stdout + "\n" + run.stderr)
+    files = sorted(os.listdir(root / "model_save")) if (root / "model_save").is_dir() else []
+    ok = (run.returncode == 0 and "Mesh: {'data': 1, 'model': 1}" in run.stdout
+          and files == sorted(CLI_MODEL_SAVE))
+    print(f"mesh torchrun: python -m torch.distributed.run --standalone --nproc_per_node 1 -m "
+          f"simulgen_vae_tpu_torch --mesh_data 1 --mesh_model 1 --epochs 1 --lc_epochs "
+          f"{MESH_LC_EPOCHS} (NCCL): exit {run.returncode} in {seconds:.1f} s, the mesh "
+          f"printed: {'Mesh: ' in run.stdout}, model_save/ {files} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the training CLI under torchrun failed:\n{run.stdout[-2000:]}\n"
+                             f"{run.stderr[-3000:]}")
+    result["torchrun"] = dict(seconds=seconds, returncode=run.returncode)
+    return launches, result
+
+
 # -- --ab: two versions of a kernel family on one card -------------------------
 
 # (C, launches per decode) of the serving decode's one-pass GroupNorms (G = 8,
@@ -3823,10 +4153,7 @@ def main(argv=None) -> int:
         if len(args.ab) < 2:
             ap.error("--ab needs a MODE and at least one TREE")
         return ab(args.ab[0], args.ab[1:], args.seed, args.reps)
-    from simulgen_vae_tpu_torch import convert
     from simulgen_vae_tpu_torch import generate as tgen
-    from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
-    from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
     from simulgen_vae_tpu_torch.models import blocks
     from simulgen_vae_tpu_torch.ops import _build
     from simulgen_vae_tpu_torch.ops import gather_augment as ga
@@ -3850,18 +4177,10 @@ def main(argv=None) -> int:
     sass = sass_check(_build)
 
     # 3a. the flagship pipeline (built before phase 2 to learn the shapes)
-    cfg = VAEConfig(num_time=T, num_node=95008, latent_dim_end=32, latent_dim=8,
-                    num_filter_enc=[1024, 512, 256, 128], small=True)
-    lc_cfg = LCConfig(filters=[32, 64, 128, 256, 512, 1024], input_type="csv")
-    n_in = 484
-    rng = np.random.default_rng(args.seed)
-    vae_params = {"decoder": convert.random_decoder_tree(cfg, rng)}
-    lc_params = convert.random_conditioner_tree(lc_cfg, cfg, n_in, rng)
-    scalers = {name: MinMaxScaler(rng.uniform(0.5, 2.0, n).astype(np.float32),
-                                  rng.uniform(-0.3, 0.3, n).astype(np.float32))
-               for name, n in (("lv_scaler", 32), ("xs_scaler", 24),
-                               ("data_scaler", cfg.num_node))}
-    inputs = rng.standard_normal((40, n_in)).astype(np.float32)
+    setup = serving_setup(args.seed)
+    cfg, lc_cfg, vae_params, lc_params, scalers, inputs = (
+        setup.cfg, setup.lc_cfg, setup.vae_params, setup.lc_params, setup.scalers,
+        setup.inputs)
 
     def pipeline(dtype):
         return tgen.make_pipeline(cfg, lc_cfg, vae_params, lc_params, device="cuda",
@@ -4045,6 +4364,12 @@ def main(argv=None) -> int:
         cli_launches, cli_train = phase_cli_train(args, card, Path(tmp), base, free)
         e2e_launches, vit_launches, images = phase_images(args, card, Path(tmp))
         pca_launches, pca = phase_pca(args, card, Path(tmp))
+        # 12. the mesh: two ranks on the card, then the CLI under torchrun
+        mesh_launches, mesh = phase_mesh(args, card, Path(tmp))
+    for k in kernels:
+        for tag, per_rank in mesh_launches.items():
+            if k["name"] in per_rank[0]:
+                k[f"launches_mesh_{tag}"] = [counts[k["name"]] for counts in per_rank]
     for k in kernels:
         for key, counts in (("launches_cli_train", cli_launches),
                             ("launches_images_e2e", e2e_launches),
@@ -4059,7 +4384,7 @@ def main(argv=None) -> int:
                   readout_sass=sass, onepass_launch=onepass, gn_stats_launch=stats_launch,
                   repairs=repairs,
                   fused_train=fused, stack_train=stack, artifacts=artifacts,
-                  cli_train=cli_train, images=images, pca=pca,
+                  cli_train=cli_train, images=images, pca=pca, mesh=mesh,
                   profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -7,7 +7,10 @@ serving decode (the MLP latent conditioner and the hierarchical decoder,
 from memory or from a trained ``model_save/``, in float or int8), with
 hand-written CUDA kernels for GroupNorm + activation forward and backward,
 batch assembly, the fused readout and AdamW (``ops/csrc/``, built with
-``nvcc`` at first use).
+``nvcc`` at first use). Training and serving also run on a ``('data',
+'model')`` mesh of ranks, one process a device (``parallel/``: NCCL, or gloo
+on the CPU; ``make_mesh``, ``VAETrainer.fit(mesh=...)``,
+``make_generate_fn(mesh=...)``, the CLI under ``torchrun``).
 ``simulgen_vae_tpu`` (JAX) stays the reference; this package imports none of
 it.
 """
@@ -24,8 +27,10 @@ from simulgen_vae_tpu_torch.generate import (
 )
 from simulgen_vae_tpu_torch.models.conditioner_mlp import LatentConditioner
 from simulgen_vae_tpu_torch.models.vae import VAE
+from simulgen_vae_tpu_torch.parallel import initialize_distributed, make_mesh
 
 __all__ = [
     "LCConfig", "VAEConfig", "MinMaxScaler", "LatentConditioner", "VAE",
-    "auto_max_batch", "load_pipeline", "make_generate_fn", "make_pipeline",
+    "auto_max_batch", "initialize_distributed", "load_pipeline", "make_generate_fn",
+    "make_mesh", "make_pipeline",
 ]

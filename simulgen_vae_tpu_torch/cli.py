@@ -35,8 +35,19 @@ fresh ``latent_conditioner_input_scaler.pkl``). Images train through
 JAX's CLI. The ``LatentConditioner`` file holds ``{"params",
 "batch_stats"}`` with the raw kernels, as JAX's CLI saves it.
 
-Not ported, and refused with the ROADMAP item that brings it: a device mesh
-(``--mesh_data`` / ``--mesh_model`` other than one device; Queue 1 item 7).
+Several devices: under ``torchrun`` (one process a device) the VAE trains
+on a ``('data', 'model')`` mesh, ``--mesh_data`` x ``--mesh_model`` (all
+ranks on ``data`` by default, as JAX's ``make_mesh()``):
+
+    torchrun --nproc_per_node 4 -m simulgen_vae_tpu_torch --preset=1 --mesh_data 2 --mesh_model 2
+
+Rank 0 writes every file; the others wait for it where the JAX CLI does
+(``folder-init``, ``vae-artifacts``). After the VAE every rank evaluates,
+extracts the latents and trains the conditioner on the whole gathered
+``eval_params``, as every JAX process does; the conditioner's checkpoints of
+the other ranks go to a temporary directory. Without torchrun the run is one
+device, as before.
+
 ``--lc_only=1`` reads the port's VAE checkpoint (``checkpoints/vae/
 ckpt_*.pt``), not the JAX package's orbax one.
 """
@@ -44,10 +55,12 @@ ckpt_*.pt``), not the JAX package's orbax one.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import os
 import shutil
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -76,6 +89,12 @@ from simulgen_vae_tpu_torch.evaluation.plotter import (
 from simulgen_vae_tpu_torch.generate import resolve_device
 from simulgen_vae_tpu_torch.models.conditioner_cnn import sn_filter
 from simulgen_vae_tpu_torch.models.conditioner_mlp import LatentConditioner
+from simulgen_vae_tpu_torch.parallel import (
+    initialize_distributed,
+    is_primary,
+    make_mesh,
+    sync_processes,
+)
 from simulgen_vae_tpu_torch.train.lc_e2e_trainer import E2ETrainer
 from simulgen_vae_tpu_torch.train.lc_trainer import LCTrainer
 from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
@@ -107,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
         epilog="""Examples:
   Full run : python -m simulgen_vae_tpu_torch --preset=1 --plot=2 --lc_only=0 --size=small
   LC only  : python -m simulgen_vae_tpu_torch --preset=1 --lc_only=1 --size=small
-  CPU      : python -m simulgen_vae_tpu_torch --preset=1 --plot=2 --device cpu""",
+  CPU      : python -m simulgen_vae_tpu_torch --preset=1 --plot=2 --device cpu
+  Mesh     : torchrun --nproc_per_node 4 -m simulgen_vae_tpu_torch --preset=1 --mesh_data=2 --mesh_model=2""",
     )
     parser.add_argument("--preset", dest="preset", default="1")
     parser.add_argument("--plot", dest="plot", default="2",
@@ -120,9 +140,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="--load_all=0 keeps the dataset in host memory and "
                              "streams batches to the device (same as --stream)")
     parser.add_argument("--mesh_data", type=int, default=None,
-                        help="data-parallel mesh axis size (not ported: one device)")
+                        help="data-parallel mesh axis size (default: all ranks)")
     parser.add_argument("--mesh_model", type=int, default=1,
-                        help="model-parallel mesh axis size (not ported: one device)")
+                        help="model-parallel mesh axis size (node-axis split)")
     parser.add_argument("--condition", default="input_data/condition.txt")
     parser.add_argument("--preset_file", default="preset.txt")
     parser.add_argument("--opt_state_dtype", default="auto",
@@ -169,11 +189,7 @@ def resolve_load_all(args) -> None:
         args.stream = True
 
 
-def _refuse_unported(args, lc_cfg: LCConfig) -> None:
-    if args.mesh_data not in (None, 1) or args.mesh_model != 1:
-        raise NotImplementedError(
-            "a device mesh (--mesh_data / --mesh_model) is not ported yet (ROADMAP "
-            "Queue 1 item 7); the port trains on one device")
+def _refuse_unported(lc_cfg: LCConfig) -> None:
     if lc_cfg.input_type not in ("csv", "image_pca", *convert.IMAGE_INPUT_TYPES):
         raise NotImplementedError(
             f"Unrecognized latent_conditioner_data_type: {lc_cfg.input_type}. "
@@ -188,7 +204,9 @@ def main(argv=None) -> int:
         args.resume = True
     if not args.no_preempt_guard:
         preemption.install()
-    device = resolve_device(args.device)
+    device = initialize_distributed(resolve_device(args.device))
+    mesh = make_mesh(args.mesh_data, args.mesh_model)
+    primary = is_primary()
 
     params = parse_condition_file(args.condition)
     config = parse_training_parameters(params)
@@ -207,18 +225,22 @@ def main(argv=None) -> int:
     lc_cfg = LCConfig.from_condition(config, lc_filter)
     if args.lc_epochs is not None:
         lc_cfg.epochs = args.lc_epochs
-    _refuse_unported(args, lc_cfg)
+    _refuse_unported(lc_cfg)
     if args.plot != "2" and not have_matplotlib():
         raise RuntimeError(f"--plot {args.plot} draws the dataset with matplotlib, which "
                            "is not installed; pass --plot=2 to train without plots")
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "host"
-    print(f"Starting SimulGen-VAE (PyTorch) on {device} ({name})...")
+    if primary:
+        print(f"Starting SimulGen-VAE (PyTorch) on {device} ({name})...")
+    print(f"Mesh: {dict(mesh.shape)}")
 
-    if lc_only == 0 and not args.no_wipe and not args.resume:
-        for folder in ("model_save", "checkpoints", "LatentConditionerRuns", "output"):
-            initialize_folder(folder)
-    os.makedirs("model_save", exist_ok=True)
-    os.makedirs("checkpoints", exist_ok=True)
+    if primary:
+        if lc_only == 0 and not args.no_wipe and not args.resume:
+            for folder in ("model_save", "checkpoints", "LatentConditionerRuns", "output"):
+                initialize_folder(folder)
+        os.makedirs("model_save", exist_ok=True)
+        os.makedirs("checkpoints", exist_ok=True)
+    sync_processes("folder-init")  # no rank may write before the wipe
 
     # -- data ----------------------------------------------------------------
     data_save = input_dataset(config["num_param"], config["num_time"],
@@ -230,7 +252,7 @@ def main(argv=None) -> int:
     )
     del data_save
 
-    if args.plot != "2":
+    if args.plot != "2" and primary:
         os.makedirs("output", exist_ok=True)
         start = min(7, fom_data.shape[0] - 1)
         dual_view_plotter(fom_data, param_idx=start, print_graph=args.plot,
@@ -240,14 +262,16 @@ def main(argv=None) -> int:
                          save_path="output/temporal.png")
 
     new_x_train, _, _ = data_scaler(fom_data, num_time, num_node,
-                                    save_path="model_save/scaler.pkl")
+                                    save_path="model_save/scaler.pkl" if primary else None)
     del fom_data
     new_x_train = np.asarray(new_x_train, np.float32)
-    print(f"Dataset value range: [{new_x_train.min():.4f}, {new_x_train.max():.4f}]")
+    if primary:
+        print(f"Dataset value range: [{new_x_train.min():.4f}, {new_x_train.max():.4f}]")
 
     # -- VAE -----------------------------------------------------------------
     trainer = VAETrainer(cfg, device=device, seed=args.seed)
     if lc_only == 0:
+        trainer.set_mesh(mesh)
         ckpt = CheckpointManager("checkpoints/vae",
                                  save_interval_epochs=max(cfg.n_epochs // 10, 1))
         state = trainer.init_state(args.seed)
@@ -255,11 +279,15 @@ def main(argv=None) -> int:
         if args.resume and ckpt.latest_step() is not None:
             state = ckpt.restore(state)
             remaining = max(cfg.n_epochs - int(state.epoch), 0)
-            print(f"Resuming from epoch {int(state.epoch)} "
-                  f"({remaining} epochs remaining)")
-        print(train_state_summary(state, "SimulGen-VAE"))
+            if primary:
+                print(f"Resuming from epoch {int(state.epoch)} "
+                      f"({remaining} epochs remaining)")
+        if primary:
+            block = " (rank 0's block)" if state.layout is not None else ""
+            print(train_state_summary(state, "SimulGen-VAE" + block))
         logger = MetricsLogger(log_dir="./runs", name="VAE",
-                               samples_per_epoch=int(len(new_x_train) * 0.8))
+                               samples_per_epoch=int(len(new_x_train) * 0.8),
+                               n_chips=mesh.size)
         state, _ = trainer.fit(
             new_x_train, args.seed, state=state, stream=args.stream, epochs=remaining,
             ckpt_manager=ckpt, log_fn=lambda e, m: logger.log(e, m, cfg.n_epochs),
@@ -272,28 +300,33 @@ def main(argv=None) -> int:
                   f"(exit {preemption.EX_TEMPFAIL})")
             return preemption.EX_TEMPFAIL
 
-        vae_model = trainer.eval_params(state)
+        vae_model = trainer.eval_params(state)  # whole, on every rank
         del state  # the moments are not needed past this point
-        save_flax_model("model_save/SimulGen-VAE",
-                        {"params": convert.vae_tree(vae_model, cfg)})
+        if primary:
+            save_flax_model("model_save/SimulGen-VAE",
+                            {"params": convert.vae_tree(vae_model, cfg)})
 
         n_train = int(len(new_x_train) * 0.8)
         for rows, label in ((slice(0, n_train), "Training Reconstruction"),
                             (slice(n_train, None), "Validation")):
             evaluate_vae_reconstruction(
                 vae_model, new_x_train[rows], args.seed, recon_iter=cfg.recon_iter,
-                batch_size=cfg.batch_size, dataset_name=label, save_images=True)
+                batch_size=cfg.batch_size, dataset_name=label, verbose=primary,
+                save_images=primary)
         latent_vectors, hierarchical, recon_loss, _, _ = evaluate_vae_reconstruction(
             vae_model, new_x_train, args.seed, recon_iter=cfg.recon_iter,
-            batch_size=cfg.batch_size, dataset_name="Whole Dataset")
-        save_latents("model_save", latent_vectors, hierarchical)
-        save_l2_loss("./SimulGen-VAE_L2_loss.txt", recon_loss)
+            batch_size=cfg.batch_size, dataset_name="Whole Dataset", verbose=primary)
+        if primary:
+            save_latents("model_save", latent_vectors, hierarchical)
+            save_l2_loss("./SimulGen-VAE_L2_loss.txt", recon_loss)
+        sync_processes("vae-artifacts")  # the conditioner's stage reads these files
     else:
         print("Training LatentConditioner only...")
         latent_vectors = np.load("model_save/latent_vectors.npy")
         hierarchical = np.load("model_save/xs.npy")
         state = CheckpointManager("checkpoints/vae").restore(trainer.init_state(args.seed))
-        print(train_state_summary(state, "SimulGen-VAE"))
+        if primary:
+            print(train_state_summary(state, "SimulGen-VAE"))
         vae_model = trainer.eval_params(state)
         del state
 
@@ -314,10 +347,12 @@ def _maybe_resume_lc(args, trainer, lc_ckpt: CheckpointManager, total_epochs: in
     return state, remaining
 
 
-def read_conditioner_inputs(lc_cfg: LCConfig, device) -> np.ndarray:
+def read_conditioner_inputs(lc_cfg: LCConfig, device, write: bool = True) -> np.ndarray:
     """The conditioner's inputs: pixels / 255 of the images of ``param_dir``;
     or, scaled by a fresh ``latent_conditioner_input_scaler.pkl``, the CSV
-    or the PCA coefficients of those images (the PCA fitted on ``device``)."""
+    or the PCA coefficients of those images (the PCA fitted on ``device``).
+    ``write=False`` fits the same but saves neither file (a mesh's ranks
+    other than 0)."""
     if lc_cfg.input_type in convert.IMAGE_INPUT_TYPES:
         print("Loading image data...")
         physical_input, _ = images.read_latent_conditioner_dataset_img(
@@ -326,12 +361,12 @@ def read_conditioner_inputs(lc_cfg: LCConfig, device) -> np.ndarray:
     if lc_cfg.input_type == "image_pca":
         print("Loading image data with PCA preprocessing for MLP...")
         physical_input, _ = images.read_latent_conditioner_dataset_img_pca(
-            lc_cfg.param_dir, lc_cfg.param_data_type, device=device)
+            lc_cfg.param_dir, lc_cfg.param_data_type, device=device, save=write)
     else:
         print("Loading csv data for MLP...")
         physical_input = images.read_latent_conditioner_dataset(lc_cfg.param_dir)
     physical_input, _ = latent_conditioner_scaler(
-        physical_input, "./model_save/latent_conditioner_input_scaler.pkl")
+        physical_input, "./model_save/latent_conditioner_input_scaler.pkl" if write else None)
     return physical_input
 
 
@@ -348,11 +383,12 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
 
     data_type = lc_cfg.input_type
     is_image = data_type in convert.IMAGE_INPUT_TYPES
-    physical_input = read_conditioner_inputs(lc_cfg, device)
+    primary = is_primary()
+    physical_input = read_conditioner_inputs(lc_cfg, device, write=primary)
     out_latent, lv_scaler = latent_conditioner_scaler(
-        out_latent, "./model_save/latent_vectors_scaler.pkl")
+        out_latent, "./model_save/latent_vectors_scaler.pkl" if primary else None)
     out_hier_flat, xs_scaler = latent_conditioner_scaler(
-        xs_vectors, "./model_save/xs_scaler.pkl")
+        xs_vectors, "./model_save/xs_scaler.pkl" if primary else None)
     size2 = cfg.num_hier
     out_hier = out_hier_flat.reshape(num_param, size2, cfg.latent_dim)
     n_in = physical_input.shape[-1]
@@ -367,8 +403,23 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
                                      size2, device, lc_cfg.dropout_rate)
     logger = MetricsLogger(log_dir="./LatentConditionerRuns", name="LatentConditioner")
     print("Starting LatentConditioner training...")
-    lc_ckpt = CheckpointManager("checkpoints/latent_conditioner",
-                                save_interval_epochs=max(lc_cfg.epochs // 10, 1))
+    with contextlib.ExitStack() as stack:
+        # every rank trains the conditioner; rank 0's checkpoints are the run's
+        ckpt_dir = ("checkpoints/latent_conditioner" if primary
+                    else stack.enter_context(tempfile.TemporaryDirectory()))
+        return _train_conditioner(args, cfg, lc_cfg, vae_model, lc_model, lc_sn, logger,
+                                  ckpt_dir, physical_input, out_latent, out_hier,
+                                  new_x_train, lv_scaler, xs_scaler, n_in, device, primary)
+
+
+def _train_conditioner(args, cfg, lc_cfg, vae_model, lc_model, lc_sn, logger, ckpt_dir,
+                       physical_input, out_latent, out_hier, new_x_train, lv_scaler,
+                       xs_scaler, n_in, device, primary) -> int:
+    """The conditioner's training, its file and the comparison (the rest of
+    :func:`run_latent_conditioner_stage`)."""
+    data_type = lc_cfg.input_type
+    is_image = data_type in convert.IMAGE_INPUT_TYPES
+    lc_ckpt = CheckpointManager(ckpt_dir, save_interval_epochs=max(lc_cfg.epochs // 10, 1))
     log_fn = lambda e, m: logger.log(e, m, lc_cfg.epochs)  # noqa: E731
     if is_image and lc_cfg.use_e2e_training:
         print("Using end-to-end latent conditioner training")
@@ -404,8 +455,9 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
         return preemption.EX_TEMPFAIL
 
     # the raw kernels (no sigma) and the BatchNorms' running statistics
-    save_flax_model("model_save/LatentConditioner",
-                    convert.conditioner_variables(lc_state.model, lc_cfg, cfg, n_in))
+    if primary:
+        save_flax_model("model_save/LatentConditioner",
+                        convert.conditioner_variables(lc_state.model, lc_cfg, cfg, n_in))
 
     print("LatentConditioner training completed successfully")
     print("Starting reconstruction evaluation...")
@@ -418,7 +470,7 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
     evaluator = ReconstructionEvaluator(vae_model, batch_size=cfg.batch_size, seed=args.seed)
     evaluator.evaluate_reconstruction_comparison(
         predict, physical_input, out_latent, out_hier, new_x_train,
-        lv_scaler, xs_scaler, save_dir="checkpoints",
+        lv_scaler, xs_scaler, save_dir="checkpoints", save_plots=primary,
     )
 
     # Mirror the comparison plots into TensorBoard where it is installed.

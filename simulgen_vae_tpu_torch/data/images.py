@@ -78,11 +78,12 @@ def read_latent_conditioner_dataset_img_pca(
         param_dir: str, param_data_type: str, pca_components: int = 256,
         pca_patch_size: int = 0, im_size: int = DEFAULT_IMAGE_SIZE,
         base_dir: Optional[str] = None, save_dir: str = "model_save",
-        device=None) -> Tuple[np.ndarray, Tuple[int, ...]]:
+        device=None, save: bool = True) -> Tuple[np.ndarray, Tuple[int, ...]]:
     """The PCA -> MLP input: a PCA (``pca_components``, full-image or
     ``pca_patch_size`` patches) fitted on ``device`` to the raw resized
-    pixels (0-255, no threshold) and saved under ``save_dir``, then its
-    coefficients flattened: ``([N, width] f32, (width,))``."""
+    pixels (0-255, no threshold) and saved under ``save_dir`` (unless
+    ``save`` is False), then its coefficients flattened: ``([N, width] f32,
+    (width,))``."""
     from simulgen_vae_tpu_torch.data.pca import PCAPreprocessor
 
     if param_data_type not in (".jpg", ".png"):
@@ -91,7 +92,7 @@ def read_latent_conditioner_dataset_img_pca(
     pre = PCAPreprocessor(n_components=pca_components,
                           patch_size=pca_patch_size if pca_patch_size > 0 else None,
                           save_dir=save_dir, device=device)
-    pre.fit(raw)
+    pre.fit(raw, save=save)
     coeffs = pre.transform(raw)
     flat = coeffs.reshape(coeffs.shape[0], -1)
     return flat, (flat.shape[1],)

@@ -28,6 +28,13 @@ item 6).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu``); asking for CUDA where there is none raises.
+
+``make_generate_fn(..., mesh=...)`` serves on a ``('data', 'model')`` mesh
+of ranks (``parallel.make_mesh``; every rank calls it and the function it
+returns, with the same requests): the decoder's node-sized leaves are split
+over ``model`` by the training rule (the readout's int8 scales with its
+kernel), requests over ``data`` where their count divides by it, and every
+rank returns the whole field, gathered over both axes.
 """
 
 from __future__ import annotations
@@ -55,7 +62,9 @@ from simulgen_vae_tpu_torch.convert import (
     vae_from_jax,
 )
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+from simulgen_vae_tpu_torch.models.vae import VAE
 from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
+from simulgen_vae_tpu_torch.parallel import collectives, sharding
 from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
 
 def resolve_device(device=None) -> torch.device:
@@ -179,8 +188,29 @@ def _int8_vae(pipeline: dict):
     return vae
 
 
+def _sharded_vae(pipeline: dict, mesh, parts: int, quantize: Optional[str]) -> VAE:
+    """This rank's block of the pipeline's decoder (its int8 mirror with
+    ``quantize``): the node-sized leaves split over the model axis."""
+    cfg, device, dtype = pipeline["cfg"], pipeline["device"], pipeline["dtype"]
+    full = pipeline["vae"]
+    vae = VAE(cfg.latent_dim_end, cfg.latent_dim, cfg.num_filter_dec, cfg.num_node // parts,
+              cfg.num_time, cfg.small, device, dtype, node_parts=parts,
+              node_group=mesh.group("model") if parts > 1 else None)
+    layout = sharding.Layout(mesh, parts, sharding.node_leaves(vae), {})
+    state = sharding.shard_tree(full.state_dict(), layout.params, layout, device)
+    vae.load_state_dict(state)
+    vae.eval()
+    if quantize != "int8":
+        return vae
+    f32 = {f"decoder.{k}": v for k, v in decoder_state(pipeline["decoder_tree"]).items()}
+    f32 = {k: sharding.block(torch.as_tensor(np.asarray(v)), layout.params.get(k),
+                             layout.index, parts) for k, v in f32.items()}
+    return build_quant_collection(vae, f32, device)
+
+
 def make_generate_fn(pipeline: dict, descale_output: bool = True,
-                     max_batch: Optional[int] = None, quantize: Optional[str] = None):
+                     max_batch: Optional[int] = None, quantize: Optional[str] = None,
+                     mesh=None):
     """One serving function: preprocessed inputs ``[N, features]`` -> fields
     ``[N, time, nodes]`` on the pipeline's device.
 
@@ -190,20 +220,45 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
     one shape. ``quantize="int8"`` decodes with the int8 mirror of the
     decoder (per-output-channel weights, per-row activations); the
     conditioner, norms and biases stay float.
+
+    ``mesh``: serve on a mesh of ranks (JAX's ``make_generate_fn(mesh=)``).
+    The chunk cap is ``auto_max_batch * model``, rounded down to a multiple
+    of ``data`` (``max_batch`` takes its place, rounded the same way); a
+    chunk splits over ``data`` when its rows divide by it and is replicated
+    otherwise; each rank decodes its rows at its nodes and the field is
+    gathered over both axes, so every rank returns all of it.
     """
     cfg, device, dtype = pipeline["cfg"], pipeline["device"], pipeline["dtype"]
-    if quantize == "int8":
-        vae = _int8_vae(pipeline)
-    elif quantize is None:
-        vae = pipeline["vae"]
-    else:
+    if quantize not in (None, "int8"):
         raise ValueError(f"unknown quantize mode {quantize!r} (supported: 'int8')")
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    parts = sharding.node_parts(mesh, cfg.num_node)
+    if mesh is not None:
+        vae = _sharded_vae(pipeline, mesh, parts, quantize)
+        data_ax = mesh.shape["data"]
+        cap = (max_batch if max_batch and max_batch > 0
+               else auto_max_batch(cfg.num_time, cfg.num_node, device) * mesh.shape["model"])
+        max_batch = max(data_ax, cap - cap % data_ax)
+    else:
+        vae = _int8_vae(pipeline) if quantize == "int8" else pipeline["vae"]
     lc = pipeline["lc"]
     lv, xsc, ds = pipeline["lv_scaler"], pipeline["xs_scaler"], pipeline["data_scaler"]
     if not max_batch or max_batch <= 0:
         max_batch = auto_max_batch(cfg.num_time, cfg.num_node, device)
+    if parts > 1:  # the descale of this rank's nodes
+        ds = MinMaxScaler(*(sharding.block(t, 0, mesh.coords["model"], parts)
+                            if t.dim() == 1 and t.shape[0] == cfg.num_node else t
+                            for t in (ds.scale_, ds.min_)))
 
     def run(inputs: torch.Tensor) -> torch.Tensor:
+        rows = None
+        if mesh is not None:
+            d = sharding.batch_parts(mesh, inputs.shape[0])
+            if d > 1:
+                n = inputs.shape[0] // d
+                rows = (mesh.coords["data"] * n, inputs.shape[0])
+                inputs = inputs[rows[0]: rows[0] + n]
         y1, y2 = lc(inputs)
         z = lv.inverse_transform(y1)
         b, nh, hd = y2.shape
@@ -211,9 +266,14 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
         xs = [xs_flat.reshape(b, nh, hd)[:, i].to(dtype) for i in range(nh)]
         # mode='fix' draws noise of std 1e-8; a fixed seed keeps it repeatable.
         gen = torch.Generator(device).manual_seed(0)
-        field = vae.generate(z.to(dtype), xs, generator=gen)
+        field = vae.generate(z.to(dtype), xs, generator=gen, noise_rows=rows)
         if descale_output:
             field = ds.inverse_transform(field.float())
+        if mesh is not None:
+            if parts > 1:
+                field = collectives.all_gather_cat(field, mesh.group("model"), 2)
+            if rows is not None:
+                field = collectives.all_gather_cat(field, mesh.group("data"), 0)
         return field
 
     @torch.inference_mode()

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from simulgen_vae_tpu_torch.ops.groupnorm_gelu import group_norm_act
+from simulgen_vae_tpu_torch.parallel.collectives import grad_sum_over, sum_over
 from simulgen_vae_tpu_torch.ops.quant import int8_conv1d_same, int8_dot
 from simulgen_vae_tpu_torch.ops.readout_chain import readout_chain_loss
 
@@ -136,6 +137,22 @@ def _biased(product, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return product(x, w) + b
 
 
+def _node_summed(product, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 inv_sigma, group) -> torch.Tensor:
+    """:func:`_biased` for a layer whose contraction runs over the node axis,
+    of which this rank holds one block (the encoder's embedding on a mesh):
+    the partial products summed over ``group`` (``parallel.collectives.
+    sum_over``), below f32 in f32 and rounded once, then inv_sigma and the
+    bias, added once, after the sum."""
+    if x.element_size() >= 4:
+        y = sum_over(product(x, w), group)
+    else:
+        y = sum_over(product(x.float(), w.float()), group).to(x.dtype)
+    if inv_sigma is not None:
+        return _scaled(y, inv_sigma, b)
+    return y + b
+
+
 def _int8_biased(product, x: torch.Tensor, layer: nn.Module, b: torch.Tensor) -> torch.Tensor:
     """The int8 path of :class:`Conv1d` and :class:`Dense`: the f32 product
     of the int8 operands rounded to x's dtype, then inv_sigma and the bias."""
@@ -205,6 +222,9 @@ class Conv1d(nn.Module):
         super().__init__()
         self.compute_dtype = dtype
         self.inv_sigma = None
+        # the model axis's group where in_features is this rank's block of
+        # the node axis (the embedding on a mesh), else None
+        self.node_group = None
         self.weight = _param((features, in_features, kernel_size), device, dtype)
         self.bias = _param((features,), device, dtype, 0.0)
         _int8_buffers(self)
@@ -213,6 +233,9 @@ class Conv1d(nn.Module):
         cd = self.compute_dtype
         if self.weight_q is not None:
             return _int8_biased(int8_conv1d_same, x.to(cd), self, self.bias.to(cd))
+        if self.node_group is not None:
+            return _node_summed(conv1d_same, x.to(cd), self.weight.to(cd), self.bias.to(cd),
+                                self.inv_sigma, self.node_group)
         return _biased(conv1d_same, x.to(cd), self.weight.to(cd), self.bias.to(cd),
                        self.inv_sigma)
 
@@ -340,15 +363,25 @@ class FusedPointwiseNormTanh(nn.Module):
     input-side scaling) and the f32 bias is added before the one rounding;
     ``readout_bwd`` picks its backward (``"auto"``, ``"fused"``,
     ``"materialize"``).
+
+    On a mesh (``node_group``) the layer holds one block of ``total_nodes``
+    output nodes and ``num_groups`` whole GroupNorm groups of them: the
+    forward needs no collective, and the input's gradient (and, scaled on
+    the output side, inv_sigma's) is summed over the model axis
+    (``parallel.collectives.grad_sum_over``). Which side inv_sigma scales
+    follows ``total_nodes``, as on one device.
     """
 
     quant_weight = "kernel"
 
     def __init__(self, in_features: int, num_node: int, eps: float = 1e-5,
-                 device=None, dtype=torch.float32):
+                 device=None, dtype=torch.float32, num_groups: int | None = None,
+                 total_nodes: int | None = None, node_group=None):
         super().__init__()
         self.eps = eps
-        self.num_groups = group_count(num_node)
+        self.num_groups = num_groups or group_count(num_node)
+        self.input_side = in_features <= (total_nodes or num_node)
+        self.node_group = node_group
         self.compute_dtype = dtype
         self.inv_sigma = None
         self.kernel = _param((num_node, in_features), device, dtype)
@@ -361,6 +394,8 @@ class FusedPointwiseNormTanh(nn.Module):
                 lossfun: str = "MSE", readout_bwd: str = "auto"):
         cd = self.compute_dtype
         if x_target is not None:
+            if self.node_group is not None:
+                raise ValueError("the fused readout runs on one device, not on a mesh")
             inv = self.inv_sigma
             if inv is None:
                 inv = torch.ones((), device=h.device, dtype=torch.float32)
@@ -369,8 +404,12 @@ class FusedPointwiseNormTanh(nn.Module):
                                       self.num_groups, self.eps, lossfun, readout_bwd)
         w, inv = self.kernel.to(cd), self.inv_sigma
         h = h.to(cd)
-        if inv is not None and w.shape[1] <= w.shape[0]:
+        if inv is not None and self.input_side:
             h, inv = (h.float() * inv).to(cd), None
+        if self.node_group is not None:
+            h = grad_sum_over(h, self.node_group)
+            if inv is not None:
+                inv = grad_sum_over(inv, self.node_group)
         if self.weight_q is not None:
             y = int8_dot(h, self.weight_q, self.weight_s)
             if inv is not None:

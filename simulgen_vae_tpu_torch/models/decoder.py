@@ -14,6 +14,9 @@ Per level i (of ``L - 1`` levels, L = len(num_filter_dec)):
 ``mode='fix'`` multiplies std by 1e-10 before the [1e-8, 10] clamp: the decode
 still draws noise, at std 1e-8 while log_var < 2 ln 100. ``frozen_zs`` reuses
 the ``zs`` of an earlier call. Noise comes from an explicit ``torch.Generator``.
+On a mesh the readout holds one block of the nodes (``node_group``,
+``readout_groups`` of its ``total_nodes``) and every other layer is
+replicated.
 Spectral norm reaches each conv, dense and readout layer through its
 ``inv_sigma`` attribute (``models.spectral_norm.attach_inv_sigmas``); the
 decoder itself passes nothing.
@@ -21,7 +24,7 @@ decoder itself passes nothing.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -41,11 +44,18 @@ from simulgen_vae_tpu_torch.models.blocks import (
 
 
 def reparameterize(mu: torch.Tensor, std: torch.Tensor,
-                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """z = mu + eps * std with std clamped to [1e-8, 10]."""
+                   generator: Optional[torch.Generator] = None,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """z = mu + eps * std with std clamped to [1e-8, 10]. ``rows=(start,
+    total)``: ``mu`` holds rows ``start:`` of a batch of ``total`` (a rank of
+    a mesh's data axis); the noise of the whole batch is drawn and this
+    block's rows taken, so every rank's generator stays in step and the
+    noise equals one device's."""
     std = std.clamp(1e-8, 10.0)
-    eps = torch.randn(std.shape, generator=generator, device=mu.device,
-                      dtype=mu.dtype)
+    shape = std.shape if rows is None else (rows[1], *std.shape[1:])
+    eps = torch.randn(shape, generator=generator, device=mu.device, dtype=mu.dtype)
+    if rows is not None:
+        eps = eps[rows[0]: rows[0] + std.shape[0]]
     return mu + eps * std
 
 
@@ -86,7 +96,8 @@ class Decoder(nn.Module):
     def __init__(self, z_dim: int, hierarchical_dim: int,
                  num_filter_dec: Sequence[int], num_node: int, num_time: int,
                  small: bool = True, device=None, dtype=torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, readout_groups: Optional[int] = None,
+                 total_nodes: Optional[int] = None, node_group=None):
         super().__init__()
         f = list(num_filter_dec)
         n = len(f) - 1
@@ -107,8 +118,9 @@ class Decoder(nn.Module):
         self.condition_xz = nn.ModuleList(
             _ConditionHead(2 * f[i + 1], f[i + 1], small, device, dtype)
             for i in range(n - 1))
-        self.recon = FusedPointwiseNormTanh(f[-1], num_node, device=device,
-                                            dtype=dtype)
+        self.recon = FusedPointwiseNormTanh(f[-1], num_node, device=device, dtype=dtype,
+                                            num_groups=readout_groups,
+                                            total_nodes=total_nodes, node_group=node_group)
 
     def forward(self, z: torch.Tensor,
                 xs: Optional[Sequence[torch.Tensor]] = None,
@@ -116,10 +128,11 @@ class Decoder(nn.Module):
                 frozen_zs: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
                 x_target: Optional[torch.Tensor] = None, lossfun: str = "MSE",
-                readout_bwd: str = "auto"):
+                readout_bwd: str = "auto", noise_rows: Optional[Tuple[int, int]] = None):
         """Returns ``(x_hat [B, T, nodes], kl_losses, zs)``; with ``x_target``
         the fused train-path readout returns ``(recon_loss, recon_mse)`` in
-        place of ``x_hat``, with the backward ``readout_bwd`` names."""
+        place of ``x_hat``, with the backward ``readout_bwd`` names.
+        ``noise_rows`` as :func:`reparameterize`'s ``rows``."""
         kl_losses, zs = [], []
         decoder_out = None
         for i in range(self.n_levels):
@@ -149,7 +162,7 @@ class Decoder(nn.Module):
             if frozen_zs is not None and i < len(frozen_zs):
                 z = frozen_zs[i]
             else:
-                z = reparameterize(mu, std, generator)
+                z = reparameterize(mu, std, generator, rows=noise_rows)
             zs.append(z)
 
         out = self.recon(decoder_out, x_target=x_target, lossfun=lossfun,

@@ -6,6 +6,10 @@ embedding at level 0) then ``EncoderResidualBlock``; a per-level Dense
 hierarchical latent. A final Dense ``f_last * T -> 2 z`` gives (mu, log_var).
 Returns ``xs[:-1][::-1]``: the deepest level's latent is dropped and the order
 reversed to match the decoder.
+
+On a mesh (``node_group``) ``num_node`` is this rank's block of the node
+axis: the embedding's partial products are summed over the model axis and
+every later layer is replicated.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from simulgen_vae_tpu_torch.models.blocks import (
 class Encoder(nn.Module):
     def __init__(self, z_dim: int, hierarchical_dim: int, num_filter_enc: Sequence[int],
                  num_node: int, num_time: int, small: bool = True, device=None,
-                 dtype=torch.float32, remat: bool = False):
+                 dtype=torch.float32, remat: bool = False, node_group=None):
         super().__init__()
         f = list(num_filter_enc)
         self.z_dim = z_dim
@@ -35,6 +39,7 @@ class Encoder(nn.Module):
         self.enc_block = nn.ModuleList(
             ConvBlock(c_in, c, small, device, dtype)
             for c_in, c in zip([num_node] + f[:-1], f))
+        self.enc_block[0].convs[0].node_group = node_group  # the node embedding
         self.enc_res = nn.ModuleList(
             EncoderResidualBlock(c, small, device, dtype) for c in f)
         self.xs_linear = nn.ModuleList(

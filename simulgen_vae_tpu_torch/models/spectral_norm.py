@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from simulgen_vae_tpu_torch.models.blocks import Conv1d, Dense, FusedPointwiseNormTanh
+from simulgen_vae_tpu_torch.parallel.collectives import all_reduce_
 
 EPS = 1e-12
 
@@ -100,13 +101,24 @@ def compute_sigmas(model: nn.Module, state: Dict[str, torch.Tensor],
     cast to that dtype (the JAX trainer's bf16 power iteration for bf16 runs).
     ``factors[name] = (row [rest], col [out], inv)`` with ``d sigma / dW_o =
     col row^T``. Nothing here takes part in autograd.
+
+    On a mesh a layer with a ``node_group`` holds one block of its kernel's
+    node axis: the rest axis of the embedding, the out axis of the readout
+    (whose ``u`` is then this rank's block). The matvecs that contract that
+    axis and the norms over it are summed over the group
+    (:func:`_sigma_on_blocks`); ``row`` and ``col`` keep this rank's blocks,
+    so the rank-1 term stays local.
     """
     inv_sigmas, new_u, factors = {}, {}, {}
     for name, mod in sn_layers(model).items():
         w = _out_rest(mod).detach()
         w = w.to(compute_dtype if compute_dtype is not None else torch.float32)
         u = state[name]
-        if update:
+        group = getattr(mod, "node_group", None)
+        if group is not None:
+            sigma, u_next, row, col = _sigma_on_blocks(
+                w, u, update, group, out_split=isinstance(mod, FusedPointwiseNormTanh))
+        elif update:
             mu = (u.to(w.dtype) @ w).float()                      # M u, [rest]
             v = mu / (torch.linalg.vector_norm(mu) + EPS)
             mtv = (w @ v.to(w.dtype)).float()                     # M^T v, [out]
@@ -157,6 +169,30 @@ def spectral_normalize(model: nn.Module, state: Dict[str, torch.Tensor],
         normed[name] = (w / sigma.to(out_dtype)).to(out_dtype).reshape(kernel.shape)
         new_u[name] = u
     return normed, new_u
+
+
+def _sigma_on_blocks(w: torch.Tensor, u: torch.Tensor, update: bool, group,
+                     out_split: bool):
+    """:func:`compute_sigmas`' iteration on one block of ``W_o`` [out, rest]:
+    of its rows (``out_split``, ``u`` a block too) or of its columns.
+    Returns ``(sigma, u_next, row, col)``."""
+    def norm(v, split):
+        if not split:
+            return torch.linalg.vector_norm(v)
+        return torch.sqrt(all_reduce_((v * v).sum(), group))
+
+    mu = (u.to(w.dtype) @ w).float()                              # M u, [rest]
+    if out_split:
+        all_reduce_(mu, group)
+    if not update:
+        sigma = norm(mu, not out_split)
+        return sigma, u, mu / sigma, u.float()
+    v = mu / (norm(mu, not out_split) + EPS)
+    mtv = (w @ v.to(w.dtype)).float()                             # M^T v, [out]
+    if not out_split:
+        all_reduce_(mtv, group)
+    sigma = norm(mtv, out_split)
+    return sigma, mtv / (sigma + EPS), v, mtv / sigma
 
 
 @contextlib.contextmanager

@@ -122,3 +122,42 @@ def gather_augment(data: torch.Tensor, idx: torch.Tensor, pidx: torch.Tensor,
         raise RuntimeError(f"gather_augment launch failed with cudaError {err}")
     LAUNCHES["gather_augment"] += 1
     return out
+
+
+def gather_augment_sharded(mesh, data: torch.Tensor, idx: torch.Tensor, pidx: torch.Tensor,
+                           seed: int, lam_eff: torch.Tensor, amp: torch.Tensor,
+                           noise_sd: torch.Tensor, rows: Optional[slice],
+                           node_parts: int) -> torch.Tensor:
+    """:func:`gather_augment` on one rank of a ``('data', 'model')`` mesh
+    (the JAX ``gather_augment_sharded``).
+
+    ``data`` is this rank's ``[n, T, N / node_parts]`` block of the resident
+    dataset (:func:`dataset_replicated_rows`: every row, this rank's nodes);
+    ``idx``, ``pidx`` and the scalars are the whole batch's, drawn alike on
+    every rank; ``rows`` is this rank's block of the batch (None: all of it,
+    where the data axis does not divide the batch). The kernel assembles those
+    rows at this rank's nodes. The rank's mesh coordinates are folded into
+    the noise seed, as JAX folds the device index: the data coordinate only
+    where the batch is split, so that ranks holding the same rows draw the
+    same noise. On the CPU the plain version draws its noise from a
+    generator seeded the same way."""
+    model = mesh.shape["model"]
+    d = 0 if rows is None else mesh.coords["data"]
+    rows = rows or slice(None)
+    m = mesh.coords["model"] if node_parts > 1 else 0
+    seed_dev = (seed + (d * model + m) * 0x9E3779B) % 2 ** 32
+    generator = (torch.Generator().manual_seed(seed_dev) if data.device.type == "cpu"
+                 else None)
+    return gather_augment(data, idx[rows], pidx[rows], seed_dev, lam_eff[rows], amp[rows],
+                          noise_sd[rows], generator=generator)
+
+
+def dataset_replicated_rows(data: torch.Tensor, mesh, node_parts: int) -> torch.Tensor:
+    """The resident dataset laid out for :func:`gather_augment_sharded`
+    (JAX's ``dataset_replicated_rows_sharding``): every row, replicated over
+    ``data``; this rank's block of the nodes when ``node_parts`` split them.
+    A contiguous copy."""
+    if node_parts == 1:
+        return data.contiguous()
+    n = data.shape[-1] // node_parts
+    return data.narrow(-1, mesh.coords["model"] * n, n).contiguous()

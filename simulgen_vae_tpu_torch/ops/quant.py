@@ -129,6 +129,10 @@ def build_quant_collection(module: nn.Module, state: dict, device) -> nn.Module:
     ``module.state_dict()``); a conv's int8 taps are stored tap-major,
     ``[k, F, C]``, as :func:`int8_conv1d_same` takes them."""
     shared = {id(t): t for t in (*module.parameters(), *module.buffers())}
+    for m in module.modules():  # a mesh's process group is shared, not copied
+        group = getattr(m, "node_group", None)
+        if group is not None:
+            shared[id(group)] = group
     out = copy.deepcopy(module, shared)
     for name, m in out.named_modules():
         key = getattr(m, "quant_weight", None)

@@ -43,7 +43,24 @@ checkpoint, ``train.nan_guard``), saves through ``utils.checkpoint`` and polls
 ``utils.preemption``. ``stream=True`` keeps the dataset on the host and
 streams batches through pinned memory (:meth:`train_epoch_streaming`).
 
-Not ported yet: the device mesh, and CUDA graphs over an epoch's steps.
+On a ``('data', 'model')`` mesh (:meth:`VAETrainer.set_mesh`,
+``fit(mesh=...)``; ``parallel/``) each rank holds its block of the state
+(``parallel.sharding``: the node-sized leaves split over ``model``) and
+assembles its block of each batch: its rows over ``data``, its nodes over
+``model``, from a resident dataset whose rows are replicated
+(``ops.gather_augment.gather_augment_sharded``). Host randomness is drawn
+alike on every rank and each keeps its block, and the reparameterisation
+noise of the whole batch is drawn and sliced, so every rank's generators
+stay in step and, without the kernel's noise, a mesh step equals a
+one-device step. The collectives sit at the embedding, the readout input,
+the reconstruction loss and the spectral-norm matvecs
+(``parallel.collectives``); the gradients and metrics are then averaged over
+``data`` and the gradient norm taken over every block. The fused readout is
+off on a mesh of more than one rank and streaming is refused there, as in
+the JAX trainer's multi-process runs. Checkpoints hold the whole state in
+the one-device format (``utils.checkpoint``).
+
+Not ported yet: CUDA graphs over an epoch's steps.
 """
 
 from __future__ import annotations
@@ -68,8 +85,14 @@ from simulgen_vae_tpu_torch.models.spectral_norm import (
     spectral_normalize,
 )
 from simulgen_vae_tpu_torch.models.vae import VAE
-from simulgen_vae_tpu_torch.ops.gather_augment import draw_augment_scalars, gather_augment
+from simulgen_vae_tpu_torch.ops.gather_augment import (
+    dataset_replicated_rows,
+    draw_augment_scalars,
+    gather_augment,
+    gather_augment_sharded,
+)
 from simulgen_vae_tpu_torch.ops.readout_chain import BWD_FLAVORS
+from simulgen_vae_tpu_torch.parallel import collectives, sharding
 from simulgen_vae_tpu_torch.train.nan_guard import rollback
 from simulgen_vae_tpu_torch.train.optim import FusedAdamW
 from simulgen_vae_tpu_torch.train.schedules import cosine_warm_restarts
@@ -86,6 +109,7 @@ class VAETrainState:
     sn_u: dict        # power-iteration vectors (keyed by kernel name)
     epoch: int = 0
     rng: Optional[dict] = None  # the trainer's generator states at the last save
+    layout: Optional[sharding.Layout] = None  # this rank's block of a mesh's state
 
 
 def gather_rows(host: torch.Tensor, indices: np.ndarray, out: torch.Tensor) -> torch.Tensor:
@@ -111,7 +135,8 @@ class VAETrainer:
         self.dtype = _DTYPES[cfg.dtype]
         self.use_sn = cfg.use_spectral_norm
         self.sn_per_epoch = stack["sn_per_epoch"]
-        self.fused_readout = bool(fused_readout)  # None: off
+        self._fused_readout = bool(fused_readout)  # None: off
+        self.mesh, self.parts, self.node_group = None, 1, None
         self.readout_bwd = readout_bwd
         self.opt = FusedAdamW(b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01,
                               moment_dtype=stack["moment_dtype"] or None,
@@ -122,27 +147,103 @@ class VAETrainer:
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self._pinned: Dict[tuple, list] = {}  # streaming's host staging buffers
 
+    @property
+    def fused_readout(self) -> bool:
+        """The fused readout route: as asked, and never on a mesh."""
+        return self._fused_readout and self.mesh is None
+
+    @fused_readout.setter
+    def fused_readout(self, on: bool) -> None:
+        self._fused_readout = bool(on)
+
+    # -- mesh ----------------------------------------------------------------
+
+    def set_mesh(self, mesh) -> None:
+        """Train on ``mesh`` (``parallel.make_mesh``) from now on; a mesh of
+        one rank is one device. Announces, once, a node axis that cannot be
+        split into whole GroupNorm groups (``parallel.sharding.node_parts``)."""
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        if mesh is not None and self.aug.enabled and not self.aug.fusable:
+            raise NotImplementedError(
+                "shift and cutout augmentation run on one device only: a mesh "
+                "assembles its batches in ops.gather_augment")
+        self.mesh = mesh
+        self.parts = sharding.node_parts(mesh, self.cfg.num_node, announce=True)
+        self.node_group = mesh.group("model") if self.parts > 1 else None
+
+    def _layout(self, model: VAE) -> Optional[sharding.Layout]:
+        if self.mesh is None:
+            return None
+        split = self.parts > 1
+        return sharding.Layout(self.mesh, self.parts,
+                               sharding.node_leaves(model) if split else {},
+                               sharding.sn_u_leaves(model) if split and self.use_sn else {})
+
+    def _rows(self, bsz: int):
+        """``(start, bsz)``: this rank's rows of a batch of ``bsz`` split over
+        the data axis; None on one device or where the batch is replicated."""
+        if self.mesh is None:
+            return None
+        d = sharding.batch_parts(self.mesh, bsz)
+        return None if d == 1 else (self.mesh.coords["data"] * (bsz // d), bsz)
+
+    def local_batch(self, batch: torch.Tensor):
+        """``(block, noise_rows)``: this rank's block of a whole ``[B, T, N]``
+        batch and the rows argument of :meth:`loss_and_grads`."""
+        return sharding.shard_batch(batch, self.mesh, self.parts), self._rows(batch.shape[0])
+
     # -- state ---------------------------------------------------------------
 
-    def build_model(self) -> VAE:
-        """The VAE with f32 parameters computing in the configured dtype."""
+    def build_model(self, full: bool = False) -> VAE:
+        """The VAE with f32 parameters computing in the configured dtype: this
+        rank's block of it on a mesh, the whole model with ``full``."""
         cfg = self.cfg
-        model = VAE(cfg.latent_dim_end, cfg.latent_dim, cfg.num_filter_dec, cfg.num_node,
-                    cfg.num_time, cfg.small, self.device, torch.float32,
-                    num_filter_enc=cfg.num_filter_enc, lossfun=cfg.loss_type,
-                    remat=cfg.remat)
+        parts = 1 if full else self.parts
+        model = VAE(cfg.latent_dim_end, cfg.latent_dim, cfg.num_filter_dec,
+                    cfg.num_node // parts, cfg.num_time, cfg.small, self.device,
+                    torch.float32, num_filter_enc=cfg.num_filter_enc, lossfun=cfg.loss_type,
+                    remat=cfg.remat, node_parts=parts,
+                    node_group=None if full else self.node_group)
         return set_compute_dtype(model, self.dtype)
 
     def init_state(self, seed: int = 0) -> VAETrainState:
         """He-uniform kernels, zero biases, unit norm scales (the JAX init's
-        distributions), unit ``u`` vectors, zero moments; all from ``seed``."""
+        distributions), unit ``u`` vectors, zero moments; all from ``seed``.
+        On a mesh the whole state is drawn as on one device and this rank
+        keeps its block."""
         devices = [self.device.index or 0] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(seed)
-            model = self.build_model()
+            model = self.build_model(full=True)
         gen = torch.Generator(self.device).manual_seed(seed)
         sn_u = init_sn_state(model, gen) if self.use_sn else {}
-        return VAETrainState(model, self.opt.init(dict(model.named_parameters())), sn_u)
+        if self.mesh is None:
+            return VAETrainState(model, self.opt.init(dict(model.named_parameters())), sn_u)
+        state = self.shard_state(VAETrainState(model, {"count": 0, "mu": {}, "nu": {}}, sn_u))
+        state.opt_state = self.opt.init(dict(state.model.named_parameters()))
+        return state
+
+    def shard_state(self, state: VAETrainState) -> VAETrainState:
+        """A whole state as this rank's block of it (a state already split,
+        or any state on one device, comes back as it is)."""
+        if self.mesh is None or state.layout is not None:
+            return state
+        local = self.build_model()
+        return sharding.shard_state(state, self._layout(local), local)
+
+    def gather_state(self, state: VAETrainState) -> VAETrainState:
+        """The whole state from this rank's block (a collective over the
+        model axis; every rank gets it), on one device the state itself."""
+        if state.layout is None:
+            return state
+        params, mu, nu, sn_u = sharding.gather_payload(state)
+        model = self.build_model(full=True)
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(params[k])
+        opt = dict(state.opt_state, mu=mu, nu=nu)
+        return VAETrainState(model, opt, sn_u, state.epoch, state.rng)
 
     def rng_state(self) -> dict:
         """The host and device generators' states (what a checkpoint keeps so
@@ -161,11 +262,12 @@ class VAETrainer:
         return torch.bfloat16 if self.dtype == torch.bfloat16 else None
 
     def loss_fn(self, model: VAE, batch: torch.Tensor, beta: float,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, noise_rows=None):
         """``(loss, metrics)``: loss = alpha * recon + beta * sum(KL terms)."""
         _, recon, kls, recon_mse = model(batch, generator or self.generator,
                                          fused_readout_loss=self.fused_readout,
-                                         readout_bwd=self.readout_bwd)
+                                         readout_bwd=self.readout_bwd,
+                                         noise_rows=noise_rows)
         kl_sum = sum(kls)
         alpha = self.cfg.alpha
         loss = alpha * recon + beta * kl_sum
@@ -174,12 +276,19 @@ class VAETrainer:
         return loss, metrics
 
     def loss_and_grads(self, state: VAETrainState, batch: torch.Tensor, beta: float,
-                       generator: Optional[torch.Generator] = None, precomputed=None):
+                       generator: Optional[torch.Generator] = None, precomputed=None,
+                       noise_rows=None):
         """``(metrics, new_u, grads)`` for one batch: grads keyed by parameter
         name, with sigma's rank-1 terms added; parameters the loss does not
         reach get zeros, as under JAX's autodiff. ``precomputed=(inv_sigmas,
         factors)`` skips the power iteration and reuses the caller's sigmas
-        (the per-epoch cadence); ``new_u`` is then ``state.sn_u`` unchanged."""
+        (the per-epoch cadence); ``new_u`` is then ``state.sn_u`` unchanged.
+
+        On a mesh ``batch`` is this rank's block and ``noise_rows=(start, B)``
+        its rows of the batch where the data axis splits it
+        (:meth:`local_batch`); the gradients and metrics that come back are
+        then averaged over ``data`` (each rank's loss is its rows' estimate
+        of the whole batch's)."""
         model = state.model
         for p in model.parameters():
             p.grad = None
@@ -193,20 +302,33 @@ class VAETrainer:
                                                      with_grad_factors=True)
             leaves = {k: v.detach().requires_grad_() for k, v in inv.items()}
         with attach_inv_sigmas(model, leaves):
-            loss, metrics = self.loss_fn(model, batch, beta, generator)
+            loss, metrics = self.loss_fn(model, batch, beta, generator, noise_rows)
             loss.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in model.named_parameters()}
         if self.use_sn:
             add_sigma_rank1_grads(grads, {k: v.grad for k, v in leaves.items()}, factors)
+        if noise_rows is not None:
+            group, d = self.mesh.group("data"), self.mesh.shape["data"]
+            collectives.all_reduce_grads(grads, group, d)
+            vals = collectives.mean_over_(torch.stack([metrics[k] for k in STEP_METRICS[:-1]]),
+                                          group, d)
+            metrics = {k: vals[i] for i, k in enumerate(STEP_METRICS[:-1])}
         return metrics, new_u, grads
 
     def _apply(self, state: VAETrainState, batch: torch.Tensor, beta: float,
-               lr: float, precomputed=None) -> Dict[str, torch.Tensor]:
+               lr: float, precomputed=None, noise_rows=None) -> Dict[str, torch.Tensor]:
         metrics, state.sn_u, grads = self.loss_and_grads(state, batch, beta,
-                                                         precomputed=precomputed)
+                                                         precomputed=precomputed,
+                                                         noise_rows=noise_rows)
         params = dict(state.model.named_parameters())
+        norm = None
+        if state.layout is not None:  # over every block, each leaf once
+            norm = collectives.global_grad_norm(grads, state.layout.params,
+                                                state.layout.group)
         metrics["grad_norm"] = self.opt.apply(grads, state.opt_state, params, lr)
+        if norm is not None:
+            metrics["grad_norm"] = norm
         return metrics
 
     # -- batches -------------------------------------------------------------
@@ -218,9 +340,15 @@ class VAETrainer:
         return t
 
     def assemble_batch(self, data: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-        """Rows ``idx`` of ``data``, augmented against random partner rows."""
+        """Rows ``idx`` of ``data``, augmented against random partner rows.
+        On a mesh ``data`` is the resident layout of
+        ``ops.gather_augment.dataset_replicated_rows`` and the batch comes
+        back as this rank's block (:meth:`_rows`); everything is drawn for
+        the whole batch on every rank."""
         n, bsz = data.shape[0], len(idx)
         pidx = self.rng.integers(0, n, bsz)
+        rows = self._rows(bsz)
+        block = None if rows is None else slice(rows[0], rows[0] + bsz // self.mesh.shape["data"])
         if self.aug.fusable:
             a = self.aug
             scalars = draw_augment_scalars(
@@ -228,10 +356,15 @@ class VAETrainer:
                 scaling_prob=a.scaling_prob, scaling_range=a.scaling_range,
                 mixup_prob=a.mixup_prob, mixup_alpha=a.mixup_alpha)
             seed = int(self.rng.integers(0, 2 ** 31 - 1))
-            return gather_augment(
-                data, self._to_device(idx.astype(np.int32)),
-                self._to_device(pidx.astype(np.int32)), seed,
-                *(self._to_device(v) for v in scalars), generator=self.generator)
+            vecs = (self._to_device(idx.astype(np.int32)),
+                    self._to_device(pidx.astype(np.int32)), seed,
+                    *(self._to_device(v) for v in scalars))
+            if self.mesh is not None:
+                return gather_augment_sharded(self.mesh, data, *vecs, rows=block,
+                                              node_parts=self.parts)
+            return gather_augment(data, *vecs, generator=self.generator)
+        if block is not None:
+            idx, pidx = idx[block], pidx[block]
         batch = data.index_select(0, self._to_device(idx.astype(np.int64)))
         partner = data.index_select(0, self._to_device(pidx.astype(np.int64)))
         return augment_batch(batch, partner, self.aug, self.generator)
@@ -277,7 +410,9 @@ class VAETrainer:
                                                       compute_dtype=self._sn_dtype(),
                                                       with_grad_factors=True)
             sn_pre = (inv, factors)
-        steps = [self._apply(state, self.assemble_batch(data, idx), beta, lr, sn_pre)
+        rows = self._rows(bsz)
+        steps = [self._apply(state, self.assemble_batch(data, idx), beta, lr, sn_pre,
+                             noise_rows=rows)
                  for idx in perm]
         state.epoch += 1
         return state, self._epoch_metrics(steps, beta, lr)
@@ -295,7 +430,9 @@ class VAETrainer:
                    partner: torch.Tensor):
         """One step on a given batch and mixup partner (the plain
         augmentation), as the JAX streaming step: the power iteration runs in
-        every step whatever the cadence; the epoch does not advance."""
+        every step whatever the cadence; the epoch does not advance. One device only."""
+        if self.mesh is not None:
+            raise NotImplementedError("the streaming step runs on one device, not on a mesh")
         beta, lr = self._schedules(state.epoch)
         batch = augment_batch(batch, partner, self.aug, self.generator)
         metrics = self._apply(state, batch, beta, lr)
@@ -403,6 +540,7 @@ class VAETrainer:
         num_batches = max(-(-n // bsz), 1)
         beta, _ = self._schedules(state.epoch)
         idx = torch.arange(num_batches * bsz, device=data.device) % n
+        rows = self._rows(bsz)  # on a mesh: this rank's rows, the metrics averaged
         gen = torch.Generator(self.device).manual_seed(self.seed * 1000003 + state.epoch)
         inv = {}
         if self.use_sn:
@@ -410,19 +548,25 @@ class VAETrainer:
                                     compute_dtype=self._sn_dtype())
         total = None
         with attach_inv_sigmas(state.model, inv):
-            for rows in idx.reshape(num_batches, bsz):
-                _, m = self.loss_fn(state.model, data.index_select(0, rows), beta, gen)
+            for take in idx.reshape(num_batches, bsz):
+                if rows is not None:
+                    take = take[rows[0]: rows[0] + bsz // self.mesh.shape["data"]]
+                _, m = self.loss_fn(state.model, data.index_select(0, take), beta, gen, rows)
                 vals = torch.stack([m[k].float() for k in STEP_METRICS[:-1]])
                 total = vals if total is None else total + vals
         mean = total / num_batches
+        if rows is not None:
+            collectives.mean_over_(mean, self.mesh.group("data"), self.mesh.shape["data"])
         return {k: mean[i] for i, k in enumerate(STEP_METRICS[:-1])}
 
     @torch.no_grad()
     def eval_params(self, state: VAETrainState) -> VAE:
         """A copy of the model whose spectrally normalised kernels are divided
         by their sigma (stored ``u``, no update): the parameters to serve
-        with, as the JAX ``eval_params``."""
-        model = self.build_model()
+        with, as the JAX ``eval_params``. On a mesh the whole model, on every
+        rank (:meth:`gather_state`)."""
+        state = self.gather_state(state)
+        model = self.build_model(full=True)
         model.load_state_dict(state.model.state_dict())
         if self.use_sn:
             normed, _ = spectral_normalize(state.model, state.sn_u, update=False,
@@ -433,6 +577,16 @@ class VAETrainer:
         return model
 
     # -- fit -----------------------------------------------------------------
+
+    def _preempted(self) -> bool:
+        """``preemption.requested()``, agreed over a mesh: true on every rank
+        when any asked (and then set on each, for the caller's exit code)."""
+        stop = preemption.requested()
+        if self.mesh is not None:
+            stop = collectives.agree_any(stop, self.mesh.everyone(), self.device)
+            if stop and not preemption.requested():
+                preemption.request()
+        return stop
 
     @staticmethod
     def _read_back(per_epoch: List[Dict]) -> Dict[str, np.ndarray]:
@@ -451,7 +605,7 @@ class VAETrainer:
             val_split: float = 0.2, val_every: int = 20,
             log_fn: Optional[Callable[[int, Dict], None]] = None,
             epochs: Optional[int] = None, stream: bool = False, ckpt_manager=None,
-            nan_guard: bool = True, nan_guard_max_retries: int = 2):
+            nan_guard: bool = True, nan_guard_max_retries: int = 2, mesh=None):
         """Train on ``data`` [P, T, N] (numpy or tensor) with an 80/20 split,
         validating every ``val_every`` epochs and after the last. Returns
         ``(state, history)``, history holding per-epoch numpy arrays.
@@ -467,9 +621,22 @@ class VAETrainer:
         device-sized subset. A preemption request (``utils.preemption``) stops
         the run after the current span with a forced save; ``fit(state=...)``
         on the restored state continues from that epoch with the generators'
-        saved states."""
+        saved states.
+
+        ``mesh`` (or an earlier :meth:`set_mesh`) trains on a mesh: every rank
+        calls ``fit`` with the same arguments and the whole ``data``; the
+        state (a whole one is split) and the resident rows are laid out for
+        the mesh, the NaN decision reads the averaged losses, a preemption
+        requested on any rank stops every rank after the same span, and a
+        checkpoint holds the whole state. ``stream=True`` is refused there."""
         cfg = self.cfg
         epochs = cfg.n_epochs if epochs is None else epochs
+        if mesh is not None:
+            self.set_mesh(mesh)
+        if self.mesh is not None and stream:
+            raise NotImplementedError(
+                "stream=True runs on one device; on a mesh of several ranks every rank "
+                "keeps the dataset resident (load_all=1)")
         n = data.shape[0]
         n_val = int(n * val_split)
         perm = np.random.default_rng(seed).permutation(n)
@@ -482,11 +649,14 @@ class VAETrainer:
                         else data_train)[:val_cap]
             data_val = val_rows.to(self.device, self.dtype)
         else:
-            data = torch.as_tensor(data).to(self.device, self.dtype)
+            data = torch.as_tensor(data)
+            if self.mesh is not None:  # every row, this rank's nodes
+                data = dataset_replicated_rows(data, self.mesh, self.parts)
+            data = data.to(self.device, self.dtype)
             data_train = data.index_select(0, torch.as_tensor(train_idx, device=self.device))
             data_val = (data.index_select(0, torch.as_tensor(val_idx, device=self.device))
                         if n_val else data_train)
-        state = self.init_state(seed) if state is None else state
+        state = self.init_state(seed) if state is None else self.shard_state(state)
         if state.rng is not None:
             self.load_rng_state(state.rng)
 
@@ -545,7 +715,7 @@ class VAETrainer:
                     log_fn(epoch + j, m)
             save()
             epoch += span
-            if preemption.requested():
+            if self._preempted():
                 break  # cooperative stop: the forced save below, then return
 
         save(force=True)

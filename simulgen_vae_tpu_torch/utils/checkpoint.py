@@ -11,6 +11,13 @@ a file; it is synchronous, and :meth:`CheckpointManager.wait` is there for the
 interface. The newest ``max_to_keep`` files are kept. Reading the JAX
 package's orbax checkpoints is not this module's job.
 
+A state split over a mesh (``state.layout``, ``parallel.sharding``) is
+saved whole, in the same format: rank 0 decides whether to save and tells
+every rank, the blocks are gathered over the model axis, rank 0 writes the
+file and every rank waits for it. Restore reads the file on every rank and
+slices each rank's block, so a checkpoint moves between mesh shapes and one
+device, as orbax reshards in JAX.
+
 The trained models of ``model_save/`` (``SimulGen-VAE``,
 ``LatentConditioner``) are flax msgpack files: :func:`load_flax_model` and
 :func:`save_flax_model` read and write them without flax
@@ -34,6 +41,12 @@ _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
 def _to_cpu(tree: dict) -> dict:
     return {k: v.detach().cpu() for k, v in tree.items()}
+
+
+def _payload_trees(state: Any):
+    """``(params, mu, nu, sn_u)`` of a state on one device."""
+    return (dict(state.model.named_parameters()), state.opt_state["mu"],
+            state.opt_state["nu"], state.sn_u)
 
 
 def _copy_into(dst: dict, src: dict, what: str) -> None:
@@ -69,18 +82,43 @@ class CheckpointManager:
 
     def maybe_save(self, state: Any, epoch: int, force: bool = False) -> bool:
         """Save at multiples of the interval (or when forced), unless this
-        epoch is the newest one saved already."""
+        epoch is the newest one saved already. On a mesh every rank calls
+        it: a collective."""
+        layout = getattr(state, "layout", None)
+        if layout is None:
+            if not self._due(epoch, force):
+                return False
+            self._write(state, epoch, *_payload_trees(state))
+            return True
+        from simulgen_vae_tpu_torch.parallel import collectives, sharding
+
+        mesh = layout.mesh
+        everyone = mesh.everyone()
+        device = next(state.model.parameters()).device
+        if not collectives.broadcast_flag(mesh.rank == 0 and self._due(epoch, force),
+                                          everyone, 0, device):
+            return False
+        if mesh.coords["data"] == 0:  # the first line of the model axis holds it all
+            trees = sharding.gather_payload(state)
+            if mesh.rank == 0:
+                self._write(state, epoch, *trees)
+        if everyone is not None:
+            collectives.all_reduce_(torch.zeros(1, device=device), everyone)  # the file is there
+        return True
+
+    def _due(self, epoch: int, force: bool) -> bool:
         if not force and epoch % self.save_interval != 0:
             return False
-        if self.latest_step() == epoch:
-            return False
+        return self.latest_step() != epoch
+
+    def _write(self, state: Any, epoch: int, params, mu, nu, sn_u) -> None:
         payload = {
-            "params": _to_cpu(dict(state.model.named_parameters())),
+            "params": _to_cpu(params),
             "buffers": _to_cpu(dict(state.model.named_buffers())),
-            "mu": _to_cpu(state.opt_state["mu"]),
-            "nu": _to_cpu(state.opt_state["nu"]),
+            "mu": _to_cpu(mu),
+            "nu": _to_cpu(nu),
             "count": int(state.opt_state["count"]),
-            "sn_u": _to_cpu(state.sn_u),
+            "sn_u": _to_cpu(sn_u),
             "epoch": int(state.epoch),
             "rng": state.rng,
         }
@@ -89,7 +127,6 @@ class CheckpointManager:
         os.replace(tmp, self._path(epoch))
         for old in self.steps()[:-self.max_to_keep] if self.max_to_keep else []:
             os.remove(self._path(old))
-        return True
 
     def save(self, state: Any, epoch: int) -> None:
         self.maybe_save(state, epoch, force=True)
@@ -97,11 +134,20 @@ class CheckpointManager:
     def restore(self, state: Any, step: Optional[int] = None) -> Any:
         """Load the checkpoint of ``step`` (default: the newest) into ``state``
         (one from ``init_state`` works): its tensors are overwritten in place,
-        on its device, and the same object is returned."""
+        on its device, and the same object is returned. A state split over a
+        mesh receives its blocks of the whole tensors."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
         payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        layout = getattr(state, "layout", None)
+        if layout is not None:
+            from simulgen_vae_tpu_torch.parallel import sharding
+
+            for part, dims in (("params", layout.params), ("mu", layout.params),
+                               ("nu", layout.params), ("sn_u", layout.sn_u)):
+                payload[part] = {k: sharding.block(v, dims.get(k), layout.index, layout.parts)
+                                 for k, v in payload[part].items()}
         with torch.no_grad():
             _copy_into(dict(state.model.named_parameters()), payload["params"], "params")
             _copy_into(dict(state.model.named_buffers()), payload.get("buffers", {}), "buffers")

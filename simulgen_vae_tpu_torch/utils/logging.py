@@ -1,12 +1,15 @@
 """Metrics logging (``simulgen_vae_tpu/utils/logging.py``): one console line
 per epoch in the reference's format, and TensorBoard scalars where
 tensorboardX is installed (the card's machine has none: the logger then
-writes the console only). tensorboardX and PIL are imported at first use."""
+writes the console only). tensorboardX and PIL are imported at first use.
+On a mesh only rank 0 writes either (``parallel.is_primary``)."""
 
 from __future__ import annotations
 
 import logging
 from typing import Dict, Optional
+
+from simulgen_vae_tpu_torch.parallel.mesh import is_primary
 
 LOG_FORMAT = "%(asctime)s - %(levelname)s - %(message)s"
 
@@ -29,17 +32,20 @@ class MetricsLogger:
     lines through :mod:`logging`."""
 
     def __init__(self, log_dir: str = "./runs", name: str = "VAE",
-                 console: bool = True, samples_per_epoch: Optional[int] = None):
+                 console: bool = True, samples_per_epoch: Optional[int] = None,
+                 n_chips: int = 1):
         self.name = name
-        self.console = console
+        self.console = console and is_primary()
         self.samples_per_epoch = samples_per_epoch
+        self.n_chips = max(n_chips, 1)
         self.writer = None
         try:
             from tensorboardX import SummaryWriter
         except ImportError:
             pass
         else:
-            self.writer = SummaryWriter(log_dir=log_dir, comment=name)
+            if is_primary():
+                self.writer = SummaryWriter(log_dir=log_dir, comment=name)
         logging.basicConfig(level=logging.INFO, format=LOG_FORMAT)
         self.logger = logging.getLogger(name)
 
@@ -47,8 +53,8 @@ class MetricsLogger:
             total_epochs: Optional[int] = None) -> None:
         metrics = dict(metrics)
         if self.samples_per_epoch and metrics.get("epoch_time"):
-            # one device: per chip as the JAX logger names it
-            metrics["samples_per_sec_per_chip"] = self.samples_per_epoch / metrics["epoch_time"]
+            metrics["samples_per_sec_per_chip"] = (
+                self.samples_per_epoch / metrics["epoch_time"] / self.n_chips)
         if self.writer is not None:
             for k, v in metrics.items():
                 try:

@@ -12,8 +12,9 @@ columns, 6 + 6 epochs), with ``--device cpu``:
 * with matplotlib blocked through ``sys.modules`` each PNG set is skipped
   with one line, and ``--plot 1`` refuses before training;
 * a requested preemption exits 75 and ``--auto_resume`` finishes the run;
-* no CUDA fallback, and the option not ported (a mesh) refuses
-  (``image_pca`` trains: ``tests/test_torch_cli_pca.py``).
+* no CUDA fallback, and a mesh larger than the ranks started refuses before
+  any file is written, as JAX's ``make_mesh`` does (meshes under torchrun:
+  ``tests/test_torch_mesh_cli.py``).
 """
 
 import inspect
@@ -191,9 +192,11 @@ def test_default_device_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("changes, args, match", [
     # image and image_pca inputs train (tests/test_torch_cli_images.py,
-    # test_torch_cli_pca.py), but not on a mesh
-    ((("input_type\tcsv", "input_type\timage"),), ("--mesh_data", "2"), "Queue 1 item 7"),
-    ((), ("--mesh_data", "2"), "Queue 1 item 7"),
+    # test_torch_cli_pca.py), and meshes under torchrun (test_torch_mesh_cli.py);
+    # without it there is one rank, which a 2 x 1 mesh exceeds
+    ((("input_type\tcsv", "input_type\timage"),), ("--mesh_data", "2"),
+     "mesh 2x1 exceeds 1 ranks"),
+    ((), ("--mesh_data", "2"), "mesh 2x1 exceeds 1 ranks"),
 ], ids=["image", "mesh"])
 def test_unported_options_refuse(tmp_path, changes, args, match):
     condition = CONDITION
@@ -201,6 +204,6 @@ def test_unported_options_refuse(tmp_path, changes, args, match):
         assert change[0] in condition
         condition = condition.replace(*change)
     root = _write_inputs(tmp_path, condition)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         _main(root, "--lc_only=0", *args)
     assert not (root / "model_save").exists()

@@ -87,7 +87,8 @@ def test_best_of_attempts_keeps_the_least_mse(port_vae, data, monkeypatch):
     """recon_iter = 3 in the port: the decode made deterministic, the drawn z
     recorded; each attempt's MSE recomputed from its z."""
     real, drawn = trec.reparameterize, []
-    monkeypatch.setattr(tdecoder, "reparameterize", lambda mu, std, generator=None: mu)
+    monkeypatch.setattr(tdecoder, "reparameterize",
+                        lambda mu, std, generator=None, rows=None: mu)
 
     def record(mu, std, generator=None):
         drawn.append(real(mu, std, generator))

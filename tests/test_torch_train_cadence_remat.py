@@ -80,7 +80,7 @@ def jax_run():
 def _fixed_noise(monkeypatch, noises):
     it = iter(noises)
 
-    def fixed(mu, std, generator=None):
+    def fixed(mu, std, generator=None, rows=None):
         return mu + torch.from_numpy(next(it)) * std.clamp(1e-8, 10.0)
 
     monkeypatch.setattr(tvae, "reparameterize", fixed)

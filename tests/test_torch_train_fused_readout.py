@@ -85,7 +85,7 @@ def jax_run(request):
 def _port_grads(run, fused: bool, monkeypatch):
     it = iter(run.noises)
 
-    def fixed(mu, std, generator=None):
+    def fixed(mu, std, generator=None, rows=None):
         return mu + torch.from_numpy(next(it)) * std.clamp(1e-8, 10.0)
 
     monkeypatch.setattr(tvae, "reparameterize", fixed)

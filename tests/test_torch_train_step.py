@@ -91,7 +91,7 @@ def test_loss_and_grads_match_jax(jax_run, monkeypatch, route):
         monkeypatch.setattr(tgg, name, fn)
     it = iter(jax_run.noises)
 
-    def fixed(mu, std, generator=None):
+    def fixed(mu, std, generator=None, rows=None):
         return mu + torch.from_numpy(next(it)) * std.clamp(1e-8, 10.0)
 
     monkeypatch.setattr(tvae, "reparameterize", fixed)
