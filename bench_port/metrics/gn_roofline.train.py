@@ -1,0 +1,9 @@
+"""The least time of a train step's GroupNorm-plus-activation work (every
+map's x read and y written once forward; x and dy read and dx written once
+backward; at the HBM peak) over the device time of the gn_* kernels."""
+
+from benchlib.readers import gn_roofline
+
+
+def read(run):
+    return gn_roofline(run, train=True)
