@@ -1,0 +1,9 @@
+"""Device idle milliseconds a step under ``train.optimizer``: pointer tables,
+gradient norm, AdamW sweeps. From the program's spans over the profiled
+window (``benchlib.spans``); None where they are missing or misaligned."""
+
+from benchlib import spans
+
+
+def read(run):
+    return spans.phase_idle_ms(run, "train.optimizer")

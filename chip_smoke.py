@@ -3547,13 +3547,13 @@ def mesh_rank(rank: int, world: int, init: str, data_ax: int, model_ax: int, see
     from simulgen_vae_tpu_torch import generate as tgen
     from simulgen_vae_tpu_torch.data.augmentation import AugmentationConfig
     from simulgen_vae_tpu_torch.parallel import (
-        collectives,
         initialize_distributed,
         make_mesh,
         sharding,
         sync_processes,
     )
     from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
+    from simulgen_vae_tpu_torch.utils import profiling
     from simulgen_vae_tpu_torch.utils.checkpoint import CheckpointManager
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3603,29 +3603,30 @@ def mesh_rank(rank: int, world: int, init: str, data_ax: int, model_ax: int, see
     trainer = VAETrainer(cfg, device=device, seed=seed)
     ckpt_dir = Path(work) / f"mesh_ckpt_{data_ax}x{model_ax}"
     mgr = CheckpointManager(str(ckpt_dir), save_interval_epochs=MESH_EPOCHS)
-    step_ms, coll_ms, real_apply = [], [], trainer._apply
+    step_ms, real_apply = [], trainer._apply
 
     def timed_apply(*a, **k):
         torch.cuda.synchronize()
-        t0, c0 = time.perf_counter(), collectives.STATS["seconds"]
+        t0 = time.perf_counter()
         metrics = real_apply(*a, **k)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        coll_ms.append((collectives.STATS["seconds"] - c0) * 1e3)
         return metrics
 
     trainer._apply = timed_apply
     torch.cuda.reset_peak_memory_stats(device)
     _reset_train_counts()
     t0 = time.perf_counter()
-    state, hist = trainer.fit(data, seed=seed, epochs=MESH_EPOCHS, val_every=1,
-                              ckpt_manager=mgr, mesh=mesh)
-    torch.cuda.synchronize()
+    with profiling.recording() as rec:
+        state, hist = trainer.fit(data, seed=seed, epochs=MESH_EPOCHS, val_every=1,
+                                  ckpt_manager=mgr, mesh=mesh)
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    coll_ms = rec.seconds("collective.", within="train.step") * 1e3
     out["fit"] = dict(seconds=seconds, launches=_train_counts(), loss=hist["loss"].tolist(),
                       val_loss=hist["val_loss"].tolist(), grad_norm=hist["grad_norm"].tolist(),
                       steps=len(step_ms), step_p50_ms=float(np.median(step_ms)),
-                      collective_ms_per_step=float(np.mean(coll_ms)),
+                      collective_ms_per_step=coll_ms / len(step_ms),
                       peak_bytes=torch.cuda.max_memory_allocated(device))
     del data
 

@@ -35,6 +35,12 @@ returns, with the same requests): the decoder's node-sized leaves are split
 over ``model`` by the training rule (the readout's int8 scales with its
 kernel), requests over ``data`` where their count divides by it, and every
 rank returns the whole field, gathered over both axes.
+
+A call of the serving function and its phases are spans of
+``utils.profiling`` (``serve.request``, ``serve.chunk``,
+``serve.conditioner``, ``serve.decode`` with ``decoder.readout`` in it,
+``serve.descale``, ``serve.concat``), recorded only inside
+``profiling.recording()``; ``serve.requests`` counts the calls recorded.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from simulgen_vae_tpu_torch.models.vae import VAE
 from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
 from simulgen_vae_tpu_torch.parallel import collectives, sharding
 from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
+from simulgen_vae_tpu_torch.utils.profiling import span, tick
 
 def resolve_device(device=None) -> torch.device:
     """``cuda`` by default; raises when CUDA was asked for and is absent."""
@@ -259,16 +266,19 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
                 n = inputs.shape[0] // d
                 rows = (mesh.coords["data"] * n, inputs.shape[0])
                 inputs = inputs[rows[0]: rows[0] + n]
-        y1, y2 = lc(inputs)
-        z = lv.inverse_transform(y1)
-        b, nh, hd = y2.shape
-        xs_flat = xsc.inverse_transform(y2.reshape(b, nh * hd))
-        xs = [xs_flat.reshape(b, nh, hd)[:, i].to(dtype) for i in range(nh)]
-        # mode='fix' draws noise of std 1e-8; a fixed seed keeps it repeatable.
-        gen = torch.Generator(device).manual_seed(0)
-        field = vae.generate(z.to(dtype), xs, generator=gen, noise_rows=rows)
+        with span("serve.conditioner"):
+            y1, y2 = lc(inputs)
+            z = lv.inverse_transform(y1)
+            b, nh, hd = y2.shape
+            xs_flat = xsc.inverse_transform(y2.reshape(b, nh * hd))
+            xs = [xs_flat.reshape(b, nh, hd)[:, i].to(dtype) for i in range(nh)]
+        with span("serve.decode"):
+            # mode='fix' draws noise of std 1e-8; a fixed seed keeps it repeatable.
+            gen = torch.Generator(device).manual_seed(0)
+            field = vae.generate(z.to(dtype), xs, generator=gen, noise_rows=rows)
         if descale_output:
-            field = ds.inverse_transform(field.float())
+            with span("serve.descale"):
+                field = ds.inverse_transform(field.float())
         if mesh is not None:
             if parts > 1:
                 field = collectives.all_gather_cat(field, mesh.group("model"), 2)
@@ -278,18 +288,23 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
 
     @torch.inference_mode()
     def generate_fn(inputs) -> torch.Tensor:
-        x = torch.as_tensor(inputs, dtype=torch.float32, device=device)
-        n = x.shape[0]
-        if n <= max_batch:
-            return run(x)
-        chunks = []
-        for start in range(0, n, max_batch):
-            chunk = x[start: start + max_batch]
-            got = chunk.shape[0]
-            if got < max_batch:  # pad to the one call shape, slice after
-                chunk = torch.cat([chunk, chunk[-1:].expand(max_batch - got, -1)])
-            chunks.append(run(chunk)[:got])
-        return torch.cat(chunks)
+        with span("serve.request", tick("serve.requests")):
+            x = torch.as_tensor(inputs, dtype=torch.float32, device=device)
+            n = x.shape[0]
+            if n <= max_batch:
+                with span("serve.chunk"):
+                    return run(x)
+            chunks = []
+            for start in range(0, n, max_batch):
+                chunk = x[start: start + max_batch]
+                got = chunk.shape[0]
+                if got < max_batch:  # pad to the one call shape, slice after
+                    with span("serve.concat"):
+                        chunk = torch.cat([chunk, chunk[-1:].expand(max_batch - got, -1)])
+                with span("serve.chunk"):
+                    chunks.append(run(chunk)[:got])
+            with span("serve.concat"):
+                return torch.cat(chunks)
 
     return generate_fn
 

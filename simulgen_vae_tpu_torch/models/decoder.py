@@ -41,6 +41,7 @@ from simulgen_vae_tpu_torch.models.blocks import (
     ResidualBlock,
     gelu,
 )
+from simulgen_vae_tpu_torch.utils.profiling import span
 
 
 def reparameterize(mu: torch.Tensor, std: torch.Tensor,
@@ -165,6 +166,7 @@ class Decoder(nn.Module):
                 z = reparameterize(mu, std, generator, rows=noise_rows)
             zs.append(z)
 
-        out = self.recon(decoder_out, x_target=x_target, lossfun=lossfun,
-                         readout_bwd=readout_bwd)
+        with span("decoder.readout"):
+            out = self.recon(decoder_out, x_target=x_target, lossfun=lossfun,
+                             readout_bwd=readout_bwd)
         return out, kl_losses, zs

@@ -22,8 +22,9 @@ from typing import List, Sequence
 import torch
 
 from simulgen_vae_tpu_torch.ops import _build
+from simulgen_vae_tpu_torch.utils import profiling
 
-LAUNCHES = {"fused_adamw": 0}
+LAUNCHES = profiling.register({"fused_adamw": 0})
 
 STORE_CODES = {"float32": 0, "bfloat16_rtn": 1, "bfloat16": 2}
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint

@@ -27,8 +27,9 @@ import numpy as np
 import torch
 
 from simulgen_vae_tpu_torch.ops import _build
+from simulgen_vae_tpu_torch.utils import profiling
 
-LAUNCHES = {"gather_augment": 0}
+LAUNCHES = profiling.register({"gather_augment": 0})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint

@@ -44,9 +44,10 @@ import torch
 import torch.nn.functional as F
 
 from simulgen_vae_tpu_torch.ops import _build
+from simulgen_vae_tpu_torch.utils import profiling
 
-LAUNCHES = {"gn_act_onepass": 0, "gn_stats": 0, "gn_apply": 0,
-            "gn_bwd_onepass": 0, "gn_bwd_stats": 0, "gn_bwd_apply": 0}
+LAUNCHES = profiling.register({"gn_act_onepass": 0, "gn_stats": 0, "gn_apply": 0,
+                               "gn_bwd_onepass": 0, "gn_bwd_stats": 0, "gn_bwd_apply": 0})
 
 # Largest dynamic shared memory one block may opt into on an H100 (227 KB).
 ONEPASS_SMEM_LIMIT = 232448

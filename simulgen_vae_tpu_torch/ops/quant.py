@@ -36,7 +36,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-LAUNCHES = {"int8_mm": 0}
+from simulgen_vae_tpu_torch.utils import profiling
+
+LAUNCHES = profiling.register({"int8_mm": 0})
 
 
 def reset_launch_counts() -> None:

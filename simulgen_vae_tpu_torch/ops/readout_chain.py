@@ -62,9 +62,11 @@ from simulgen_vae_tpu_torch.ops.groupnorm_gelu import (
     _raise_on,
     _stream,
 )
+from simulgen_vae_tpu_torch.utils import profiling
 
-LAUNCHES = {"readout_matmul_stats": 0, "readout_loss": 0, "readout_bwd_stats": 0,
-            "readout_bwd_dy": 0, "readout_bwd_fused": 0}
+LAUNCHES = profiling.register({"readout_matmul_stats": 0, "readout_loss": 0,
+                               "readout_bwd_stats": 0, "readout_bwd_dy": 0,
+                               "readout_bwd_fused": 0})
 BWD_FLAVORS = ("fused", "materialize")
 
 # smoothL1 (beta = 1) and Huber (delta = 1) are one function.

@@ -18,34 +18,31 @@ nothing when it is None (an axis of one rank).
 * :func:`global_grad_norm`: split leaves summed over ``model``, replicated
   leaves counted once.
 
-``STATS`` counts the calls and the host time spent in them (a rank's time
-blocked in a collective, which includes waiting for the other ranks).
+Each call into ``torch.distributed`` is a span of ``utils.profiling``
+(``collective.all_reduce``, ``collective.all_gather``,
+``collective.broadcast``), recorded inside ``profiling.recording()``: on the
+host's clock, from the call to its return, which on NCCL is when the
+collective is queued, not done; a trace's kernels launched inside the span
+show its device time.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, Iterable, List
 
 import torch
 import torch.distributed as dist
 
+from simulgen_vae_tpu_torch.utils.profiling import span
+
 BUCKET_ELEMENTS = 1 << 26
-STATS = {"calls": 0, "seconds": 0.0}
-
-
-def _timed(fn, *args, **kwargs):
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    STATS["calls"] += 1
-    STATS["seconds"] += time.perf_counter() - t0
-    return out
 
 
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In-place all-reduce of ``t`` over ``group`` (nothing for None)."""
     if group is not None:
-        _timed(dist.all_reduce, t, op=op, group=group)
+        with span("collective.all_reduce"):
+            dist.all_reduce(t, op=op, group=group)
     return t
 
 
@@ -56,14 +53,16 @@ def all_gather_cat(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    _timed(dist.all_gather, parts, t, group=group)
+    with span("collective.all_gather"):
+        dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 
 
 def broadcast_(t: torch.Tensor, group, src_rank: int) -> torch.Tensor:
     """In-place broadcast from global rank ``src_rank`` of ``group``."""
     if group is not None:
-        _timed(dist.broadcast, t, src=src_rank, group=group)
+        with span("collective.broadcast"):
+            dist.broadcast(t, src=src_rank, group=group)
     return t
 
 

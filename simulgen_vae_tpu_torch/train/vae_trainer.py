@@ -60,6 +60,12 @@ off on a mesh of more than one rank and streaming is refused there, as in
 the JAX trainer's multi-process runs. Checkpoints hold the whole state in
 the one-device format (``utils.checkpoint``).
 
+Each epoch, step and phase of a step is a span of ``utils.profiling``
+(``train.epoch``, ``train.step``, ``train.assemble``, ``train.fetch``,
+``train.sn``, ``train.forward``, ``train.backward``, ``train.optimizer``),
+recorded only inside ``profiling.recording()``; ``train.steps`` counts the
+steps recorded.
+
 Not ported yet: CUDA graphs over an epoch's steps.
 """
 
@@ -97,6 +103,7 @@ from simulgen_vae_tpu_torch.train.nan_guard import rollback
 from simulgen_vae_tpu_torch.train.optim import FusedAdamW
 from simulgen_vae_tpu_torch.train.schedules import cosine_warm_restarts
 from simulgen_vae_tpu_torch.utils import preemption
+from simulgen_vae_tpu_torch.utils.profiling import span, tick
 
 STEP_METRICS = ("loss", "recon", "kl", "recon_mse", "grad_norm")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -297,17 +304,21 @@ class VAETrainer:
             if precomputed is not None:
                 inv, factors = precomputed
             else:
-                inv, new_u, factors = compute_sigmas(model, state.sn_u, update=True,
-                                                     compute_dtype=self._sn_dtype(),
-                                                     with_grad_factors=True)
+                with span("train.sn"):
+                    inv, new_u, factors = compute_sigmas(model, state.sn_u, update=True,
+                                                         compute_dtype=self._sn_dtype(),
+                                                         with_grad_factors=True)
             leaves = {k: v.detach().requires_grad_() for k, v in inv.items()}
         with attach_inv_sigmas(model, leaves):
-            loss, metrics = self.loss_fn(model, batch, beta, generator, noise_rows)
-            loss.backward()
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in model.named_parameters()}
+            with span("train.forward"):
+                loss, metrics = self.loss_fn(model, batch, beta, generator, noise_rows)
+            with span("train.backward"):
+                loss.backward()
+                grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                         for k, p in model.named_parameters()}
         if self.use_sn:
-            add_sigma_rank1_grads(grads, {k: v.grad for k, v in leaves.items()}, factors)
+            with span("train.sn"):
+                add_sigma_rank1_grads(grads, {k: v.grad for k, v in leaves.items()}, factors)
         if noise_rows is not None:
             group, d = self.mesh.group("data"), self.mesh.shape["data"]
             collectives.all_reduce_grads(grads, group, d)
@@ -321,12 +332,13 @@ class VAETrainer:
         metrics, state.sn_u, grads = self.loss_and_grads(state, batch, beta,
                                                          precomputed=precomputed,
                                                          noise_rows=noise_rows)
-        params = dict(state.model.named_parameters())
-        norm = None
-        if state.layout is not None:  # over every block, each leaf once
-            norm = collectives.global_grad_norm(grads, state.layout.params,
-                                                state.layout.group)
-        metrics["grad_norm"] = self.opt.apply(grads, state.opt_state, params, lr)
+        with span("train.optimizer"):
+            params = dict(state.model.named_parameters())
+            norm = None
+            if state.layout is not None:  # over every block, each leaf once
+                norm = collectives.global_grad_norm(grads, state.layout.params,
+                                                    state.layout.group)
+            metrics["grad_norm"] = self.opt.apply(grads, state.opt_state, params, lr)
         if norm is not None:
             metrics["grad_norm"] = norm
         return metrics
@@ -391,31 +403,36 @@ class VAETrainer:
         compute dtype); ``max_steps`` cuts it short. Returns ``(state,
         metrics)``: step means as 0-d device tensors, plus ``beta`` and ``lr``."""
         self._check_data(data)
-        n = data.shape[0]
-        bsz = min(self.cfg.batch_size, n)
-        num_batches = max(-(-n // bsz), 1)
-        pad = num_batches * bsz - n
-        beta, lr = self._schedules(state.epoch)
-        perm = self.rng.permutation(n)
-        if pad:
-            perm = np.concatenate([perm, perm[:pad]])
-        perm = perm.reshape(num_batches, bsz)
-        if max_steps is not None:
-            perm = perm[:max_steps]
-        # Per-epoch cadence: one power iteration at the epoch boundary, its
-        # sigmas and rank-1 factors reused by every step.
-        sn_pre = None
-        if self.use_sn and self.sn_per_epoch:
-            inv, state.sn_u, factors = compute_sigmas(state.model, state.sn_u, update=True,
-                                                      compute_dtype=self._sn_dtype(),
-                                                      with_grad_factors=True)
-            sn_pre = (inv, factors)
-        rows = self._rows(bsz)
-        steps = [self._apply(state, self.assemble_batch(data, idx), beta, lr, sn_pre,
-                             noise_rows=rows)
-                 for idx in perm]
-        state.epoch += 1
-        return state, self._epoch_metrics(steps, beta, lr)
+        with span("train.epoch"):
+            n = data.shape[0]
+            bsz = min(self.cfg.batch_size, n)
+            num_batches = max(-(-n // bsz), 1)
+            pad = num_batches * bsz - n
+            beta, lr = self._schedules(state.epoch)
+            perm = self.rng.permutation(n)
+            if pad:
+                perm = np.concatenate([perm, perm[:pad]])
+            perm = perm.reshape(num_batches, bsz)
+            if max_steps is not None:
+                perm = perm[:max_steps]
+            # Per-epoch cadence: one power iteration at the epoch boundary, its
+            # sigmas and rank-1 factors reused by every step.
+            sn_pre = None
+            if self.use_sn and self.sn_per_epoch:
+                with span("train.sn"):
+                    inv, state.sn_u, factors = compute_sigmas(
+                        state.model, state.sn_u, update=True,
+                        compute_dtype=self._sn_dtype(), with_grad_factors=True)
+                sn_pre = (inv, factors)
+            rows = self._rows(bsz)
+            steps = []
+            for idx in perm:
+                with span("train.step", tick("train.steps")):
+                    with span("train.assemble"):
+                        batch = self.assemble_batch(data, idx)
+                    steps.append(self._apply(state, batch, beta, lr, sn_pre, noise_rows=rows))
+            state.epoch += 1
+            return state, self._epoch_metrics(steps, beta, lr)
 
     @staticmethod
     def _epoch_metrics(steps: List[Dict[str, torch.Tensor]], beta: float, lr: float):
@@ -434,7 +451,8 @@ class VAETrainer:
         if self.mesh is not None:
             raise NotImplementedError("the streaming step runs on one device, not on a mesh")
         beta, lr = self._schedules(state.epoch)
-        batch = augment_batch(batch, partner, self.aug, self.generator)
+        with span("train.assemble"):
+            batch = augment_batch(batch, partner, self.aug, self.generator)
         metrics = self._apply(state, batch, beta, lr)
         metrics.update(beta=beta, lr=lr)
         return state, metrics
@@ -500,30 +518,34 @@ class VAETrainer:
             ready = side.record_event() if on_card else None
             return batch, partner, ready
 
-        metrics, done = [], []
-        nxt = fetch(0)
-        for i in range(steps):
-            batch, partner, ready = nxt
+        with span("train.epoch"):
+            metrics, done = [], []
+            with span("train.fetch"):
+                nxt = fetch(0)
+            for i in range(steps):
+                with span("train.step", tick("train.steps")):
+                    batch, partner, ready = nxt
+                    if on_card:
+                        main = torch.cuda.current_stream(self.device)
+                        main.wait_event(ready)
+                        for t in (batch, partner):
+                            if t is not None:
+                                t.record_stream(main)
+                    if partner is None:
+                        partner = batch.roll(1, dims=0)
+                    state, m = self.train_step(state, batch, partner)
+                    metrics.append(m)
+                    if on_card:
+                        done.append(torch.cuda.current_stream(self.device).record_event())
+                        if i >= 1:
+                            done[i - 1].synchronize()  # step i - 1 is over: its buffers are free
+                    if i + 1 < steps:
+                        with span("train.fetch"):
+                            nxt = fetch(i + 1)
             if on_card:
-                main = torch.cuda.current_stream(self.device)
-                main.wait_event(ready)
-                for t in (batch, partner):
-                    if t is not None:
-                        t.record_stream(main)
-            if partner is None:
-                partner = batch.roll(1, dims=0)
-            state, m = self.train_step(state, batch, partner)
-            metrics.append(m)
-            if on_card:
-                done.append(torch.cuda.current_stream(self.device).record_event())
-                if i >= 1:
-                    done[i - 1].synchronize()  # step i - 1 is over: its buffers are free
-            if i + 1 < steps:
-                nxt = fetch(i + 1)
-        if on_card:
-            side.synchronize()  # every copy out of the staging buffers is over
-        state.epoch += 1
-        return state, self._epoch_metrics(metrics, metrics[0]["beta"], metrics[0]["lr"])
+                side.synchronize()  # every copy out of the staging buffers is over
+            state.epoch += 1
+            return state, self._epoch_metrics(metrics, metrics[0]["beta"], metrics[0]["lr"])
 
     # -- evaluation ----------------------------------------------------------
 
