@@ -40,17 +40,28 @@ Phases, each printing its own lines; any failure exits non-zero:
              resident samples of 200 x 95008 made on the card from --seed,
              encoder filters 1024 512 256 128, batch 16, bf16 compute, f32
              master weights and AdamW moments, spectral norm every step,
-             default augmentation) through VAETrainer.train_epoch: two
-             warm-up steps, then each train kernel (gather_augment,
+             default augmentation) through VAETrainer.train_epoch, whose
+             steps are replays of one captured CUDA graph: first two
+             trainers from one state and seed, one through the eager step
+             (VAETrainer.eager_step), one through the graph path, over two
+             epochs (8 steps: 1 eager, the capture, 7 replays): each step's
+             loss and the largest parameter, moment and power-iteration
+             vector difference (must be 0), then each side's p50 ms a step
+             (epochs back to back, in turns), launch calls a step in a
+             profiler trace and the capture and replay counters; two
+             warm-up steps (the second captured: its launch counts are one
+             step's), then each train kernel (gather_augment,
              gn_bwd_onepass, gn_bwd_stats, gn_bwd_apply) against its plain
              version at every shape the step gives it, in f32 and bf16
              (gn_bwd_onepass and gn_bwd_stats: two calls the same bits;
              gn_bwd_onepass also at its engage rule's edge, f32, T = 1, G =
              16), and profiler traces of both: B x 8 blocks launched by
-             cudaLaunchKernelEx, gn_bwd_stats one kernel a call; two
-             epochs (8 steps) whose loss and gradient norm must be finite and
-             in which every train kernel must launch (gather_augment once per
-             step); one step's loss and gradients through the kernels against
+             cudaLaunchKernelEx, gn_bwd_stats one kernel a call; an epoch of
+             4 replays in a profiler trace whose loss and gradient norm must
+             be finite, every train kernel in the captured step
+             (gather_augment once) and the replays' kernels, counted in the
+             trace, the captured step's times the replays; one
+             step's loss and gradients through the kernels against
              the plain versions from the same state, batch and noise (bf16:
              loss within 1e-2 relative; f32 with TF32 off: loss within 1e-4,
              every gradient within rel-L2 1e-3); then the step's p50 and each
@@ -65,9 +76,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              f32 and bf16 at the flagship readout shape (B=16, T=200, F=1024,
              C=95008, G=8) and two small ragged ones (readout_matmul_stats:
              two calls the same bits); the same configuration,
-             data and seed as phase 5 trained for one epoch (4 steps) with
-             finite losses, each new kernel launched once per step and no
-             GroupNorm kernel launched at C = 95008; one step from one state,
+             data and seed as phase 5 trained for one epoch (4 replays of
+             the captured step, in a profiler trace) with finite losses, each
+             new kernel launched once a step (counted in the trace), the
+             replays launching the captured step's kernels and no GroupNorm
+             kernel launched at C = 95008; one step from one state,
              batch and noise three ways (fused kernels, fused plain versions,
              unfused route; f32 with TF32 off: loss within 1e-4, every
              gradient and the readout's inv_sigma gradient within rel-L2 1e-3;
@@ -324,6 +337,13 @@ BWD_SUM_OPS, BWD_DX_OPS = 8, 4       # four column sums; dx from dxn, m1, m2, in
 MIX_OPS, NOISE_OPS = 5, 33           # amp + mixup; Philox (25) + Box-Muller (8)
 LOSS_OPS, LOSS_GRAD_OPS = 5, 8       # loss and squared error; dl/do, (1 - o^2), da
 TRAIN_SAMPLES, TRAIN_EPOCHS, STEP_TIMING = 64, 1, 10
+GRAPH_EPOCHS, GRAPH_TIMING = 2, 6   # graph_against_eager: epochs compared, epochs timed a side
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
+                "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+# The trace names of the kernels an op's call launches and how many it
+# launches (traced_launches); every other op launches one, "<op>_kernel".
+OP_KERNELS = {"readout_matmul_stats": ("matmul_stats_finalize(_flat)?_kernel", 1),
+              "readout_bwd_fused": ("fused_(bf16|f32)_kernel", 2)}
 READOUT_F, READOUT_C, READOUT_G = 1024, 95008, 8
 # The times of five kernels' earlier designs (one block per sample; an
 # mma.sync tile fed by cp.async; one thread a column and a second launch) on
@@ -335,6 +355,13 @@ EARLIER_MS = {"gn_act_onepass": 0.331, "readout_matmul_stats": 3.723, "gn_bwd_on
 # The launches per step those two earlier times cover: #3 at C = 128 and 256;
 # #6 from C = 512 up (the C = 512 maps take #3 now).
 EARLIER_LAUNCHES = {"gn_bwd_onepass": 8, "gn_bwd_stats": 17}
+
+
+def seed_tensor(seed: int) -> torch.Tensor:
+    """A noise seed as ``gather_augment`` reads it: one int32 word on the card."""
+    from simulgen_vae_tpu_torch.ops.gather_augment import seed_word
+
+    return torch.tensor([seed_word(seed)], dtype=torch.int32, device="cuda")
 
 
 def card_line() -> str:
@@ -427,6 +454,22 @@ def kernel_rows(prof) -> list:
 
     return [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and WARM_KERNEL not in e.key]
+
+
+def traced_launches(prof, ops) -> dict:
+    """The calls of each op in ``ops`` that a ``traced`` session recorded:
+    its kernels (OP_KERNELS) counted in the trace, over the kernels one call
+    launches. The kernels of a CUDA graph's replays are in the trace too, so
+    this counts what the replays ran, where the ops' LAUNCHES counters see
+    only the capture."""
+    rows = kernel_rows(prof)
+    out = {}
+    for op in ops:
+        pattern, per_call = OP_KERNELS.get(op, (f"{op}_kernel", 1))
+        found = re.compile(rf"(?<![A-Za-z0-9_]){pattern}(?![A-Za-z0-9_])")
+        n = sum(e.count for e in rows if found.search(e.key))
+        out[op] = n // per_call if n % per_call == 0 else n / per_call
+    return out
 
 
 def profiled_device_ms(fn, reps: int) -> float:
@@ -896,15 +939,15 @@ def check_gather_augment(ga, data, gen) -> float:
     amp = torch.where(torch.rand(B, generator=gen, device="cuda") < 0.5,
                       0.9 + 0.2 * torch.rand(B, generator=gen, device="cuda"), 1.0)
     zero = torch.zeros(B, device="cuda")
-    got = ga.gather_augment(data, idx, pidx, 7, lam, amp, zero)
+    got = ga.gather_augment(data, idx, pidx, seed_tensor(7), lam, amp, zero)
     want = ga.gather_augment_reference(data, idx, pidx, None, lam, amp, zero)
     if not torch.equal(got, want):
         raise AssertionError(f"gather_augment ({dname}) differs without noise: "
                              f"{_err(got, want):.3g}")
     ones = torch.ones(B, device="cuda")
     sd = torch.tensor([0.05, 0.0] * (B // 2), device="cuda")
-    noisy = ga.gather_augment(data, idx, idx, 11, ones, ones, sd)
-    again = ga.gather_augment(data, idx, idx, 11, ones, ones, sd)
+    noisy = ga.gather_augment(data, idx, idx, seed_tensor(11), ones, ones, sd)
+    again = ga.gather_augment(data, idx, idx, seed_tensor(11), ones, ones, sd)
     x = data.index_select(0, idx.long())
     z = (noisy[0::2].float() - x[0::2].float()) / 0.05
     mean, std = float(z.mean()), float(z.std())
@@ -1025,7 +1068,7 @@ def train_kernel_timings(gg, ga, shapes, data, reps, gen, card) -> dict:
                  for _ in range(2))
     row_elems = T * data.shape[2]
     noisy_rows = int((sd != 0).sum())
-    ms = cuda_ms(lambda: ga.gather_augment(data, idx, pidx, 3, lam, amp, sd), reps)
+    ms = cuda_ms(lambda: ga.gather_augment(data, idx, pidx, seed_tensor(3), lam, amp, sd), reps)
     plain = cuda_ms(lambda: ga.gather_augment_reference(
         data, idx, pidx, torch.randn((B, T, data.shape[2]), generator=gen, device="cuda"),
         lam, amp, sd), reps)
@@ -1051,6 +1094,112 @@ def train_config():
                      dtype="bfloat16", use_spectral_norm=True)
 
 
+def eager_epoch(trainer, state, data):
+    """One epoch as ``train_epoch``'s eager loop runs it (the same draws),
+    through ``VAETrainer.eager_step`` whatever ``graph_engages`` answers;
+    returns the per-step metrics."""
+    n, bsz = data.shape[0], trainer.cfg.batch_size
+    if n % bsz:
+        raise ValueError(f"{n} rows do not make whole batches of {bsz}")
+    beta, lr = trainer._schedules(state.epoch)
+    perm = trainer.rng.permutation(n).reshape(-1, bsz)
+    steps = [trainer.eager_step(state, data, idx, beta, lr) for idx in perm]
+    state.epoch += 1
+    return steps
+
+
+def graph_against_eager(cfg, seed: int, data, card) -> dict:
+    """Phase 5's graph check. Two trainers from one state and seed: one
+    through the eager step (``eager_epoch``), one through ``train_epoch``'s
+    graph path (``WARMUP_STEPS`` eager steps, the capture, replays), over
+    GRAPH_EPOCHS epochs: each step's loss, and the largest difference of
+    every parameter, moment and power-iteration vector after them (must be
+    0, or the phase fails). Then, in turns, each side's ms a step over GRAPH_TIMING epochs
+    (back to back inside an epoch, a synchronize after it; p50) and its
+    launch calls a step in a profiler trace of one epoch, and the capture
+    and replay counters."""
+    from simulgen_vae_tpu_torch.train import vae_trainer as vt
+
+    eager, graph = (vt.VAETrainer(cfg, device="cuda", seed=seed) for _ in range(2))
+    if not graph.graph_engages():
+        raise AssertionError("the train configuration does not engage the graph path")
+    se, sg = eager.init_state(seed), graph.init_state(seed)
+    before = dict(vt.COUNTERS)
+    eager_losses, graph_losses = [], []
+    for _ in range(GRAPH_EPOCHS):
+        eager_losses += [m["loss"].clone() for m in eager_epoch(eager, se, data)]
+        per_step = []
+        real = graph._apply
+
+        def keep(*a, **k):
+            m = real(*a, **k)
+            per_step.append(m["loss"].clone())
+            return m
+
+        graph._apply = keep
+        try:
+            sg, _ = graph.train_epoch(sg, data)
+        finally:
+            del graph._apply
+        graph_losses += per_step
+    torch.cuda.synchronize()
+    eager_losses = [float(v) for v in eager_losses]
+    graph_losses = [float(v) for v in graph_losses]
+    diff = {}
+    pairs = {"parameters": zip(se.model.parameters(), sg.model.parameters()),
+             "first moments": ((v, sg.opt_state["mu"][k]) for k, v in se.opt_state["mu"].items()),
+             "second moments": ((v, sg.opt_state["nu"][k]) for k, v in se.opt_state["nu"].items()),
+             "sn vectors": ((u, sg.sn_u[k]) for k, u in se.sn_u.items())}
+    for what, pp in pairs.items():
+        diff[what] = max(float((a.detach().float() - b.detach().float()).abs().max())
+                         for a, b in pp)
+    captured = {k: vt.COUNTERS[k] - before[k] for k in vt.COUNTERS}
+    steps = len(graph_losses)
+    print(f"graph: {steps} steps eager against the graph path ({vt.WARMUP_STEPS} eager, "
+          f"{captured['train.graph_captures']} capture, {captured['train.graph_replays']} "
+          f"replays): losses equal {eager_losses == graph_losses} (eager {eager_losses}, "
+          f"graph {graph_losses}); largest difference {diff}")
+    if captured["train.graph_captures"] != 1 or (captured["train.graph_replays"]
+                                                 != steps - vt.WARMUP_STEPS):
+        raise AssertionError(f"graph path: {captured} in {steps} steps")
+    if not all(math.isfinite(v) for v in graph_losses):
+        raise AssertionError(f"non-finite losses on the graph path: {graph_losses}")
+    # The replays run the eager step's kernels on the same inputs, so the
+    # steps agree bit for bit: a host value the capture froze (the noise
+    # seed, beta, lr, a dither word) shows here as a difference.
+    if eager_losses != graph_losses or any(v != 0 for v in diff.values()):
+        raise AssertionError(f"the graph path differs from the eager step: losses "
+                             f"{graph_losses} against {eager_losses}, largest difference {diff}")
+
+    def epoch_ms(run):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    sides = {"eager": lambda: eager_epoch(eager, se, data),
+             "graph": lambda: graph.train_epoch(sg, data)}
+    per_epoch = len(data) // cfg.batch_size
+    ms = {"eager": [], "graph": []}
+    for side in ("eager", "graph", "graph", "eager"):
+        ms[side] += [epoch_ms(sides[side]) / per_epoch for _ in range(GRAPH_TIMING // 2)]
+    launches = {}
+    for side, run in sides.items():
+        prof, _ = traced(run, cpu=False)
+        launches[side] = sum(e.count for e in prof.key_averages()
+                             if e.key in LAUNCH_CALLS) / per_epoch
+    p50 = {side: float(np.percentile(v, 50)) for side, v in ms.items()}
+    print(f"timing: [{card}] train step (batch {cfg.batch_size}, {cfg.dtype}) eager against "
+          f"replayed, {GRAPH_TIMING} epochs of {per_epoch} steps a side in turns: p50 "
+          f"{p50['eager']:.3f} ms against {p50['graph']:.3f} ms a step "
+          f"({p50['eager'] / p50['graph']:.2f}x); launch calls a step {launches['eager']:.1f} "
+          f"against {launches['graph']:.1f}; counters {dict(vt.COUNTERS)}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return dict(steps=steps, eager_losses=eager_losses, graph_losses=graph_losses,
+                losses_equal=eager_losses == graph_losses, max_diff=diff, counters=captured,
+                step_ms=ms, step_p50_ms=p50, launch_calls_per_step=launches)
+
+
 def phase_train(args, card, blocks, gg, ga, gen):
     """Phase 5: the flagship train step. Returns (per-kernel dict, result dict,
     and the trainer, state and data for the phase after it)."""
@@ -1065,12 +1214,19 @@ def phase_train(args, card, blocks, gg, ga, gen):
                               device="cuda")).to(torch.bfloat16)
     print(f"train: {n_params / 1e6:.1f}M parameters, dataset {tuple(data.shape)} "
           f"{data.dtype} ({data.numel() * 2 / 1e9:.2f} GB) on the card")
+    graph = graph_against_eager(cfg, args.seed, data, card)
+    torch.cuda.empty_cache()
 
-    # warm-up: two steps; the first records the GroupNorm shapes of a step
+    # warm-up: two steps; the first (eager) records the GroupNorm shapes of a
+    # step, the second is captured as the graph every later step replays: the
+    # launches it counts are one step's
     calls = []
     with recording_calls(blocks, calls):
         state, m = trainer.train_epoch(state, data, max_steps=1)
+    gg.reset_launch_counts()
+    ga.reset_launch_counts()
     state, m = trainer.train_epoch(state, data, max_steps=1)
+    per_step = {**gg.LAUNCHES, **ga.LAUNCHES}
     torch.cuda.synchronize()
     shapes = {k: calls.count(k) for k in set(calls)}
     print(f"train: warm-up done (loss {float(m['loss']):.6g}); {len(calls)} GroupNorms per "
@@ -1083,29 +1239,42 @@ def phase_train(args, card, blocks, gg, ga, gen):
     data32 = data[:20].float().contiguous()
     errs["gather_augment"]["float32"] = check_gather_augment(ga, data32, gen)
 
-    # the main path: TRAIN_EPOCHS epochs through train_epoch, counters from 0
-    gg.reset_launch_counts()
-    ga.reset_launch_counts()
-    steps, losses, norms = 0, [], []
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_EPOCHS):
-        state, m = trainer.train_epoch(state, data)
-        losses.append(m["loss"])
-        norms.append(m["grad_norm"])
-        steps += -(-TRAIN_SAMPLES // B)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = {**gg.LAUNCHES, **ga.LAUNCHES}
+    # the main path: TRAIN_EPOCHS epochs through train_epoch in a profiler
+    # trace, every step a replay; its launches are counted in the trace
+    from simulgen_vae_tpu_torch.train.vae_trainer import COUNTERS
+
+    replays = COUNTERS["train.graph_replays"]
+    losses, norms = [], []
+
+    def main_path():
+        nonlocal state
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_EPOCHS):
+            state, m = trainer.train_epoch(state, data)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prof, run_s = traced(main_path, cpu=False)
+    steps = TRAIN_EPOCHS * -(-TRAIN_SAMPLES // B)
+    replays = COUNTERS["train.graph_replays"] - replays
+    launches = traced_launches(prof, per_step)
     losses, norms = [float(v) for v in losses], [float(v) for v in norms]
     if not all(np.isfinite(losses + norms)):
         raise AssertionError(f"non-finite train metrics: loss {losses}, grad norm {norms}")
-    if not all(launches[k] > 0 for k in launches):
-        raise AssertionError(f"a kernel did not run on the train path: {launches}")
-    if launches["gather_augment"] != steps:
-        raise AssertionError(f"gather_augment ran {launches['gather_augment']} times "
-                             f"in {steps} steps")
-    print(f"train: {TRAIN_EPOCHS} epochs = {steps} steps in {run_s:.3f} s; loss per epoch "
-          f"{losses}, grad norm {norms}; launches {launches}")
+    if not all(per_step[k] > 0 for k in per_step):
+        raise AssertionError(f"a kernel did not run in the captured step: {per_step}")
+    if per_step["gather_augment"] != 1:
+        raise AssertionError(f"gather_augment ran {per_step['gather_augment']} times in a step")
+    if replays != steps:
+        raise AssertionError(f"{replays} graph replays in {steps} steps")
+    if launches != {k: n * replays for k, n in per_step.items()}:
+        raise AssertionError(f"the {replays} replays launched {launches} (trace), the captured "
+                             f"step {per_step}")
+    print(f"train: {TRAIN_EPOCHS} epochs = {steps} steps ({replays} replays) in {run_s:.3f} s "
+          f"(traced); loss per epoch {losses}, grad norm {norms}; launches in the replays "
+          f"(trace) {launches}, in the captured step (counters) {per_step}")
 
     # step time: single steps through train_epoch, each synchronised
     lat = []
@@ -1126,7 +1295,7 @@ def phase_train(args, card, blocks, gg, ga, gen):
     zero, ones = torch.zeros(B, device="cuda"), torch.ones(B, device="cuda")
     rows = torch.arange(B, device="cuda", dtype=torch.int32)
     lam = torch.linspace(0.3, 1.0, B, device="cuda")
-    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), seed_tensor(5), lam, ones, zero)
     if not torch.equal(batch, ga.gather_augment_reference(data, rows, rows.flip(0), None,
                                                           lam, ones, zero)):
         raise AssertionError("gather_augment batch differs from its plain version")
@@ -1138,7 +1307,7 @@ def phase_train(args, card, blocks, gg, ga, gen):
     model32 = trainer32.build_model()
     model32.load_state_dict(state.model.state_dict())
     state32 = dataclasses.replace(state, model=model32, opt_state=None)
-    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), seed_tensor(5), lam, ones, zero)
     checks["float32"] = compare_step(trainer32, state32, batch32, blocks, gg, beta,
                                      "f32, TF32 off", 1e-4, 1e-3)
     del trainer32, model32, state32, batch32
@@ -1178,7 +1347,7 @@ def phase_train(args, card, blocks, gg, ga, gen):
     result = dict(step_p50_ms=step_p50, step_ms=lat.tolist(),
                   samples_per_s=B / step_p50 * 1e3, steps=steps, epoch_losses=losses,
                   epoch_grad_norms=norms, launches=launches, step_checks=checks,
-                  gn_bwd_launches=traces,
+                  gn_bwd_launches=traces, graph=graph,
                   params=n_params, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     return kernels, result, dict(cfg=cfg, trainer=trainer, state=state, data=data,
                                  data32=data32)
@@ -1476,21 +1645,36 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
 
     trainer = vt.VAETrainer(cfg, device="cuda", seed=args.seed, fused_readout=True)
     state = trainer.init_state(args.seed)
-    for _ in range(2):  # warm-up
-        state, m = trainer.train_epoch(state, data, max_steps=1)
-    torch.cuda.synchronize()
-
-    # the main path: one epoch through train_epoch, counters from 0
+    # warm-up: an eager step, then the step captured as the graph every later
+    # step replays: the launches and GroupNorm calls it counts are one step's
+    state, m = trainer.train_epoch(state, data, max_steps=1)
     for mod in (gg, ga, rc):
         mod.reset_launch_counts()
     calls = []
-    t0 = time.perf_counter()
     with recording_calls(blocks, calls):
-        state, m = trainer.train_epoch(state, data)
+        state, m = trainer.train_epoch(state, data, max_steps=1)
+    per_step = {**gg.LAUNCHES, **ga.LAUNCHES, **rc.LAUNCHES}
     torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
+
+    # the main path: one epoch through train_epoch in a profiler trace, every
+    # step a replay; its launches are counted in the trace
+    replays = vt.COUNTERS["train.graph_replays"]
+
+    def main_path():
+        t0 = time.perf_counter()
+        out = trainer.train_epoch(state, data)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    prof, ((state, m), run_s) = traced(main_path, cpu=False)
     steps = -(-TRAIN_SAMPLES // B)
-    launches = {**gg.LAUNCHES, **ga.LAUNCHES, **rc.LAUNCHES}
+    replays = vt.COUNTERS["train.graph_replays"] - replays
+    if replays != steps:
+        raise AssertionError(f"fused path: {replays} graph replays in {steps} steps")
+    launches = traced_launches(prof, per_step)
+    if launches != {k: n * replays for k, n in per_step.items()}:
+        raise AssertionError(f"fused path: the {replays} replays launched {launches} (trace), "
+                             f"the captured step {per_step}")
     metrics = {key: float(m[key]) for key in ("loss", "recon", "kl", "recon_mse", "grad_norm")}
     if not all(np.isfinite(list(metrics.values()))):
         raise AssertionError(f"non-finite fused train metrics: {metrics}")
@@ -1509,9 +1693,9 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
     widths = sorted({c for c, _, _ in calls})
     if READOUT_C in widths:
         raise AssertionError(f"a GroupNorm kernel ran at C = {READOUT_C} on the fused path")
-    print(f"fused: 1 epoch = {steps} steps in {run_s:.3f} s; {metrics}; launches {launches} "
-          f"(bwd='auto': {flavor}); {len(calls) // steps} GroupNorms per step at C = {widths} "
-          f"(none at {READOUT_C})")
+    print(f"fused: 1 epoch = {steps} steps ({replays} replays) in {run_s:.3f} s (traced); "
+          f"{metrics}; launches in the replays (trace) {launches} (bwd='auto': {flavor}); "
+          f"{len(calls)} GroupNorms per step at C = {widths} (none at {READOUT_C})")
 
     # fused against unfused step time, in turns on this card
     def timed(tr, st, n):
@@ -1542,7 +1726,7 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
     zero, ones = torch.zeros(B, device="cuda"), torch.ones(B, device="cuda")
     rows = torch.arange(B, device="cuda", dtype=torch.int32)
     lam = torch.linspace(0.3, 1.0, B, device="cuda")
-    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), seed_tensor(5), lam, ones, zero)
     checks = {"bfloat16": compare_routes(trainer, state, batch, beta, rc, vt, "bf16",
                                          1e-2, None)}
     del batch
@@ -1551,7 +1735,7 @@ def phase_fused(args, card, blocks, gg, ga, rc, gen, ctx):
     model32 = trainer32.build_model()
     model32.load_state_dict(state.model.state_dict())
     state32 = dataclasses.replace(state, model=model32, opt_state=None)
-    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), seed_tensor(5), lam, ones, zero)
     checks["float32"] = compare_routes(trainer32, state32, batch32, beta, rc, vt,
                                        "f32, TF32 off", 1e-4, 1e-3)
     del trainer32, model32, state32, batch32
@@ -1913,28 +2097,34 @@ def _states_equal(a, b) -> bool:
 
 
 def timed_steps(trainer, state, data, n):
-    """``n`` steps of one epoch, each from its batch assembly to a
-    synchronise after its optimizer update (ms). The per-epoch power iteration,
-    which runs before the first step, is not in any step's time."""
+    """``n`` steps of one epoch, each from its host draws (the eager path's
+    ``assemble_batch``, which draws first, or the graph path's ``_draws``) to
+    a synchronise after its optimizer update (ms). The per-epoch power
+    iteration, which runs before the first step, is not in any step's time."""
     lat, mark = [], []
-    real_batch, real_apply = trainer.assemble_batch, trainer._apply
+    real = {k: getattr(trainer, k) for k in ("assemble_batch", "_draws", "_apply")}
 
-    def batch(*a, **k):
-        torch.cuda.synchronize()
-        mark.append(time.perf_counter())
-        return real_batch(*a, **k)
+    def start(name):
+        def call(*a, **k):
+            if len(mark) == len(lat):  # the step's first host work
+                torch.cuda.synchronize()
+                mark.append(time.perf_counter())
+            return real[name](*a, **k)
+        return call
 
     def apply(*a, **k):
-        out = real_apply(*a, **k)
+        out = real["_apply"](*a, **k)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - mark[-1]) * 1e3)
         return out
 
-    trainer.assemble_batch, trainer._apply = batch, apply
+    trainer.assemble_batch, trainer._draws = start("assemble_batch"), start("_draws")
+    trainer._apply = apply
     try:
         state, _ = trainer.train_epoch(state, data, max_steps=n)
     finally:
-        trainer.assemble_batch, trainer._apply = real_batch, real_apply
+        for k in real:
+            delattr(trainer, k)
     return state, lat
 
 
@@ -2075,7 +2265,7 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     zero, ones = torch.zeros(B, device="cuda"), torch.ones(B, device="cuda")
     rows = torch.arange(B, device="cuda", dtype=torch.int32)
     lam = torch.linspace(0.3, 1.0, B, device="cuda")
-    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    batch = ga.gather_augment(data, rows, rows.flip(0).contiguous(), seed_tensor(5), lam, ones, zero)
     checks = {}
     checks["bfloat16"], grads = compare_backwards(trainer, state, batch, beta, rc, "bf16",
                                                   1e-2, None)
@@ -2098,7 +2288,7 @@ def phase_stack(args, card, gg, ga, rc, gen, cfg, data, data32):
     model32 = trainer32.build_model()
     model32.load_state_dict(state.model.state_dict())
     state32 = dataclasses.replace(state, model=model32, opt_state=None)
-    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), 5, lam, ones, zero)
+    batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), seed_tensor(5), lam, ones, zero)
     checks["float32"], _ = compare_backwards(trainer32, state32, batch32, beta, rc,
                                              "f32, TF32 off", 1e-4, 1e-3)
     del trainer32, model32, state32, batch32

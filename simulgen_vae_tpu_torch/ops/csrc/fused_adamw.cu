@@ -14,8 +14,13 @@
 // stored as f32, as bf16 by round-to-nearest-even, or as bf16 by stochastic
 // rounding: bits(x) + (lowbias32(idx * 0x9E3779B9 + seed) & 0xFFFF), masked to
 // the high 16 bits, idx the element's linear index in its tensor, the seed per
-// (step, leaf, moment) from the wrapper. The parameter update uses the
+// (step, leaf, moment) from the step's word. The parameter update uses the
 // unrounded m2 and v2. The same pass sums g^2.
+//
+// What changes from step to step (lr, c1, c2 and the step's dither word) is
+// read from device memory, four words the caller staged there; the
+// constants (b1, b2, eps, wd) travel in the arguments. A CUDA graph that
+// captured the launches therefore replays each step with its own values.
 //
 // Bound on an H100: bytes. p, g, m, v read and p, m, v written: 28 bytes per
 // parameter with f32 moments, 20 with bf16 moments; at 403.5M parameters
@@ -55,9 +60,19 @@ struct Table {
 };
 
 struct Hyper {
-  float b1, b2, one_minus_b1, one_minus_b2, eps, wd, lr, c1, c2;
-  unsigned sr_step;  // count * 0x85EBCA6B (mod 2^32)
+  float b1, b2, one_minus_b1, one_minus_b2, eps, wd;
 };
+
+// The step's values, read from device memory: lr, c1, c2 as f32 and the
+// dither word count * 0x85EBCA6B (mod 2^32) as its bits.
+struct Step {
+  float lr, c1, c2;
+  uint32_t sr_step;
+};
+
+__device__ __forceinline__ Step load_step(const float* __restrict__ s) {
+  return Step{s[0], s[1], s[2], __float_as_uint(s[3])};
+}
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t h) {
   h = (h ^ (h >> 16)) * 0x7FEB352Du;
@@ -98,14 +113,15 @@ struct Elem {
   float p, m, v;
 };
 
-__device__ __forceinline__ Elem update(float p, float g, float m, float v, const Hyper& h) {
+__device__ __forceinline__ Elem update(float p, float g, float m, float v, const Hyper& h,
+                                       const Step& st) {
   Elem e;
   e.m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.one_minus_b1, g));
   e.v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(__fmul_rn(h.one_minus_b2, g), g));
-  const float mhat = __fdiv_rn(e.m, h.c1);
-  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(e.v, h.c2)), h.eps);
+  const float mhat = __fdiv_rn(e.m, st.c1);
+  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(e.v, st.c2)), h.eps);
   const float upd = __fadd_rn(__fdiv_rn(mhat, den), __fmul_rn(h.wd, p));
-  e.p = __fsub_rn(p, __fmul_rn(h.lr, upd));
+  e.p = __fsub_rn(p, __fmul_rn(st.lr, upd));
   return e;
 }
 
@@ -130,7 +146,8 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, size_t i, const __nv_bf
 
 template <int MS, int VS>
 __global__ void __launch_bounds__(kThreads)
-fused_adamw_kernel(Table t, Hyper h, float* __restrict__ partials) {
+fused_adamw_kernel(Table t, Hyper h, const float* __restrict__ step,
+                   float* __restrict__ partials) {
   using MT = typename Moment<MS>::type;
   using VT = typename Moment<VS>::type;
   __shared__ float scratch[kThreads / 32];
@@ -148,8 +165,9 @@ fused_adamw_kernel(Table t, Hyper h, float* __restrict__ partials) {
   const size_t n = t.n[ti];
   const size_t base = (size_t)(blockIdx.x - t.first_block[ti]) * kSpan;
   const uint32_t leaf = t.leaf[ti];
-  const uint32_t seed_m = h.sr_step + (2u * leaf) * 0xC2B2AE35u;
-  const uint32_t seed_v = h.sr_step + (2u * leaf + 1u) * 0xC2B2AE35u;
+  const Step st = load_step(step);
+  const uint32_t seed_m = st.sr_step + (2u * leaf) * 0xC2B2AE35u;
+  const uint32_t seed_v = st.sr_step + (2u * leaf + 1u) * 0xC2B2AE35u;
   const bool vec = t.vec[ti];
 
   float sumsq = 0.0f;
@@ -168,7 +186,7 @@ fused_adamw_kernel(Table t, Hyper h, float* __restrict__ partials) {
       __align__(8) VT vo[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const Elem e = update(pv[k], gv[k], mv[k], vv[k], h);
+        const Elem e = update(pv[k], gv[k], mv[k], vv[k], h, st);
         po[k] = e.p;
         mo[k] = Moment<MS>::round(e.m, i + k, seed_m);
         vo[k] = Moment<VS>::round(e.v, i + k, seed_v);
@@ -181,7 +199,7 @@ fused_adamw_kernel(Table t, Hyper h, float* __restrict__ partials) {
       const size_t end = i + kVec < n ? i + kVec : n;
       for (size_t q = i; q < end; ++q) {
         const float gq = g[q];
-        const Elem e = update(p[q], gq, as_f32(m[q]), as_f32(v[q]), h);
+        const Elem e = update(p[q], gq, as_f32(m[q]), as_f32(v[q]), h, st);
         p[q] = e.p;
         m[q] = Moment<MS>::round(e.m, q, seed_m);
         v[q] = Moment<VS>::round(e.v, q, seed_v);
@@ -219,14 +237,14 @@ grad_norm_kernel(const float* __restrict__ partials, int n, float* __restrict__ 
 }
 
 template <int MS>
-int dispatch_v(int v_store, const Table& t, const Hyper& h, float* partials, int blocks,
-               cudaStream_t st) {
+int dispatch_v(int v_store, const Table& t, const Hyper& h, const float* step, float* partials,
+               int blocks, cudaStream_t st) {
   if (v_store == kStoreF32)
-    fused_adamw_kernel<MS, kStoreF32><<<blocks, kThreads, 0, st>>>(t, h, partials);
+    fused_adamw_kernel<MS, kStoreF32><<<blocks, kThreads, 0, st>>>(t, h, step, partials);
   else if (v_store == kStoreBF16)
-    fused_adamw_kernel<MS, kStoreBF16><<<blocks, kThreads, 0, st>>>(t, h, partials);
+    fused_adamw_kernel<MS, kStoreBF16><<<blocks, kThreads, 0, st>>>(t, h, step, partials);
   else if (v_store == kStoreBF16SR)
-    fused_adamw_kernel<MS, kStoreBF16SR><<<blocks, kThreads, 0, st>>>(t, h, partials);
+    fused_adamw_kernel<MS, kStoreBF16SR><<<blocks, kThreads, 0, st>>>(t, h, step, partials);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -242,12 +260,13 @@ extern "C" int fused_adamw_span() { return kSpan; }
 // v_store: 0 f32, 1 bf16 round-to-nearest, 2 bf16 stochastic); n: elements
 // (< 2^32) of each; leaf: each tensor's index in the parameter order; partials:
 // device f32, one slot per block of this launch (ceil(n / span) per tensor, in
-// order). hyper: b1, b2, 1 - b1, 1 - b2, eps, wd, lr, c1, c2. Returns a
-// cudaError_t code.
+// order). hyper (host): b1, b2, 1 - b1, 1 - b2, eps, wd; step (device): lr,
+// c1, c2 as f32 and the dither word count * 0x85EBCA6B (mod 2^32) as its
+// bits. Returns a cudaError_t code.
 extern "C" int fused_adamw(const void* const* p, const void* const* g, const void* const* m,
                            const void* const* v, const unsigned* n, const unsigned* leaf,
                            int count, int m_store, int v_store, const float* hyper,
-                           unsigned sr_step, void* partials, void* stream) {
+                           const void* step, void* partials, void* stream) {
   if (count <= 0 || count > kMaxTensors) return (int)cudaErrorInvalidValue;
   Table t;
   int blocks = 0;
@@ -267,13 +286,14 @@ extern "C" int fused_adamw(const void* const* p, const void* const* g, const voi
   }
   t.first_block[count] = blocks;
   t.count = count;
-  const Hyper h{hyper[0], hyper[1], hyper[2], hyper[3], hyper[4],
-                hyper[5], hyper[6], hyper[7], hyper[8], sr_step};
+  const Hyper h{hyper[0], hyper[1], hyper[2], hyper[3], hyper[4], hyper[5]};
   auto st = static_cast<cudaStream_t>(stream);
+  auto* s = static_cast<const float*>(step);
   auto* part = static_cast<float*>(partials);
-  if (m_store == kStoreF32) return dispatch_v<kStoreF32>(v_store, t, h, part, blocks, st);
-  if (m_store == kStoreBF16) return dispatch_v<kStoreBF16>(v_store, t, h, part, blocks, st);
-  if (m_store == kStoreBF16SR) return dispatch_v<kStoreBF16SR>(v_store, t, h, part, blocks, st);
+  if (m_store == kStoreF32) return dispatch_v<kStoreF32>(v_store, t, h, s, part, blocks, st);
+  if (m_store == kStoreBF16) return dispatch_v<kStoreBF16>(v_store, t, h, s, part, blocks, st);
+  if (m_store == kStoreBF16SR)
+    return dispatch_v<kStoreBF16SR>(v_store, t, h, s, part, blocks, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -15,11 +15,13 @@
 // the rows that draw it) stays below the f32 rate.
 //
 // Design: grid (blocks per row, B), one sample per blockIdx.y. The block loads
-// idx[i], pidx[i] and the three per-sample scalars itself (the TPU used scalar
-// prefetch) and walks its slice of the row with 16-byte vector loads (8 bf16
+// idx[i], pidx[i], the three per-sample scalars and the seed itself (the TPU
+// used scalar prefetch): every host value of a step is read from device
+// memory, so a CUDA graph that captured the launch replays it with each
+// step's values. It walks its slice of the row with 16-byte vector loads (8 bf16
 // or 4 f32 elements per thread and step) where the rows are 16-byte aligned,
 // with a scalar tail. The noise comes from Philox-4x32-10 written here, keyed
-// by the wrapper's seed, with the counter (element / 4, sample): each call
+// by the seed, with the counter (element / 4, sample): each call
 // gives 4 uniforms, turned by Box-Muller into the normals of 4 consecutive
 // elements (both cos and sin outputs used), so the bits do not depend on the
 // block shape. Rows with sd == 0 skip the draw, as the TPU's lax.cond did.
@@ -89,9 +91,11 @@ __global__ void __launch_bounds__(kThreads)
 gather_augment_kernel(const T* __restrict__ data, const int* __restrict__ idx,
                       const int* __restrict__ pidx, const float* __restrict__ lam,
                       const float* __restrict__ amp, const float* __restrict__ sd,
-                      T* __restrict__ out, size_t row_len, uint32_t seed, int vec_ok) {
+                      T* __restrict__ out, size_t row_len,
+                      const uint32_t* __restrict__ seed_at, int vec_ok) {
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte vector
   const uint32_t i = blockIdx.y;
+  const uint32_t seed = *seed_at;
   const T* src = data + (size_t)idx[i] * row_len;
   const T* par = data + (size_t)pidx[i] * row_len;
   T* dst = out + (size_t)i * row_len;
@@ -139,7 +143,7 @@ gather_augment_kernel(const T* __restrict__ data, const int* __restrict__ idx,
 template <typename T>
 int launch(const void* data, const int* idx, const int* pidx, const float* lam,
            const float* amp, const float* sd, void* out, int batch, size_t row_len,
-           uint32_t seed, cudaStream_t stream) {
+           const uint32_t* seed, cudaStream_t stream) {
   const int vec_ok = (reinterpret_cast<uintptr_t>(data) % 16 == 0) &&
                      (reinterpret_cast<uintptr_t>(out) % 16 == 0) &&
                      ((row_len * sizeof(T)) % 16 == 0);
@@ -155,21 +159,23 @@ int launch(const void* data, const int* idx, const int* pidx, const float* lam,
 }  // namespace
 
 // data: [n, T, N]; idx, pidx: [batch] int32 in [0, n); lam, amp, sd: [batch]
-// f32; out: [batch, T, N] in data's dtype (0 = f32, 1 = bf16). Returns a
-// cudaError_t code: 0 when the kernel was launched.
+// f32; seed: one uint32 in device memory; out: [batch, T, N] in data's dtype
+// (0 = f32, 1 = bf16). Returns a cudaError_t code: 0 when the kernel was
+// launched.
 extern "C" int gather_augment(const void* data, const void* idx, const void* pidx,
                               const void* lam, const void* amp, const void* sd,
                               void* out, int batch, long long row_len,
-                              unsigned int seed, int dtype, void* stream) {
+                              const void* seed, int dtype, void* stream) {
   if (batch <= 0 || batch > 65535 || row_len <= 0) return (int)cudaErrorInvalidValue;
   auto* i = static_cast<const int*>(idx);
   auto* p = static_cast<const int*>(pidx);
   auto* l = static_cast<const float*>(lam);
   auto* a = static_cast<const float*>(amp);
   auto* s = static_cast<const float*>(sd);
+  auto* k = static_cast<const uint32_t*>(seed);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(data, i, p, l, a, s, out, batch, (size_t)row_len, seed, st);
+  if (dtype == 0) return launch<float>(data, i, p, l, a, s, out, batch, (size_t)row_len, k, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(data, i, p, l, a, s, out, batch, (size_t)row_len, seed, st);
+    return launch<__nv_bfloat16>(data, i, p, l, a, s, out, batch, (size_t)row_len, k, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -12,10 +12,15 @@ the distributions of the sequential composition in
 
 On the card :func:`gather_augment` launches the hand-written kernel
 ``ops/csrc/gather_augment.cu`` (one pass: two rows read, one written; the
-noise is drawn in the kernel from Philox keyed by ``seed``). On the CPU it
-takes :func:`gather_augment_reference` with noise from ``torch.randn``. The
-two give different noise for the same seed; without noise they give the same
-bits. The launch count is in ``LAUNCHES``.
+noise is drawn in the kernel from Philox keyed by ``seed``). Every argument
+is a tensor on the data's device, the seed too (one ``int32`` word holding
+its 32 bits): the kernel reads each step's values from device memory, so a
+CUDA graph that captured the call replays it with the values copied in
+before each replay. The trainer stages them all with one copy
+(``utils.staging``). On the CPU it takes :func:`gather_augment_reference`
+with noise from ``torch.randn``. The two give different noise for the same
+seed; without noise they give the same bits. The launch count is in
+``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from simulgen_vae_tpu_torch.utils import profiling
 LAUNCHES = profiling.register({"gather_augment": 0})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_P, _I, _LL, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def reset_launch_counts() -> None:
@@ -71,6 +76,13 @@ def gather_augment_reference(data: torch.Tensor, idx: torch.Tensor,
     return (lam * (x * a) + (1.0 - lam) * p).to(data.dtype)
 
 
+def seed_word(seed: int) -> int:
+    """``seed`` (in ``[0, 2**32)``) as the ``int32`` word that stages it."""
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed {seed} outside [0, 2**32)")
+    return seed - 2 ** 32 if seed >= 2 ** 31 else seed
+
+
 def _check(data, vecs) -> None:
     if data.device.type != "cuda":
         raise ValueError(f"expected a CUDA tensor, got one on {data.device}")
@@ -82,42 +94,43 @@ def _check(data, vecs) -> None:
     b = vecs[0].shape[0]
     if not 0 < b <= 65535:
         raise ValueError(f"batch of {b} rows")
-    for name, v, dtype in zip(("idx", "pidx", "lam_eff", "amp", "noise_sd"), vecs,
-                              (torch.int32, torch.int32) + (torch.float32,) * 3):
-        if (v.device != data.device or v.dtype != dtype or tuple(v.shape) != (b,)
+    for name, v, dtype, n in zip(("idx", "pidx", "seed", "lam_eff", "amp", "noise_sd"), vecs,
+                                 (torch.int32,) * 3 + (torch.float32,) * 3,
+                                 (b, b, 1, b, b, b)):
+        if (v.device != data.device or v.dtype != dtype or tuple(v.shape) != (n,)
                 or not v.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype} [{b}] tensor on "
+            raise ValueError(f"{name} must be a contiguous {dtype} [{n}] tensor on "
                              f"{data.device}")
 
 
 def gather_augment(data: torch.Tensor, idx: torch.Tensor, pidx: torch.Tensor,
-                   seed: int, lam_eff: torch.Tensor, amp: torch.Tensor,
+                   seed: torch.Tensor, lam_eff: torch.Tensor, amp: torch.Tensor,
                    noise_sd: torch.Tensor,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``[b, T, N]`` augmented batch from the ``[n, T, N]`` dataset.
 
     ``idx``/``pidx`` are int32 row indices in ``[0, n)`` (not checked on the
-    card: checking would cost a device sync), ``seed`` a non-negative int
-    below 2**32 keying the kernel's noise; ``generator`` draws the plain
-    version's noise on the CPU."""
+    card: checking would cost a device sync), ``seed`` an int32 ``[1]``
+    tensor holding the 32 bits that key the kernel's noise
+    (:func:`seed_word`); ``generator`` draws the plain version's noise on the
+    CPU, where the seed is not read."""
     if data.device.type == "cpu":
         noise = None
         if bool((noise_sd != 0).any()):
             noise = torch.randn((idx.shape[0], *data.shape[1:]), generator=generator)
         return gather_augment_reference(data, idx, pidx, noise, lam_eff, amp, noise_sd)
-    vecs = (idx, pidx, lam_eff, amp, noise_sd)
-    _check(data, vecs)
-    if not 0 <= seed < 2 ** 32:
-        raise ValueError(f"seed {seed} outside [0, 2**32)")
+    _check(data, (idx, pidx, seed, lam_eff, amp, noise_sd))
     fn = _build.load("gather_augment").gather_augment
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I, _LL, _U, _I, _P]
+        fn.argtypes = [_P] * 7 + [_I, _LL, _P, _I, _P]
         fn.restype = ctypes.c_int
     b = idx.shape[0]
     out = torch.empty((b, *data.shape[1:]), device=data.device, dtype=data.dtype)
     with torch.cuda.device(data.device):
-        err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (data, *vecs, out)), b,
-                 data.shape[1] * data.shape[2], seed, _DTYPE_CODES[data.dtype],
+        err = fn(*(ctypes.c_void_p(t.data_ptr())
+                   for t in (data, idx, pidx, lam_eff, amp, noise_sd, out)), b,
+                 data.shape[1] * data.shape[2], ctypes.c_void_p(seed.data_ptr()),
+                 _DTYPE_CODES[data.dtype],
                  ctypes.c_void_p(torch.cuda.current_stream(data.device).cuda_stream))
     if err != 0:
         raise RuntimeError(f"gather_augment launch failed with cudaError {err}")
@@ -125,31 +138,36 @@ def gather_augment(data: torch.Tensor, idx: torch.Tensor, pidx: torch.Tensor,
     return out
 
 
-def gather_augment_sharded(mesh, data: torch.Tensor, idx: torch.Tensor, pidx: torch.Tensor,
-                           seed: int, lam_eff: torch.Tensor, amp: torch.Tensor,
-                           noise_sd: torch.Tensor, rows: Optional[slice],
-                           node_parts: int) -> torch.Tensor:
+def rank_seed(mesh, seed: int, rows: Optional[slice], node_parts: int) -> int:
+    """The noise seed of this rank of a ``('data', 'model')`` mesh: the
+    rank's mesh coordinates folded into ``seed`` on the host, as JAX folds
+    the device index; the data coordinate only where the batch is split
+    (``rows`` not None), so that ranks holding the same rows draw the same
+    noise."""
+    d = 0 if rows is None else mesh.coords["data"]
+    m = mesh.coords["model"] if node_parts > 1 else 0
+    return (seed + (d * mesh.shape["model"] + m) * 0x9E3779B) % 2 ** 32
+
+
+def gather_augment_sharded(data: torch.Tensor, idx: torch.Tensor, pidx: torch.Tensor,
+                           seed: torch.Tensor, lam_eff: torch.Tensor, amp: torch.Tensor,
+                           noise_sd: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
     """:func:`gather_augment` on one rank of a ``('data', 'model')`` mesh
     (the JAX ``gather_augment_sharded``).
 
     ``data`` is this rank's ``[n, T, N / node_parts]`` block of the resident
     dataset (:func:`dataset_replicated_rows`: every row, this rank's nodes);
     ``idx``, ``pidx`` and the scalars are the whole batch's, drawn alike on
-    every rank; ``rows`` is this rank's block of the batch (None: all of it,
-    where the data axis does not divide the batch). The kernel assembles those
-    rows at this rank's nodes. The rank's mesh coordinates are folded into
-    the noise seed, as JAX folds the device index: the data coordinate only
-    where the batch is split, so that ranks holding the same rows draw the
-    same noise. On the CPU the plain version draws its noise from a
-    generator seeded the same way."""
-    model = mesh.shape["model"]
-    d = 0 if rows is None else mesh.coords["data"]
+    every rank; ``seed`` is this rank's (:func:`rank_seed`, staged as
+    :func:`gather_augment` takes it); ``rows`` is this rank's block of the
+    batch (None: all of it, where the data axis does not divide the batch).
+    The kernel assembles those rows at this rank's nodes. On the CPU the
+    plain version draws its noise from a generator seeded with the rank's
+    seed."""
     rows = rows or slice(None)
-    m = mesh.coords["model"] if node_parts > 1 else 0
-    seed_dev = (seed + (d * model + m) * 0x9E3779B) % 2 ** 32
-    generator = (torch.Generator().manual_seed(seed_dev) if data.device.type == "cpu"
-                 else None)
-    return gather_augment(data, idx[rows], pidx[rows], seed_dev, lam_eff[rows], amp[rows],
+    generator = (torch.Generator().manual_seed(int(seed[0]) % 2 ** 32)
+                 if data.device.type == "cpu" else None)
+    return gather_augment(data, idx[rows], pidx[rows], seed, lam_eff[rows], amp[rows],
                           noise_sd[rows], generator=generator)
 
 

@@ -19,6 +19,13 @@ sweeps in which every product and sum is its own rounded operation, the order
 the kernel keeps. Both update parameters and moments in place and return the
 global gradient norm as a 0-d device tensor, so a step needs no host sync.
 
+The values that change from step to step (lr, the bias corrections, the
+stochastic rounding's step word) reach the kernel as four words on the card
+(:meth:`FusedAdamW.step_words`). :meth:`FusedAdamW.apply` advances the
+count and stages them with one copy (``utils.staging``);
+:meth:`FusedAdamW.apply_staged` takes words the caller staged, as a captured
+train step does (``train.vae_trainer``), and leaves the count to it.
+
 The dither's element index is the linear index in the port's layout
 (``[F, C, k]``, ``[out, in]``) and the leaf index the parameter's position in
 the port's parameter order, not the JAX tree's: after a stochastic rounding
@@ -32,6 +39,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from simulgen_vae_tpu_torch.utils.staging import Staging
 
 _U32 = 0xFFFFFFFF
 
@@ -61,7 +70,12 @@ def sr_round_bf16(x: torch.Tensor, idx: torch.Tensor, seed: int) -> torch.Tensor
 def sr_seed(count: int, leaf_key: int) -> int:
     """The dither seed of one (step, leaf and moment): ``leaf_key`` is 2 i for
     the first and 2 i + 1 for the second moment of parameter i."""
-    return (count * 0x85EBCA6B + ((leaf_key * 0xC2B2AE35) & _U32)) & _U32
+    return _leaf_seed((count * 0x85EBCA6B) & _U32, leaf_key)
+
+
+def _leaf_seed(step_word: int, leaf_key: int) -> int:
+    """:func:`sr_seed` from the step's dither word ``count * 0x85EBCA6B``."""
+    return (step_word + ((leaf_key * 0xC2B2AE35) & _U32)) & _U32
 
 
 def _dtype(d) -> Optional[torch.dtype]:
@@ -83,6 +97,7 @@ class FusedAdamW:
         self.nu_dtype = (self.moment_dtype if isinstance(nu_dtype, str) and nu_dtype == "same"
                          else _dtype(nu_dtype) or torch.float32)
         self.sr = bool(stochastic_round)
+        self._staging: Dict[torch.device, Staging] = {}  # apply's step words, per card
 
     def init(self, params: Dict[str, torch.Tensor]) -> dict:
         """``{"count": 0, "mu": {name: zeros}, "nu": {name: zeros}}`` in the
@@ -98,35 +113,60 @@ class FusedAdamW:
         return (float(np.float32(1.0) - np.float32(self.b1) ** t),
                 float(np.float32(1.0) - np.float32(self.b2) ** t))
 
+    def step_words(self, count: int, lr: float) -> np.ndarray:
+        """Step ``count``'s four words (``ops.fused_adamw.step_words``): lr,
+        its bias corrections and its dither word."""
+        from simulgen_vae_tpu_torch.ops.fused_adamw import step_words
+
+        return step_words(lr, *self._corrections(count), count)
+
     def apply(self, grads: Dict[str, torch.Tensor], state: dict,
               params: Dict[str, torch.Tensor], lr: float) -> torch.Tensor:
         """Update ``params`` and ``state`` in place from ``grads`` (same keys);
         returns the global gradient norm. CPU tensors take the plain version,
-        CUDA tensors the kernel; anything else raises."""
-        kind = next(iter(params.values())).device.type
-        if kind == "cpu":
+        CUDA tensors the kernel, with the step's words staged by one copy;
+        anything else raises."""
+        device = next(iter(params.values())).device
+        if device.type == "cpu":
             return self.apply_reference(grads, state, params, lr)
-        if kind != "cuda":
-            raise ValueError(f"no AdamW kernel for device type {kind!r}")
+        if device.type != "cuda":
+            raise ValueError(f"no AdamW kernel for device type {device.type!r}")
+        state["count"] += 1
+        words = self.step_words(state["count"], lr)
+        stage = self._staging.get(device)
+        if stage is None:
+            stage = self._staging[device] = Staging(len(words), device)
+        stage.row()[:] = words
+        return self.apply_staged(grads, state, params, stage.send())
+
+    def apply_staged(self, grads: Dict[str, torch.Tensor], state: dict,
+                     params: Dict[str, torch.Tensor], step: torch.Tensor) -> torch.Tensor:
+        """:meth:`apply` with the step's four words already on the device
+        (``step``, an ``int32`` [4] tensor of :meth:`step_words`, written by
+        the caller, who advanced ``state["count"]`` with them). Reads nothing
+        else from the host that changes between steps, so a captured call
+        replays. On CPU tensors the plain version with the words' values."""
+        names = list(params)
+        if step.device.type == "cpu":
+            lr, c1, c2 = (float(v) for v in step[:3].view(torch.float32))
+            return self._reference(grads, state, params, lr, c1, c2,
+                                   int(step[3]) & 0xFFFFFFFF)
         from simulgen_vae_tpu_torch.ops.fused_adamw import fused_adamw
 
-        names = list(params)
-        state["count"] += 1
-        c1, c2 = self._corrections(state["count"])
         return fused_adamw(
             [params[k].data for k in names], [grads[k].float().contiguous() for k in names],
-            [state["mu"][k] for k in names], [state["nu"][k] for k in names], lr=lr,
-            b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=self.wd, c1=c1, c2=c2,
-            count=state["count"], stochastic_round=self.sr)
+            [state["mu"][k] for k in names], [state["nu"][k] for k in names], step=step,
+            b1=self.b1, b2=self.b2, eps=self.eps, weight_decay=self.wd,
+            stochastic_round=self.sr)
 
-    def _store(self, dst, src, count: int, key_offset: int) -> None:
+    def _store(self, dst, src, step_word: int, key_offset: int) -> None:
         """Write the f32 moments ``src`` into their storage ``dst``."""
         if dst[0].dtype == torch.float32:
             return  # updated in place
         for i, (d, s) in enumerate(zip(dst, src)):
             if self.sr:
                 idx = torch.arange(s.numel(), device=s.device).reshape(s.shape)
-                d.copy_(sr_round_bf16(s, idx, sr_seed(count, 2 * i + key_offset)))
+                d.copy_(sr_round_bf16(s, idx, _leaf_seed(step_word, 2 * i + key_offset)))
             else:
                 d.copy_(s)
 
@@ -134,6 +174,13 @@ class FusedAdamW:
                         params: Dict[str, torch.Tensor], lr: float) -> torch.Tensor:
         """The plain version of :meth:`apply`, on any device: ``_foreach``
         sweeps, every product and sum rounded on its own."""
+        state["count"] += 1
+        count = state["count"]
+        return self._reference(grads, state, params, lr, *self._corrections(count),
+                               sr_seed(count, 0))
+
+    def _reference(self, grads, state, params, lr: float, c1: float, c2: float,
+                   step_word: int) -> torch.Tensor:
         names = list(params)
         p = [params[k].data for k in names]
         g = [grads[k].float() for k in names]
@@ -142,9 +189,6 @@ class FusedAdamW:
         # f32 working moments: the stored tensors themselves when they are f32
         m = mu if self.moment_dtype == torch.float32 else [t.float() for t in mu]
         v = nu if self.nu_dtype == torch.float32 else [t.float() for t in nu]
-        state["count"] += 1
-        count = state["count"]
-        c1, c2 = self._corrections(count)
 
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         torch._foreach_mul_(m, self.b1)
@@ -164,6 +208,6 @@ class FusedAdamW:
         torch._foreach_mul_(upd, lr)
         torch._foreach_sub_(p, upd)
         del upd
-        self._store(mu, m, count, 0)
-        self._store(nu, v, count, 1)
+        self._store(mu, m, step_word, 0)
+        self._store(nu, v, step_word, 1)
         return grad_norm

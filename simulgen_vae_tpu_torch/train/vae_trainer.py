@@ -60,13 +60,36 @@ off on a mesh of more than one rank and streaming is refused there, as in
 the JAX trainer's multi-process runs. Checkpoints hold the whole state in
 the one-device format (``utils.checkpoint``).
 
+One CUDA graph a step. On one card (no mesh), with the augmentation
+``ops.gather_augment`` covers, the power iteration in every step and no
+remat (:meth:`VAETrainer.graph_engages`), :meth:`VAETrainer.train_epoch`
+runs the whole step (batch assembly, power iteration, forward with its
+reparameterisation noise, backward, sigma's rank-1 terms, AdamW and the
+gradient norm: :meth:`VAETrainer._step_body`) eagerly once
+(``WARMUP_STEPS``), on a side stream, then captures it as a
+``torch.cuda.CUDAGraph`` and replays it for every later step. A step then
+costs the host its numpy draws, one pinned-to-device copy of its host
+values (:class:`StepStage`: the rows, partners, augmentation scalars, noise
+seed, beta and AdamW's four step words, read on the card by the kernels and
+the loss), one graph launch and the copy of its metrics into the epoch's
+``[steps, 5]`` buffer. The trainer's torch generator is registered with the
+graph, so the reparameterisation noise advances through the same Philox
+offsets as eager draws. The graph is keyed on what the step reads (the
+dataset, the batch size, the readout route, the addresses of the
+parameters, moments and power-iteration vectors) and captured again when
+any of it changes or the generators' states are loaded. Everything else
+(the CPU, a mesh, shift or cutout augmentation, the per-epoch cadence,
+remat, :meth:`VAETrainer.train_epoch_streaming`, :meth:`VAETrainer.train_step`)
+runs the eager step: :meth:`VAETrainer.assemble_batch`, whose five host
+vectors and seed also go over in one copy, then :meth:`VAETrainer._apply`.
+
 Each epoch, step and phase of a step is a span of ``utils.profiling``
 (``train.epoch``, ``train.step``, ``train.assemble``, ``train.fetch``,
 ``train.sn``, ``train.forward``, ``train.backward``, ``train.optimizer``),
 recorded only inside ``profiling.recording()``; ``train.steps`` counts the
-steps recorded.
-
-Not ported yet: CUDA graphs over an epoch's steps.
+steps recorded. On the graph path a step holds ``train.capture`` or
+``train.replay`` instead of the phases, which the eager steps (the warm-up
+among them) keep; ``COUNTERS`` counts captures and replays, always.
 """
 
 from __future__ import annotations
@@ -96,17 +119,22 @@ from simulgen_vae_tpu_torch.ops.gather_augment import (
     draw_augment_scalars,
     gather_augment,
     gather_augment_sharded,
+    rank_seed,
+    seed_word,
 )
 from simulgen_vae_tpu_torch.ops.readout_chain import BWD_FLAVORS
 from simulgen_vae_tpu_torch.parallel import collectives, sharding
 from simulgen_vae_tpu_torch.train.nan_guard import rollback
 from simulgen_vae_tpu_torch.train.optim import FusedAdamW
 from simulgen_vae_tpu_torch.train.schedules import cosine_warm_restarts
-from simulgen_vae_tpu_torch.utils import preemption
+from simulgen_vae_tpu_torch.utils import preemption, profiling
 from simulgen_vae_tpu_torch.utils.profiling import span, tick
+from simulgen_vae_tpu_torch.utils.staging import Staging
 
 STEP_METRICS = ("loss", "recon", "kl", "recon_mse", "grad_norm")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COUNTERS = profiling.register({"train.graph_captures": 0, "train.graph_replays": 0})
+WARMUP_STEPS = 1  # eager steps of a new graph key before its capture
 
 
 @dataclasses.dataclass
@@ -117,6 +145,77 @@ class VAETrainState:
     epoch: int = 0
     rng: Optional[dict] = None  # the trainer's generator states at the last save
     layout: Optional[sharding.Layout] = None  # this rank's block of a mesh's state
+
+
+class StepStage:
+    """One train step's host values on the card: one row of 4-byte words,
+    sent with one copy (``utils.staging``) into a static buffer, and the
+    views of that buffer the step reads::
+
+        idx, pidx [B] int32 | lam_eff, amp, noise_sd [B] f32 | seed (its bits)
+        | beta f32 | lr, c1, c2 f32, dither word (``ops.fused_adamw.step_words``)
+    """
+
+    def __init__(self, batch: int, device):
+        b = self.batch = batch
+        self.staging = Staging(5 * b + 6, device)
+        words = self.staging.buffer
+        floats = words.view(torch.float32)
+        self.idx, self.pidx = words[:b], words[b:2 * b]
+        self.lam_eff, self.amp, self.noise_sd = (floats[k * b:(k + 1) * b] for k in (2, 3, 4))
+        self.seed = words[5 * b:5 * b + 1]
+        self.beta = floats[5 * b + 1]
+        self.step = words[5 * b + 2:]
+
+    def send(self, idx, pidx, scalars, seed: int, beta: float = 0.0, step=None) -> None:
+        """Packs ``idx``, ``pidx``, ``scalars = (lam_eff, amp, noise_sd)``,
+        the noise seed, beta and AdamW's step words (zeros where None) into a
+        free pinned row and copies it into the buffer."""
+        b = self.batch
+        row = self.staging.row()
+        floats = row.view(np.float32)
+        row[:b], row[b:2 * b] = idx, pidx
+        for k, v in enumerate(scalars, start=2):
+            floats[k * b:(k + 1) * b] = v
+        row[5 * b] = seed_word(seed)
+        floats[5 * b + 1] = beta
+        row[5 * b + 2:] = 0 if step is None else step
+        self.staging.send()
+
+
+@dataclasses.dataclass
+class HostStep:
+    """One step of the graph path as :meth:`VAETrainer._apply` takes it: the
+    dataset, the step's rows and its host draws (partners, augmentation
+    scalars, noise seed), and ``out``, the row of the epoch's ``[steps, 5]``
+    metrics the step writes."""
+
+    data: torch.Tensor
+    idx: np.ndarray
+    pidx: np.ndarray
+    scalars: tuple
+    seed: int
+    out: Optional[torch.Tensor] = None
+
+
+class StepGraph:
+    """The captured train step of one key: its graph (None until captured),
+    the static ``[5]`` metrics its replays overwrite, the side stream its
+    warm-up and capture run on, and the warm-up steps taken."""
+
+    def __init__(self, key: tuple, device):
+        self.key, self.warm = key, 0
+        self.graph, self.metrics = None, None
+        self.stream = torch.cuda.Stream(device)
+
+    def capture(self, body: Callable[[], torch.Tensor], generator: torch.Generator) -> None:
+        """Captures ``body`` on the side stream; the trainer's generator is
+        registered so the replays advance it as eager draws would."""
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(generator)
+        with torch.cuda.graph(graph, stream=self.stream):
+            self.metrics = body()
+        self.graph = graph
 
 
 def gather_rows(host: torch.Tensor, indices: np.ndarray, out: torch.Tensor) -> torch.Tensor:
@@ -153,6 +252,8 @@ class VAETrainer:
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(self.device).manual_seed(seed)
         self._pinned: Dict[tuple, list] = {}  # streaming's host staging buffers
+        self._stages: Dict[int, StepStage] = {}  # a step's host values, by batch size
+        self._graph: Optional[StepGraph] = None
 
     @property
     def fused_readout(self) -> bool:
@@ -261,6 +362,7 @@ class VAETrainer:
     def load_rng_state(self, rng: dict) -> None:
         self.rng.bit_generator.state = rng["numpy"]
         self.generator.set_state(rng["torch"].cpu())
+        self._graph = None  # captured against the generator's old state
 
     # -- loss ----------------------------------------------------------------
 
@@ -327,8 +429,14 @@ class VAETrainer:
             metrics = {k: vals[i] for i, k in enumerate(STEP_METRICS[:-1])}
         return metrics, new_u, grads
 
-    def _apply(self, state: VAETrainState, batch: torch.Tensor, beta: float,
+    def _apply(self, state: VAETrainState, batch, beta: float,
                lr: float, precomputed=None, noise_rows=None) -> Dict[str, torch.Tensor]:
+        """One step's update and its metrics. ``batch`` is the assembled
+        batch (the eager step), or on the graph path a :class:`HostStep`,
+        whose batch is assembled inside the captured step
+        (:meth:`_graph_step`)."""
+        if isinstance(batch, HostStep):
+            return self._graph_step(state, batch, beta, lr)
         metrics, state.sn_u, grads = self.loss_and_grads(state, batch, beta,
                                                          precomputed=precomputed,
                                                          noise_rows=noise_rows)
@@ -343,6 +451,120 @@ class VAETrainer:
             metrics["grad_norm"] = norm
         return metrics
 
+    # -- the graph path ------------------------------------------------------
+
+    def graph_engages(self) -> bool:
+        """Whether :meth:`train_epoch` captures its step as a CUDA graph: on
+        one CUDA device (no mesh), with augmentation ``ops.gather_augment``
+        covers (``aug.fusable``), the power iteration in every step (the
+        "step" cadence "auto" resolves to, or no spectral norm) and no remat
+        (``torch.utils.checkpoint`` saves and sets the generators' states
+        around each block, which a capture cannot). Otherwise the eager loop."""
+        return (self.device.type == "cuda" and self.mesh is None and self.aug.fusable
+                and not (self.use_sn and self.sn_per_epoch) and not self.cfg.remat)
+
+    def _stage(self, bsz: int) -> StepStage:
+        stage = self._stages.get(bsz)
+        if stage is None:
+            stage = self._stages[bsz] = StepStage(bsz, self.device)
+        return stage
+
+    def _draws(self, n: int, bsz: int):
+        """One step's host draws, in the trainer's order: the mixup
+        partners, the augmentation scalars ``(lam_eff, amp, noise_sd)``, the
+        kernel's noise seed."""
+        a = self.aug
+        pidx = self.rng.integers(0, n, bsz)
+        scalars = draw_augment_scalars(
+            self.rng, bsz, noise_prob=a.noise_prob, noise_level=a.noise_level,
+            scaling_prob=a.scaling_prob, scaling_range=a.scaling_range,
+            mixup_prob=a.mixup_prob, mixup_alpha=a.mixup_alpha)
+        return pidx, scalars, int(self.rng.integers(0, 2 ** 31 - 1))
+
+    def _step_graph(self, state: VAETrainState, data: torch.Tensor,
+                    bsz: int) -> Optional[StepGraph]:
+        """The epoch's captured step (None: the eager loop runs), kept
+        while its key holds: what the step reads that a capture freezes."""
+        if not self.graph_engages():
+            return None
+        def ptrs(tensors):
+            return tuple(t.data_ptr() for t in tensors)
+        opt = state.opt_state
+        key = (tuple(data.shape), data.dtype, data.data_ptr(), bsz, self.fused_readout,
+               self.readout_bwd, ptrs(state.model.parameters()), ptrs(opt["mu"].values()),
+               ptrs(opt["nu"].values()), ptrs(state.sn_u.values()))
+        if self._graph is None or self._graph.key != key:
+            self._graph = None  # the old graph's memory goes back first
+            self._graph = StepGraph(key, self.device)
+        return self._graph
+
+    def _stage_step(self, state: VAETrainState, step: HostStep, beta: float,
+                    lr: float) -> StepStage:
+        """Advances AdamW's count and sends the step's host values (rows,
+        draws, beta and the optimizer's step words) to the card in one copy."""
+        count = state.opt_state["count"] = state.opt_state["count"] + 1
+        stage = self._stage(len(step.idx))
+        stage.send(step.idx, step.pidx, step.scalars, step.seed, beta,
+                   self.opt.step_words(count, lr))
+        return stage
+
+    def _step_body(self, state: VAETrainState, data: torch.Tensor,
+                   stage: StepStage) -> torch.Tensor:
+        """The whole step, reading every host value from ``stage``'s buffer:
+        the batch (``gather_augment``), one power iteration, the forward and
+        its noise, the backward, sigma's rank-1 terms, AdamW and the gradient
+        norm. Parameters, moments and ``state.sn_u`` are updated in place.
+        Returns the metrics as one f32 ``[5]`` tensor in ``STEP_METRICS``
+        order. The graph captures this call; run without capture it is the
+        same step."""
+        with span("train.assemble"):
+            batch = gather_augment(data, stage.idx, stage.pidx, stage.seed, stage.lam_eff,
+                                   stage.amp, stage.noise_sd, generator=self.generator)
+        metrics, new_u, grads = self.loss_and_grads(state, batch, stage.beta)
+        with span("train.optimizer"):
+            with torch.no_grad():
+                for k, u in new_u.items():
+                    state.sn_u[k].copy_(u)
+            norm = self.opt.apply_staged(grads, state.opt_state,
+                                         dict(state.model.named_parameters()), stage.step)
+        return torch.stack([metrics[k].float() for k in STEP_METRICS[:-1]] + [norm])
+
+    def _graph_step(self, state: VAETrainState, step: HostStep, beta: float,
+                    lr: float) -> Dict[str, torch.Tensor]:
+        """One step of the graph path: staged, then run eagerly on the side
+        stream while the key is warming up, else captured (once) and
+        replayed. Its metrics are copied into ``step.out``; the dict returned
+        holds views of that row."""
+        stage = self._stage_step(state, step, beta, lr)
+        g = self._graph
+        if g.graph is None and g.warm < WARMUP_STEPS:
+            main = torch.cuda.current_stream(self.device)
+            g.stream.wait_stream(main)
+            with torch.cuda.stream(g.stream):
+                vec = self._step_body(state, step.data, stage)
+            main.wait_stream(g.stream)
+            g.warm += 1
+        else:
+            if g.graph is None:
+                with span("train.capture"):
+                    g.capture(lambda: self._step_body(state, step.data, stage), self.generator)
+                COUNTERS["train.graph_captures"] += 1
+            with span("train.replay"):
+                g.graph.replay()
+            COUNTERS["train.graph_replays"] += 1
+            vec = g.metrics
+        step.out.copy_(vec)
+        return dict(zip(STEP_METRICS, step.out.unbind(0)))
+
+    def eager_step(self, state: VAETrainState, data: torch.Tensor, idx: np.ndarray,
+                   beta: float, lr: float) -> Dict[str, torch.Tensor]:
+        """One step on rows ``idx`` of ``data`` through the eager path
+        (:meth:`assemble_batch`, then :meth:`_apply`), whatever
+        :meth:`graph_engages` answers: the step of :meth:`train_epoch`'s eager
+        loop, drawing what it draws."""
+        return self._apply(state, self.assemble_batch(data, idx), beta, lr,
+                           noise_rows=self._rows(len(idx)))
+
     # -- batches -------------------------------------------------------------
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -352,29 +574,27 @@ class VAETrainer:
         return t
 
     def assemble_batch(self, data: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-        """Rows ``idx`` of ``data``, augmented against random partner rows.
-        On a mesh ``data`` is the resident layout of
-        ``ops.gather_augment.dataset_replicated_rows`` and the batch comes
-        back as this rank's block (:meth:`_rows`); everything is drawn for
-        the whole batch on every rank."""
+        """Rows ``idx`` of ``data``, augmented against random partner rows
+        (the eager step's assembly). ``gather_augment``'s host values go to
+        the card in one copy (:class:`StepStage`). On a mesh ``data`` is the
+        resident layout of ``ops.gather_augment.dataset_replicated_rows`` and
+        the batch comes back as this rank's block (:meth:`_rows`); everything
+        is drawn for the whole batch on every rank, and the rank's seed is
+        folded in on the host (``ops.gather_augment.rank_seed``)."""
         n, bsz = data.shape[0], len(idx)
-        pidx = self.rng.integers(0, n, bsz)
         rows = self._rows(bsz)
         block = None if rows is None else slice(rows[0], rows[0] + bsz // self.mesh.shape["data"])
         if self.aug.fusable:
-            a = self.aug
-            scalars = draw_augment_scalars(
-                self.rng, bsz, noise_prob=a.noise_prob, noise_level=a.noise_level,
-                scaling_prob=a.scaling_prob, scaling_range=a.scaling_range,
-                mixup_prob=a.mixup_prob, mixup_alpha=a.mixup_alpha)
-            seed = int(self.rng.integers(0, 2 ** 31 - 1))
-            vecs = (self._to_device(idx.astype(np.int32)),
-                    self._to_device(pidx.astype(np.int32)), seed,
-                    *(self._to_device(v) for v in scalars))
+            pidx, scalars, seed = self._draws(n, bsz)
             if self.mesh is not None:
-                return gather_augment_sharded(self.mesh, data, *vecs, rows=block,
-                                              node_parts=self.parts)
+                seed = rank_seed(self.mesh, seed, block, self.parts)
+            stage = self._stage(bsz)
+            stage.send(idx, pidx, scalars, seed)
+            vecs = (stage.idx, stage.pidx, stage.seed, stage.lam_eff, stage.amp, stage.noise_sd)
+            if self.mesh is not None:
+                return gather_augment_sharded(data, *vecs, rows=block)
             return gather_augment(data, *vecs, generator=self.generator)
+        pidx = self.rng.integers(0, n, bsz)
         if block is not None:
             idx, pidx = idx[block], pidx[block]
         batch = data.index_select(0, self._to_device(idx.astype(np.int64)))
@@ -415,6 +635,7 @@ class VAETrainer:
             perm = perm.reshape(num_batches, bsz)
             if max_steps is not None:
                 perm = perm[:max_steps]
+            graph = self._step_graph(state, data, bsz)
             # Per-epoch cadence: one power iteration at the epoch boundary, its
             # sigmas and rank-1 factors reused by every step.
             sn_pre = None
@@ -425,20 +646,35 @@ class VAETrainer:
                         compute_dtype=self._sn_dtype(), with_grad_factors=True)
                 sn_pre = (inv, factors)
             rows = self._rows(bsz)
-            steps = []
-            for idx in perm:
-                with span("train.step", tick("train.steps")):
-                    with span("train.assemble"):
-                        batch = self.assemble_batch(data, idx)
-                    steps.append(self._apply(state, batch, beta, lr, sn_pre, noise_rows=rows))
+            if graph is not None:  # each step's metrics, copied out of the graph's
+                out = torch.empty((len(perm), len(STEP_METRICS)), device=self.device)
+                for i, idx in enumerate(perm):
+                    with span("train.step", tick("train.steps")):
+                        pidx, scalars, seed = self._draws(n, bsz)
+                        self._apply(state, HostStep(data, idx, pidx, scalars, seed, out[i]),
+                                    beta, lr)
+            else:
+                steps = []
+                for idx in perm:
+                    with span("train.step", tick("train.steps")):
+                        with span("train.assemble"):
+                            batch = self.assemble_batch(data, idx)
+                        steps.append(self._apply(state, batch, beta, lr, sn_pre,
+                                                 noise_rows=rows))
+                out = self._metric_rows(steps)
             state.epoch += 1
-            return state, self._epoch_metrics(steps, beta, lr)
+            return state, self._epoch_metrics(out, beta, lr)
 
     @staticmethod
-    def _epoch_metrics(steps: List[Dict[str, torch.Tensor]], beta: float, lr: float):
-        """Step means as 0-d device tensors (no host sync), plus beta and lr."""
-        mean = torch.stack([torch.stack([m[k].float() for k in STEP_METRICS])
-                            for m in steps]).mean(dim=0)
+    def _metric_rows(steps: List[Dict[str, torch.Tensor]]) -> torch.Tensor:
+        """Eager steps' metrics as one f32 ``[steps, 5]`` tensor."""
+        return torch.stack([torch.stack([m[k].float() for k in STEP_METRICS]) for m in steps])
+
+    @staticmethod
+    def _epoch_metrics(rows: torch.Tensor, beta: float, lr: float):
+        """Step means of the ``[steps, 5]`` metrics as 0-d device tensors (no
+        host sync), plus beta and lr."""
+        mean = rows.mean(dim=0)
         metrics = {k: mean[i] for i, k in enumerate(STEP_METRICS)}
         metrics.update(beta=beta, lr=lr)
         return metrics
@@ -545,7 +781,8 @@ class VAETrainer:
             if on_card:
                 side.synchronize()  # every copy out of the staging buffers is over
             state.epoch += 1
-            return state, self._epoch_metrics(metrics, metrics[0]["beta"], metrics[0]["lr"])
+            return state, self._epoch_metrics(self._metric_rows(metrics), metrics[0]["beta"],
+                                              metrics[0]["lr"])
 
     # -- evaluation ----------------------------------------------------------
 

@@ -26,7 +26,10 @@ thread's ident. The spans of the port:
   and the gradients read out), ``train.optimizer`` (``FusedAdamW.apply``:
   pointer tables, gradient norm, sweeps); the streamed epoch's host gather
   and copy is ``train.fetch``; the per-epoch power iteration a
-  ``train.sn`` under ``train.epoch``;
+  ``train.sn`` under ``train.epoch``. On the graph path
+  (``VAETrainer.graph_engages``) a step holds ``train.capture`` (the one
+  capture of the step, its phases inside) or ``train.replay`` (one graph
+  launch) instead: the phases are spans of eager steps only;
 - ``serve.request``: one call of ``make_generate_fn``'s function, keyed by
   ``serve.requests``; in it ``serve.chunk`` (one decode call of at most
   ``max_batch`` rows) holding ``serve.conditioner`` (the conditioner and
@@ -43,9 +46,12 @@ time.
 
 Counters. :func:`register` adds a dict of counts to the module's merged
 view (:func:`counters`): the ops modules' ``LAUNCHES`` (hand-written kernel
-launches, counted always) and the module's own ``train.steps`` and
-``serve.requests``, which :func:`tick` advances only while recording. A
-recording hands back each counter's change over its block.
+launches from Python, counted always: a replayed graph's launches are
+counted once, at its capture), ``train.vae_trainer``'s
+``train.graph_captures`` and ``train.graph_replays`` (counted always), and
+the module's own ``train.steps`` and ``serve.requests``, which :func:`tick`
+advances only while recording. A recording hands back each counter's change
+over its block.
 """
 
 from __future__ import annotations

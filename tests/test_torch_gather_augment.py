@@ -46,7 +46,7 @@ def test_deterministic_path_matches_jax_kernel(dtype):
                               tile_n=256, interpret=True, with_noise=False)
     tga.reset_launch_counts()
     got = tga.gather_augment(torch.from_numpy(data).to(tdt), *map(torch.from_numpy, (
-        idx, pidx)), 7, *map(torch.from_numpy, (lam, amp, sd)))
+        idx, pidx)), torch.tensor([7], dtype=torch.int32), *map(torch.from_numpy, (lam, amp, sd)))
     assert got.dtype == tdt and tga.LAUNCHES["gather_augment"] == 0
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                rtol=1e-5, atol=atol)
@@ -69,9 +69,10 @@ def test_cpu_noise_is_standard_normal_and_follows_the_generator():
     ones = torch.ones(3)
     sd = torch.tensor([0.05, 0.0, 0.05])
     d = torch.from_numpy(data)
-    out = tga.gather_augment(d, idx, idx, 11, ones, ones, sd,
+    seed = torch.tensor([tga.seed_word(11)], dtype=torch.int32)
+    out = tga.gather_augment(d, idx, idx, seed, ones, ones, sd,
                              generator=torch.Generator().manual_seed(4))
-    again = tga.gather_augment(d, idx, idx, 11, ones, ones, sd,
+    again = tga.gather_augment(d, idx, idx, seed, ones, ones, sd,
                                generator=torch.Generator().manual_seed(4))
     assert torch.equal(out, again)
     x = d.index_select(0, idx.long())
@@ -101,7 +102,7 @@ def test_wrapper_rejects_other_devices():
     data = torch.empty((2, 3, 8), device="meta")
     v = torch.empty(2, device="meta")
     with pytest.raises(ValueError):
-        tga.gather_augment(data, v.int(), v.int(), 0, v, v, v)
+        tga.gather_augment(data, v.int(), v.int(), v[:1].int(), v, v, v)
 
 
 def test_augment_batch_disabled_and_deterministic_parts():
@@ -136,3 +137,42 @@ def test_augment_batch_shift_and_cutout():
     zeroed = (got == 0).all(dim=2)
     assert zeroed.any(dim=1).all() and (zeroed.sum(dim=1) <= 3).all()
     assert torch.equal(got[~zeroed], batch[~zeroed])
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1])
+def test_seed_word_stages_the_seeds_bits(seed):
+    """The kernel reads its seed from an int32 word on the card: the word
+    holds the seed's 32 bits."""
+    word = tga.seed_word(seed)
+    assert -2 ** 31 <= word < 2 ** 31
+    assert int(np.array([word], np.int32).view(np.uint32)[0]) == seed
+
+
+@pytest.mark.parametrize("seed", [-1, 2 ** 32])
+def test_seed_word_refuses_seeds_outside_32_bits(seed):
+    with pytest.raises(ValueError):
+        tga.seed_word(seed)
+
+
+@pytest.mark.parametrize("rows,parts,fold", [(None, 1, 0), (None, 2, 1), (slice(2, 4), 1, 2),
+                                             (slice(2, 4), 2, 3)])
+def test_sharded_noise_follows_the_staged_rank_seed(rows, parts, fold):
+    """A rank's seed is folded in on the host (the data coordinate where the
+    batch is split, the model coordinate where the nodes are) and staged as
+    the one-device seed is; on the CPU the plain version's noise comes from a
+    generator seeded with it."""
+    import types
+
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 2}, coords={"data": 1, "model": 1})
+    seed = tga.rank_seed(mesh, 2 ** 31 + 5, rows, parts)
+    assert seed == (2 ** 31 + 5 + fold * 0x9E3779B) % 2 ** 32
+    data, idx, pidx, lam, amp = _mk(n=6, t=8, nodes=64, seed=4)
+    d, idx, pidx = torch.from_numpy(data), torch.from_numpy(idx), torch.from_numpy(pidx)
+    lam, amp = torch.from_numpy(lam), torch.from_numpy(amp)
+    sd = torch.full((idx.shape[0],), 0.05)
+    staged = torch.tensor([tga.seed_word(seed)], dtype=torch.int32)
+    got = tga.gather_augment_sharded(d, idx, pidx, staged, lam, amp, sd, rows=rows)
+    r = rows or slice(None)
+    want = tga.gather_augment(d, idx[r], pidx[r], staged, lam[r], amp[r], sd[r],
+                              generator=torch.Generator().manual_seed(seed))
+    assert got.shape[0] == (2 if rows else idx.shape[0]) and torch.equal(got, want)

@@ -259,3 +259,43 @@ def test_trainer_builds_the_stack_it_is_asked_for():
     assert state.model.decoder.remat and state.model.encoder.remat
     with pytest.raises(ValueError, match="readout_bwd"):
         VAETrainer(cfg, device="cpu", readout_bwd="dy_free")
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_apply_staged_reads_its_step_words(mode):
+    """The staged path, which reads lr, the bias corrections and the dither
+    word from a 4-word tensor as the kernel reads them on the card, against
+    ``apply`` with a host learning rate: the same bits over three steps."""
+    kw = MODES[mode]
+    tdt = torch.bfloat16 if kw else torch.float32
+    rng = np.random.default_rng(13)
+    params, _, mu, nu = _state(rng)
+    opt = FusedAdamW(**kw)
+    pa, pb = _t(params), _t(params)
+    sa = {"count": 2, "mu": _t(mu, tdt), "nu": _t(nu, tdt)}
+    sb = {"count": 2, "mu": _t(mu, tdt), "nu": _t(nu, tdt)}
+    for step in range(3):
+        grads = {k: (0.05 * rng.standard_normal(s)).astype(np.float32)
+                 for k, s in SHAPES.items()}
+        lr = 1.3e-3 * (step + 1)
+        na = opt.apply(_t(grads), sa, pa, lr)
+        sb["count"] += 1                    # the caller advances the count it staged
+        words = torch.from_numpy(opt.step_words(sb["count"], lr))
+        nb = opt.apply_staged(_t(grads), sb, pb, words)
+        assert torch.equal(na, nb) and sa["count"] == sb["count"]
+    for k in SHAPES:
+        for a, b in ((pa[k], pb[k]), (sa["mu"][k], sb["mu"][k]), (sa["nu"][k], sb["nu"][k])):
+            assert a.dtype == b.dtype and torch.equal(a, b), k
+
+
+def test_step_words_pack_f32_values_and_the_dither_word():
+    from simulgen_vae_tpu_torch.ops.fused_adamw import STEP_WORDS, sr_step, step_words
+
+    opt = FusedAdamW()
+    for count in (1, 7, 2 ** 20 + 3):
+        words = opt.step_words(count, 1.3e-3)
+        assert words.dtype == np.int32 and words.shape == (STEP_WORDS,)
+        lr, c1, c2 = (float(v) for v in words.view(np.float32)[:3])
+        assert lr == float(np.float32(1.3e-3)) and (c1, c2) == opt._corrections(count)
+        assert int(words.view(np.uint32)[3]) == sr_step(count) == sr_seed(count, 0)
+    assert np.array_equal(step_words(0.5, *opt._corrections(3), 3), opt.step_words(3, 0.5))
