@@ -53,6 +53,7 @@ from simulgen_vae_tpu_torch.losses import get_recon_loss, mse_loss
 from simulgen_vae_tpu_torch.models.vae import VAE
 from simulgen_vae_tpu_torch.train.lc_trainer import LCTrainer, LCTrainState
 from simulgen_vae_tpu_torch.train.schedules import cosine_annealing
+from simulgen_vae_tpu_torch.utils.profiling import span
 
 E2E_LOSS_MAP = {"MSE": "MSE", "MAE": "MAE", "Huber": "Huber0.1", "SmoothL1": "SmoothL1"}
 STEP_METRICS = ("loss", "recon", "reg", "grad_norm")
@@ -163,16 +164,19 @@ class E2ETrainer(LCTrainer):
     def loss_fn(self, model, x, y1, y2, target, generator=None):
         """``(loss, metrics)`` on a batch the noise was added to;
         ``generator`` turns the conditioner's training mode on."""
-        y_pred1, y_pred2 = model(x, generator)
-        z, xs = self._descale(y_pred1, y_pred2)
-        recon = self.recon_loss(self.decode(z, xs).float(), target.float())
-        if self.use_reg:
-            reg = (0.9 * mse_loss(y_pred1, y1)
-                   + 0.1 * mse_loss(y_pred2.reshape(-1), y2.reshape(-1)))
-            loss = self.lc_alpha * recon + self.reg_weight * reg
-        else:
-            reg = torch.zeros((), device=recon.device)
-            loss = recon
+        with span("lc.conditioner"):
+            y_pred1, y_pred2 = model(x, generator)
+        with span("lc.decode"):
+            field = self.decode(*self._descale(y_pred1, y_pred2))
+        with span("lc.loss"):
+            recon = self.recon_loss(field.float(), target.float())
+            if self.use_reg:
+                reg = (0.9 * mse_loss(y_pred1, y1)
+                       + 0.1 * mse_loss(y_pred2.reshape(-1), y2.reshape(-1)))
+                loss = self.lc_alpha * recon + self.reg_weight * reg
+            else:
+                reg = torch.zeros((), device=recon.device)
+                loss = recon
         return loss, {"loss": loss.detach(), "recon": recon.detach(),
                       "reg": (self.reg_weight * reg).detach()}
 

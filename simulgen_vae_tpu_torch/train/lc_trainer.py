@@ -39,6 +39,10 @@ request (``utils.preemption``). The state has the fields that manager saves.
 
 Evaluation and :meth:`LCTrainer.predict_fn` run in eval mode (running
 statistics, no dropout) through ``W / sigma`` from the stored ``u``.
+
+An epoch, its steps and their phases, and each held-out batch are spans
+(``lc.epoch``, ``lc.step``, ``lc.eval`` and the phases ``utils.profiling``
+lists), recorded only inside ``profiling.recording()``.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from simulgen_vae_tpu_torch.train.nan_guard import rollback
 from simulgen_vae_tpu_torch.train.optim import FusedAdamW
 from simulgen_vae_tpu_torch.train.schedules import lc_warmup_cosine
 from simulgen_vae_tpu_torch.utils import preemption
+from simulgen_vae_tpu_torch.utils.profiling import span, tick
 
 STEP_METRICS = ("loss", "loss_y1", "loss_y2", "grad_norm")
 EVAL_METRICS = STEP_METRICS[:-1]
@@ -182,13 +187,15 @@ class LCTrainer:
                 y2: torch.Tensor, generator: Optional[torch.Generator] = None):
         """``(loss, metrics)``; ``generator`` turns training mode on (dropout,
         and the BatchNorms on the batch's statistics)."""
-        y_pred1, y_pred2 = model(x, generator)
-        a, b = mse_loss(y_pred1, y1), mse_loss(y_pred2, y2)
-        if self.loss_mode == "enhanced":
-            loss = (compute_enhanced_loss(y_pred1, y_pred2, y1, y2, {})
-                    + compute_perceptual_loss(y_pred1, y_pred2, y1, y2, {}))
-        else:
-            loss = a * 10.0 + b
+        with span("lc.conditioner"):
+            y_pred1, y_pred2 = model(x, generator)
+        with span("lc.loss"):
+            a, b = mse_loss(y_pred1, y1), mse_loss(y_pred2, y2)
+            if self.loss_mode == "enhanced":
+                loss = (compute_enhanced_loss(y_pred1, y_pred2, y1, y2, {})
+                        + compute_perceptual_loss(y_pred1, y_pred2, y1, y2, {}))
+            else:
+                loss = a * 10.0 + b
         return loss, {"loss": loss.detach(), "loss_y1": a.detach(), "loss_y2": b.detach()}
 
     def lr_at(self, epoch: int) -> float:
@@ -205,8 +212,9 @@ class LCTrainer:
                     lr: float) -> torch.Tensor:
         """:meth:`clip` ``grads`` and apply AdamW in place; returns the norm
         before clipping (a 0-d device tensor)."""
-        clipped, norm = self.clip(grads)
-        self.opt.apply(clipped, state.opt_state, dict(state.model.named_parameters()), lr)
+        with span("lc.optimizer"):
+            clipped, norm = self.clip(grads)
+            self.opt.apply(clipped, state.opt_state, dict(state.model.named_parameters()), lr)
         return norm
 
     def _step(self, state: LCTrainState, batch, lr: float) -> Dict[str, torch.Tensor]:
@@ -215,11 +223,12 @@ class LCTrainer:
             p.grad = None
         forward = forward_model(state, self.sn_filter, update=True)
         loss, metrics = self.loss_fn(forward, *batch, self.generator)
-        loss.backward()
-        if self.sn_filter is not None:
-            state.sn_u = forward.new_u
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in model.named_parameters()}
+        with span("lc.backward"):
+            loss.backward()
+            if self.sn_filter is not None:
+                state.sn_u = forward.new_u
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in model.named_parameters()}
         metrics["grad_norm"] = self.apply_grads(state, grads, lr)
         return metrics
 
@@ -251,9 +260,12 @@ class LCTrainer:
         lr = self.lr_at(state.epoch)
         perm = self.rng.permutation(n)[: num_batches * bsz].reshape(num_batches, bsz)
         steps = []
-        for idx in torch.as_tensor(perm, device=data[0].device):
-            batch = self._augment(*(t.index_select(0, idx) for t in data))
-            steps.append(self._step(state, batch, lr))
+        with span("lc.epoch"):
+            for idx in torch.as_tensor(perm, device=data[0].device):
+                with span("lc.step", tick("lc.steps")):
+                    with span("lc.augment"):
+                        batch = self._augment(*(t.index_select(0, idx) for t in data))
+                    steps.append(self._step(state, batch, lr))
         state.epoch += 1
         mean = torch.stack([torch.stack([m[k] for k in self.STEP_METRICS])
                             for m in steps]).mean(0)
@@ -271,10 +283,11 @@ class LCTrainer:
         total = None
         model = forward_model(state, self.sn_filter, update=False)
         for i in range(num_batches):
-            rows = slice(i * bsz, (i + 1) * bsz)
-            _, m = self.loss_fn(model, *(t[rows] for t in data))
-            vals = torch.stack([m[k] for k in self.EVAL_METRICS])
-            total = vals if total is None else total + vals
+            with span("lc.eval", tick("lc.eval_batches")):
+                rows = slice(i * bsz, (i + 1) * bsz)
+                _, m = self.loss_fn(model, *(t[rows] for t in data))
+                vals = torch.stack([m[k] for k in self.EVAL_METRICS])
+                total = vals if total is None else total + vals
         mean = total / num_batches
         return {k: mean[i] for i, k in enumerate(self.EVAL_METRICS)}
 

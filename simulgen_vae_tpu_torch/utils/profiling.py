@@ -36,6 +36,17 @@ thread's ident. The spans of the port:
   the latent descales), ``serve.decode`` (``VAE.generate``) and
   ``serve.descale``; ``serve.concat``, the tail chunk's padding and the
   chunks' concatenation;
+- ``lc.epoch``: ``LCTrainer.train_epoch`` (the CSV, image and E2E
+  conditioners); ``lc.step``: one step, keyed by ``lc.steps``; in it
+  ``lc.augment`` (the batch's rows and its augmentation or noise),
+  ``lc.conditioner`` (the model call in ``loss_fn``: the power iteration
+  and the conditioner's forward), ``lc.decode`` (``E2ETrainer``: the
+  latents' descale and the frozen decoder, its ``decoder.readout``
+  inside), ``lc.loss`` (the loss terms), ``lc.backward``
+  (``loss.backward()`` and the gradients read out), ``lc.optimizer`` (the
+  clip and AdamW); ``lc.eval``: one held-out batch of
+  ``LCTrainer.eval_epoch``, keyed by ``lc.eval_batches``, holding its
+  ``lc.conditioner``, ``lc.decode`` and ``lc.loss``;
 - ``decoder.readout``: ``Decoder.recon``, in training and serving;
 - ``collective.all_reduce``, ``collective.all_gather``,
   ``collective.broadcast``: ``parallel.collectives``' calls.
@@ -49,9 +60,9 @@ view (:func:`counters`): the ops modules' ``LAUNCHES`` (hand-written kernel
 launches from Python, counted always: a replayed graph's launches are
 counted once, at its capture), ``train.vae_trainer``'s
 ``train.graph_captures`` and ``train.graph_replays`` (counted always), and
-the module's own ``train.steps`` and ``serve.requests``, which :func:`tick`
-advances only while recording. A recording hands back each counter's change
-over its block.
+the module's own ``train.steps``, ``serve.requests``, ``lc.steps`` and
+``lc.eval_batches``, which :func:`tick` advances only while recording. A
+recording hands back each counter's change over its block.
 """
 
 from __future__ import annotations
@@ -71,7 +82,7 @@ _on = False          # the one flag a span tests
 _spans: list = []    # [name, start_ns, end_ns, parent, key, thread] of the recording
 _offset_ns = 0       # Unix clock minus perf_counter, taken when a recording starts
 _local = threading.local()
-_OWN = {"train.steps": 0, "serve.requests": 0}
+_OWN = {"train.steps": 0, "serve.requests": 0, "lc.steps": 0, "lc.eval_batches": 0}
 _REGISTERED: List[dict] = [_OWN]
 
 
