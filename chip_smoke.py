@@ -249,6 +249,16 @@ Phases, each printing its own lines; any failure exits non-zero:
              --lc_epochs 2`` (one NCCL rank) in phase 9's work directory:
              exit 0, ``Mesh: {'data': 1, 'model': 1}`` printed and the eight
              model_save/ files.
+13. epilogue: the field epilogue (ops/csrc/field_epilogue.cu) against its
+             plain version bit for bit at the sweep's chunk shape (64 x 200
+             x 95008, bf16 and f32, into rows 64-127 of a 128-row field) and
+             at ragged shapes (N not a multiple of 8, row bases off 16
+             bytes), the other rows left unwritten; one 128-row request
+             through make_generate_fn(max_batch=64): two launches, the same
+             bits as the plain descale of the same request served raw; the
+             kernel's time for one request (back to back, device only,
+             profiled) beside its byte bound (4.36 ms) and the cast,
+             subtract, divide and torch.cat it replaces (plain_ms).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
@@ -3979,6 +3989,140 @@ def phase_mesh(args, card, root: Path) -> tuple:
 DECODE_ONEPASS = ((128, 1), (256, 3), (512, 4))
 
 
+# Phase 13: the sweep's request (128 fields in chunks of 64) and ragged
+# shapes for the field epilogue: N not a multiple of 8 or of 4, and row
+# bases that are not 16-byte aligned (out rows 1.. of a [rows + 1, t, n]
+# field).
+SWEEP_ROWS, SWEEP_CHUNK = 128, 64
+EPILOGUE_RAGGED = ((3, 7, 1001), (2, 5, 95007), (2, 3, 95008), (2, 3, 1004))
+
+
+def _epilogue_case(fe, x, mn, sc, rows: slice, total: int) -> dict:
+    """``field_epilogue`` of ``x`` into rows ``rows`` of a NaN-filled
+    ``[total, ...]`` f32 field against the plain version on the card."""
+    out = torch.full((total, *x.shape[1:]), float("nan"), device="cuda")
+    fe.field_epilogue(x, mn, sc, out[rows])
+    want = fe.field_epilogue_reference(x, mn, sc, torch.empty_like(out[rows]))
+    torch.cuda.synchronize()
+    placed = out[rows]
+    other = int(out.isnan().sum()) - int(placed.isnan().sum())
+    return dict(shape=list(x.shape), dtype=str(x.dtype).split(".")[1], rows=[rows.start, rows.stop],
+                equal=bool(torch.equal(placed, want)), max_abs=_err(placed, want),
+                untouched=other == out.numel() - placed.numel())
+
+
+def phase_epilogue(args, card, pipeline, inputs) -> tuple:
+    """Phase 13: the field epilogue (ops/csrc/field_epilogue.cu). Gated: the
+    kernel equals its plain version bit for bit at the sweep's chunk shape
+    (64 x 200 x 95008, bf16 and f32, into rows 64-127 of a 128-row field)
+    and at EPILOGUE_RAGGED (both dtypes, aligned and shifted row bases),
+    leaving the other rows unwritten; one 128-row request through
+    make_generate_fn(max_batch=64) launches it twice and equals the plain
+    descale of the same request served with descale_output=False. Timed for
+    one request: the kernel back to back, device only (a replayed CUDA
+    graph) and profiled, beside the byte bound and the path it replaces (the
+    f32 cast, subtract and divide of each chunk, then torch.cat), as
+    ``plain_ms``. Returns (the kernels' JSON entry, the result dict)."""
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.ops import field_epilogue as fe
+
+    gen = torch.Generator("cuda").manual_seed(args.seed)
+    n_node = 95008
+
+    def stats(n):
+        return (torch.rand(n, generator=gen, device="cuda") * 1.8 - 0.9,
+                torch.rand(n, generator=gen, device="cuda") * 1.8 + 0.2)
+
+    def field(shape, dtype):
+        return (torch.rand(shape, generator=gen, device="cuda") * 3 - 1.5).to(dtype)
+
+    fe.reset_launch_counts()
+    cases = []
+    mn, sc = stats(n_node)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = field((SWEEP_CHUNK, T, n_node), dtype)
+        cases.append(_epilogue_case(fe, x, mn, sc, slice(SWEEP_CHUNK, SWEEP_ROWS), SWEEP_ROWS))
+        del x
+        torch.cuda.empty_cache()
+    for shape in EPILOGUE_RAGGED:
+        m, s = stats(shape[2])
+        for dtype in (torch.bfloat16, torch.float32):
+            x = field(shape, dtype)
+            for start in (0, 1):
+                cases.append(_epilogue_case(fe, x, m, s, slice(start, start + shape[0]),
+                                            shape[0] + 1))
+    for c in cases:
+        print(f"epilogue: {c['dtype']} {c['shape']} into rows {c['rows']}: "
+              f"{'the same bits' if c['equal'] else 'DIFFERENT'} (max abs {c['max_abs']:.3g}), "
+              f"other rows {'untouched' if c['untouched'] else 'WRITTEN'}")
+    if not all(c["equal"] and c["untouched"] for c in cases):
+        raise AssertionError("field_epilogue differs from its plain version")
+
+    # one request through the serving function
+    pipe = pipeline(torch.bfloat16)
+    request = np.resize(inputs, (SWEEP_ROWS, inputs.shape[1]))
+    fe.reset_launch_counts()
+    got = tgen.make_generate_fn(pipe, max_batch=SWEEP_CHUNK)(request)
+    torch.cuda.synchronize()
+    launches = fe.LAUNCHES["field_epilogue"]
+    raw = tgen.make_generate_fn(pipe, descale_output=False, max_batch=SWEEP_CHUNK)(request)
+    ds = pipe["data_scaler"]
+    want = ds.inverse_transform(raw.float())
+    served = dict(shape=list(got.shape), dtype=str(got.dtype).split(".")[1], launches=launches,
+                  equal=bool(torch.equal(got, want)), max_abs=_err(got, want),
+                  finite=bool(got.isfinite().all()))
+    print(f"epilogue: one {SWEEP_ROWS}-row request at max_batch {SWEEP_CHUNK}: "
+          f"{tuple(got.shape)} {got.dtype}, {launches} launches, against the plain descale "
+          f"of the raw field: {'the same bits' if served['equal'] else 'DIFFERENT'} "
+          f"(max abs {served['max_abs']:.3g})")
+    if (launches != SWEEP_ROWS // SWEEP_CHUNK or not served["equal"] or not served["finite"]
+            or served["shape"] != [SWEEP_ROWS, T, n_node] or got.dtype != torch.float32):
+        raise AssertionError(f"the served request did not take the epilogue: {served}")
+    del pipe, got, raw, want
+    torch.cuda.empty_cache()
+
+    # times for one request: two chunks of 64
+    x = field((SWEEP_CHUNK, T, n_node), torch.bfloat16)
+    out = torch.empty((SWEEP_ROWS, T, n_node), device="cuda")
+
+    def kernel_request():
+        for start in range(0, SWEEP_ROWS, SWEEP_CHUNK):
+            fe.field_epilogue(x, mn, sc, out[start: start + SWEEP_CHUNK])
+
+    def plain_request():
+        return torch.cat([(x.float() - mn) / sc for _ in range(0, SWEEP_ROWS, SWEEP_CHUNK)])
+
+    reps = max(args.reps, 10)
+    times = {}
+    for turn in ("kernel", "plain", "plain", "kernel"):
+        fn = kernel_request if turn == "kernel" else plain_request
+        times.setdefault(turn, []).append(cuda_ms(fn, reps))
+    device_ms = graph_ms(kernel_request, reps)
+    profiled_ms = profiled_device_ms(kernel_request, reps)
+    elems = SWEEP_ROWS * T * n_node
+    bound_ms = elems * (2 + 4) / HBM_BYTES_PER_S * 1e3
+    ms, plain_ms = min(times["kernel"]), min(times["plain"])
+    print(f"timing: [{card}] field_epilogue for one {SWEEP_ROWS}-field request (2 launches, "
+          f"bf16 in, f32 out): {ms:.4f} ms back to back ({times['kernel']}), device only "
+          f"{device_ms:.4f} ms, profiled {profiled_ms:.4f} ms; bound {bound_ms:.4f} ms "
+          f"({100 * bound_ms / profiled_ms:.1f}% profiled, {100 * bound_ms / device_ms:.1f}% "
+          f"device only); plain (cast, subtract, divide, cat) {plain_ms:.4f} ms "
+          f"({times['plain']})")
+    del x, out
+    torch.cuda.empty_cache()
+    kernel = dict(name="field_epilogue", route="cuda",
+                  source="simulgen_vae_tpu_torch/ops/csrc/field_epilogue.cu",
+                  replaces="no Pallas kernel: XLA's fused cast, subtract and divide in "
+                           "simulgen_vae_tpu/generate.py",
+                  launches=launches, launches_per_request=SWEEP_ROWS // SWEEP_CHUNK,
+                  max_abs_err=max(c["max_abs"] for c in cases), ms=ms, device_ms=device_ms,
+                  profiled_ms=profiled_ms, bound_ms=bound_ms, bound_by="bytes",
+                  plain_ms=plain_ms, library_ms=None, card=card,
+                  shapes=[[SWEEP_ROWS, T, n_node]])
+    return kernel, dict(cases=cases, served=served, times=times, device_ms=device_ms,
+                        profiled_ms=profiled_ms, bound_ms=bound_ms)
+
+
 def onepass_times(gg, seed: int, reps: int) -> dict:
     """The device time of one decode's gn_act_onepass launches (CUDA graph
     replay) beside F.group_norm + gelu timed the same way, after a check
@@ -4561,6 +4705,9 @@ def main(argv=None) -> int:
         for tag, per_rank in mesh_launches.items():
             if k["name"] in per_rank[0]:
                 k[f"launches_mesh_{tag}"] = [counts[k["name"]] for counts in per_rank]
+    # 13. the field epilogue
+    epilogue_kernel, epilogue = phase_epilogue(args, card, pipeline, inputs)
+    kernels.append(epilogue_kernel)
     for k in kernels:
         for key, counts in (("launches_cli_train", cli_launches),
                             ("launches_images_e2e", e2e_launches),
@@ -4576,7 +4723,7 @@ def main(argv=None) -> int:
                   repairs=repairs,
                   fused_train=fused, stack_train=stack, artifacts=artifacts,
                   cli_train=cli_train, images=images, pca=pca, mesh=mesh,
-                  profiler_sessions=PROFILER_SESSIONS,
+                  epilogue=epilogue, profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(f"profiler: {PROFILER_SESSIONS['sessions']} sessions, "

@@ -36,10 +36,18 @@ over ``model`` by the training rule (the readout's int8 scales with its
 kernel), requests over ``data`` where their count divides by it, and every
 rank returns the whole field, gathered over both axes.
 
+The field leaves the decoder in its dtype and is descaled to f32 physical
+units by ``ops.field_epilogue`` in one pass (on the card one hand-written
+kernel; on the CPU the plain expression). Without a mesh a request larger
+than one chunk is allocated once, and each chunk's epilogue writes its
+rows straight into it (a copy where ``descale_output`` is off); a mesh
+gathers each rank's descaled block first and concatenates the chunks.
+
 A call of the serving function and its phases are spans of
 ``utils.profiling`` (``serve.request``, ``serve.chunk``,
 ``serve.conditioner``, ``serve.decode`` with ``decoder.readout`` in it,
-``serve.descale``, ``serve.concat``), recorded only inside
+``serve.descale`` around the epilogue, ``serve.concat`` around the tail
+chunk's padding and the mesh path's concatenation), recorded only inside
 ``profiling.recording()``; ``serve.requests`` counts the calls recorded.
 """
 
@@ -69,6 +77,7 @@ from simulgen_vae_tpu_torch.convert import (
 )
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
 from simulgen_vae_tpu_torch.models.vae import VAE
+from simulgen_vae_tpu_torch.ops.field_epilogue import field_epilogue
 from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
 from simulgen_vae_tpu_torch.parallel import collectives, sharding
 from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
@@ -258,7 +267,9 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
                             if t.dim() == 1 and t.shape[0] == cfg.num_node else t
                             for t in (ds.scale_, ds.min_)))
 
-    def run(inputs: torch.Tensor) -> torch.Tensor:
+    def decode(inputs: torch.Tensor) -> tuple:
+        """A chunk's field in the decoder's dtype, this rank's rows and nodes,
+        and the rows it holds on a mesh that splits them (None: all)."""
         rows = None
         if mesh is not None:
             d = sharding.batch_parts(mesh, inputs.shape[0])
@@ -276,9 +287,33 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
             # mode='fix' draws noise of std 1e-8; a fixed seed keeps it repeatable.
             gen = torch.Generator(device).manual_seed(0)
             field = vae.generate(z.to(dtype), xs, generator=gen, noise_rows=rows)
+        return field, rows
+
+    def descale(field: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        with span("serve.descale"):
+            return field_epilogue(field, ds.min_, ds.scale_, out)
+
+    def place(field: torch.Tensor, out: Optional[torch.Tensor], start: int,
+              n: int) -> torch.Tensor:
+        """``field`` as rows ``start:`` of the request's ``[n, ...]`` output,
+        which the first chunk allocates: descaled, or copied."""
+        if out is None:
+            out = field.new_empty((n, *field.shape[1:]),
+                                  dtype=torch.float32 if descale_output else field.dtype)
+        rows = out[start: start + field.shape[0]]
         if descale_output:
-            with span("serve.descale"):
-                field = ds.inverse_transform(field.float())
+            descale(field, rows)
+        else:
+            rows.copy_(field)
+        return out
+
+    def run(inputs: torch.Tensor) -> torch.Tensor:
+        """One chunk's whole field: descaled into a fresh tensor and, on a
+        mesh, gathered."""
+        field, rows = decode(inputs)
+        if descale_output:
+            field = descale(field, torch.empty(field.shape, dtype=torch.float32,
+                                                 device=field.device))
         if mesh is not None:
             if parts > 1:
                 field = collectives.all_gather_cat(field, mesh.group("model"), 2)
@@ -294,15 +329,20 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
             if n <= max_batch:
                 with span("serve.chunk"):
                     return run(x)
-            chunks = []
+            out, chunks = None, []
             for start in range(0, n, max_batch):
                 chunk = x[start: start + max_batch]
                 got = chunk.shape[0]
-                if got < max_batch:  # pad to the one call shape, slice after
+                if got < max_batch:  # pad to the one call shape; the padding is never placed
                     with span("serve.concat"):
                         chunk = torch.cat([chunk, chunk[-1:].expand(max_batch - got, -1)])
                 with span("serve.chunk"):
-                    chunks.append(run(chunk)[:got])
+                    if mesh is None:
+                        out = place(decode(chunk)[0][:got], out, start, n)
+                    else:  # the gathered field has to exist before its rows can be placed
+                        chunks.append(run(chunk)[:got])
+            if out is not None:
+                return out
             with span("serve.concat"):
                 return torch.cat(chunks)
 
