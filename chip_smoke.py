@@ -2,7 +2,6 @@
 """Drive the PyTorch/CUDA port (simulgen_vae_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--reps 20] [--profile]
-    python3 chip_smoke.py --ab {onepass,gn-bwd,gn-stats,gn-stats-clusters,readout-bwd,stream} TREE ...
 
 Phases, each printing its own lines; any failure exits non-zero:
 
@@ -26,16 +25,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              max-abs 1e-4 (f32, TF32 off);
 4. timing  : p50 of a batch-16 decode; bf16 torch.erfc, gelu and its
              gradient on the card against the CPU on 4096 values (at most 1%
-             differing); the
-             decode's p50, device time and kernel launches with the bf16
-             layers before and after the two rounding repairs (the bias added
-             after the product, gelu rounded per operation), in turns; per
-             kernel at each main-path shape, its time beside its plain
-             version, one PyTorch library call and the card's bound (HBM
-             bytes at 3.35 TB/s, or operations at 67 TFLOP/s f32, whichever
-             is larger); for gn_act_onepass and its library call also the
-             device time alone (calls replayed from a CUDA graph), beside the
-             time of its earlier design (a constant);
+             differing); per kernel at each main-path shape, its time beside
+             its plain version, one PyTorch library call and the card's bound
+             (HBM bytes at 3.35 TB/s, or operations at 67 TFLOP/s f32,
+             whichever is larger); for gn_act_onepass, gn_stats and their
+             library calls also the device time alone (calls replayed from a
+             CUDA graph);
 5. train   : the flagship VAE train step (bench.py's configuration: 64
              resident samples of 200 x 95008 made on the card from --seed,
              encoder filters 1024 512 256 128, batch 16, bf16 compute, f32
@@ -67,9 +62,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              every gradient within rel-L2 1e-3); then the step's p50 and each
              train kernel's time per step beside its bound, plain and library
              times (gn_bwd_onepass and gn_bwd_stats also device only from a
-             replayed CUDA graph, their kernels' own time in a profiler trace
-             beside the library backward's measured the same way, and the
-             times of their earlier designs, constants);
+             replayed CUDA graph, and their kernels' own time in a profiler
+             trace beside the library backward's measured the same way);
 6. fused   : the fused-readout train path (VAETrainer(fused_readout=True)):
              each of its four kernels (readout_matmul_stats, readout_loss,
              readout_bwd_stats, readout_bwd_dy) against its plain version in
@@ -85,10 +79,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              unfused route; f32 with TF32 off: loss within 1e-4, every
              gradient and the readout's inv_sigma gradient within rel-L2 1e-3;
              bf16: loss within 1e-2); then per-kernel times beside their
-             bounds (readout_matmul_stats also with its product alone, from a
-             build without the epilogue, its epilogue's share, TFLOP/s and
-             the time of its earlier design, a constant), the
-             readout segment
+             bounds (readout_matmul_stats also in TFLOP/s and beside F.linear
+             alone), the readout segment
              fused against unfused, and the fused against the unfused step
              p50, timed in turns; bwd="auto" must run the backward flavor
              ops.readout_chain.bwd_flavor answers at the flagship shape (its
@@ -266,24 +258,6 @@ device time by kernel for three decodes, one train step, one fused train step
 and two steps of the benched stack with either backward (written under
 chiprun_out/). Without a CUDA device, or without the package beside it, the
 script fails.
-
---ab MODE runs none of this: for each TREE (a directory holding a
-simulgen_vae_tpu_torch package, e.g. an unpacked git archive of another
-commit), in its own process and in the order given, it checks one family of
-kernels against its plain version and times it from a replayed CUDA graph:
-one JSON line per tree, then the card's name and power limit. MODE onepass:
-one decode's gn_act_onepass launches (C = 128 x1, 256 x3, 512 x4; bf16, B =
-16, T = 200) beside F.group_norm + gelu timed the same way. MODE gn-bwd: one
-train step's GroupNorm backwards (bf16, B = 16, T = 200, G = 8: C = 128 x3,
-256 x5, 512 x6, 1024 x4, 1280 x2, 2560 x2, 5120 x2, 95008 x1 with tanh),
-each on that tree's own route, whole and kernel by kernel. MODE gn-stats:
-gn_stats on each map of a decode and a step, with hashes of gn_bwd_stats'
-outputs; gn-stats-clusters: gn_stats' measurement builds with clusters of 5
-to 8. MODE readout-bwd: readout_bwd_fused and both backward segments
-(dy-free, materializing) at every phase 7 shape, in bf16, device only, with
-a hash of readout_matmul_stats' outputs at two shapes. MODE stream: the
-streamed epoch's step times at phase 5's configuration on the tree's own
-host gather route, with hashes of train/vae_trainer.py.
 """
 
 from __future__ import annotations
@@ -355,16 +329,6 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchKernelEx",
 OP_KERNELS = {"readout_matmul_stats": ("matmul_stats_finalize(_flat)?_kernel", 1),
               "readout_bwd_fused": ("fused_(bf16|f32)_kernel", 2)}
 READOUT_F, READOUT_C, READOUT_G = 1024, 95008, 8
-# The times of five kernels' earlier designs (one block per sample; an
-# mma.sync tile fed by cp.async; one thread a column and a second launch) on
-# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md,
-# the kernel table), per decode and per step, back to back: constants,
-# printed beside this run's times on the timing lines and nowhere else.
-EARLIER_MS = {"gn_act_onepass": 0.331, "readout_matmul_stats": 3.723, "gn_bwd_onepass": 0.514,
-              "gn_bwd_stats": 2.014, "gn_stats": 0.579}
-# The launches per step those two earlier times cover: #3 at C = 128 and 256;
-# #6 from C = 512 up (the C = 512 maps take #3 now).
-EARLIER_LAUNCHES = {"gn_bwd_onepass": 8, "gn_bwd_stats": 17}
 
 
 def seed_tensor(seed: int) -> torch.Tensor:
@@ -511,20 +475,6 @@ def sass_check(_build) -> dict:
             raise AssertionError(f"{name} was not built with wgmma and TMA: {counts}")
         out[name] = counts
     return out
-
-
-def product_alone_ms(rc, call, reps: int) -> float:
-    """Time of ``call`` (a bf16 ``readout_matmul_stats``) with the library built
-    with READOUT_PRODUCT_ONLY in place of the real one: the product without
-    the epilogue and the finalize (y and the statistics are left unwritten)."""
-    from simulgen_vae_tpu_torch.ops import _build
-
-    real = _build.load("readout_matmul_stats")
-    _build._LIBS["readout_matmul_stats"] = _build.load("readout_matmul_stats_product")
-    try:
-        return cuda_ms(call, reps)
-    finally:
-        _build._LIBS["readout_matmul_stats"] = real
 
 
 def cluster_launch(name: str, call, what: str, alone: bool = True) -> dict:
@@ -689,30 +639,6 @@ def plain_group_norm(blocks, gg):
         yield
     finally:
         blocks.group_norm_act = real
-
-
-@contextlib.contextmanager
-def pre_repair_layers(blocks):
-    """The bf16 layers as they were before the two rounding repairs: the bias
-    inside the product of a layer without spectral norm, and one fused
-    ``F.gelu`` (for the before/after decode timing only)."""
-    from simulgen_vae_tpu_torch.models import conditioner_mlp, decoder
-
-    def fused_bias(product, x, w, b, inv_sigma):
-        if inv_sigma is None:
-            return product(x, w, b)
-        return blocks._scaled(product(x, w), inv_sigma, b)
-
-    patched = [(blocks, "_biased", fused_bias)] + [
-        (m, "gelu", F.gelu) for m in (blocks, decoder, conditioner_mlp)]
-    saved = [(m, name, getattr(m, name)) for m, name, _ in patched]
-    for m, name, fn in patched:
-        setattr(m, name, fn)
-    try:
-        yield
-    finally:
-        for m, name, fn in saved:
-            setattr(m, name, fn)
 
 
 def decode_device(fn, batch, calls: int = 3) -> dict:
@@ -1342,16 +1268,15 @@ def phase_train(args, card, blocks, gg, ga, gen):
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in krows)
             else "operations",
             library_ms=lib, per_step_sum=True, card=card, shapes=krows))
-        if name in EARLIER_MS:
+        if name in ("gn_bwd_onepass", "gn_bwd_stats"):
             k = kernels[-1]
             k.update(device_ms=total("device_ms"), profiled_ms=total("profiled_ms"),
                      library_device_ms=total("library_device_ms"))
             print(f"timing: [{card}] {name} per step ({k['launches_per_step']:.0f} launches at C "
-                  f"= {sorted({r['C'] for r in krows})}): {k['ms']:.4f} ms back to back (the "
-                  f"constant for its earlier design: {EARLIER_MS[name]:.3f} ms, "
-                  f"{EARLIER_LAUNCHES[name]} launches), device only {k['device_ms']:.4f} ms "
-                  f"(CUDA graph); library {k['library_ms']:.4f} ms back to back; kernels' own "
-                  f"time in a profiler trace {k['profiled_ms']:.4f} ms against the library's "
+                  f"= {sorted({r['C'] for r in krows})}): {k['ms']:.4f} ms back to back, "
+                  f"device only {k['device_ms']:.4f} ms (CUDA graph); library "
+                  f"{k['library_ms']:.4f} ms back to back; kernels' own time in a profiler trace "
+                  f"{k['profiled_ms']:.4f} ms against the library's "
                   f"{k['library_device_ms']:.4f} ms: below the library call "
                   f"{k['profiled_ms'] < k['library_device_ms']}; bound {k['bound_ms']:.4f} ms")
     result = dict(step_p50_ms=step_p50, step_ms=lat.tolist(),
@@ -1569,15 +1494,9 @@ def readout_kernel_timings(rc, gg, reps, gen, card) -> dict:
         (b * t * f + c * f) * 2 + mb + 4 * c + 8 * b * g, 2 * b * t * f * c, BF16_OPS_PER_S)
     r = rows["readout_matmul_stats"]
     flops = 2 * b * t * f * c
-    r.update(product_ms=product_alone_ms(
-                 rc, lambda: rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g),
-                 reps),
-             linear_ms=cuda_ms(lambda: F.linear(k["h"], k["w"], b16), reps))
+    r.update(linear_ms=cuda_ms(lambda: F.linear(k["h"], k["w"], b16), reps))
     print(f"timing: [{card}] fused readout readout_matmul_stats (wgmma + TMA): {r['ms']:.4f} ms "
-          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s; the constant for the mma.sync design: "
-          f"{EARLIER_MS['readout_matmul_stats']:.3f} ms); the product alone {r['product_ms']:.4f} ms "
-          f"({flops / r['product_ms'] / 1e9:.1f} TFLOP/s), epilogue share "
-          f"{1.0 - r['product_ms'] / r['ms']:.3f}; F.linear {r['linear_ms']:.4f} ms; below "
+          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s); F.linear {r['linear_ms']:.4f} ms; below "
           f"F.linear + torch.var_mean: {r['ms'] < r['library_ms']}")
     none = "none: no single PyTorch call computes it (see the segment times)"
     row("readout_loss", cuda_ms(lambda: rc.readout_loss(y, *chain, stats, g), reps),
@@ -3982,12 +3901,7 @@ def phase_mesh(args, card, root: Path) -> tuple:
     return launches, result
 
 
-# -- --ab: two versions of a kernel family on one card -------------------------
-
-# (C, launches per decode) of the serving decode's one-pass GroupNorms (G = 8,
-# gelu, bf16; phase 3 records them).
-DECODE_ONEPASS = ((128, 1), (256, 3), (512, 4))
-
+# -- phase 13: the field epilogue -----------------------------------------------
 
 # Phase 13: the sweep's request (128 fields in chunks of 64) and ragged
 # shapes for the field epilogue: N not a multiple of 8 or of 4, and row
@@ -4123,371 +4037,16 @@ def phase_epilogue(args, card, pipeline, inputs) -> tuple:
                         profiled_ms=profiled_ms, bound_ms=bound_ms)
 
 
-def onepass_times(gg, seed: int, reps: int) -> dict:
-    """The device time of one decode's gn_act_onepass launches (CUDA graph
-    replay) beside F.group_norm + gelu timed the same way, after a check
-    against the plain version."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = []
-    for c, n in DECODE_ONEPASS:
-        x, scale, bias = _map(c, torch.bfloat16, gen)
-        xt, s16, b16 = x.transpose(1, 2).contiguous(), scale.to(x.dtype), bias.to(x.dtype)
-        _assert_close(f"gn_act_onepass C={c}", gg.gn_act_onepass(x, scale, bias, 8),
-                      gg.group_norm_act_reference(x, scale, bias, 8), x.dtype)
-        rows.append(dict(C=c, per_decode=n,
-                         device_ms=graph_ms(lambda: gg.gn_act_onepass(x, scale, bias, 8), reps),
-                         library_device_ms=graph_ms(
-                             lambda: F.gelu(F.group_norm(xt, 8, s16, b16, 1e-5)), reps)))
-    return dict(
-        device_ms_per_decode=sum(r["device_ms"] * r["per_decode"] for r in rows),
-        library_device_ms_per_decode=sum(r["library_device_ms"] * r["per_decode"] for r in rows),
-        shapes=rows)
-
-
-# (C, launches per step, act) of the train step's GroupNorms (G = 8, bf16;
-# phase 5 records them): the backward route of each is the tree's own.
-STEP_GN = ((128, 3, "gelu"), (256, 5, "gelu"), (512, 6, "gelu"), (1024, 4, "gelu"),
-           (1280, 2, "gelu"), (2560, 2, "gelu"), (5120, 2, "gelu"), (95008, 1, "tanh"))
-
-
-def _backward_route(gg, x, scale, bias, grad, g, act):
-    """The tree's GroupNormAct.backward for a map whose forward took the
-    tree's route: ``(call, {kernel: call})``, the whole backward and each of
-    its kernels."""
-    t, c, elem = x.shape[1], x.shape[2], x.element_size()
-    stats = None if gg.onepass_fits(t, c, g, elem) else gg.gn_stats(x, g)
-    ctx = types.SimpleNamespace(saved_tensors=(x, scale, bias, stats), cfg=(g, 1e-5, act))
-
-    def whole():
-        return gg.GroupNormAct.backward(ctx, grad)
-
-    if gg.bwd_onepass_engages(t, c, g, elem):
-        return whole, {"gn_bwd_onepass": lambda: gg.gn_bwd_onepass(x, scale, bias, grad, g,
-                                                                    act=act)}
-    st = stats if stats is not None else gg.gn_stats(x, g)
-    msums = gg.gn_bwd_stats(x, scale, bias, grad, st, g, act)[0]
-    parts = {"gn_bwd_stats": lambda: gg.gn_bwd_stats(x, scale, bias, grad, st, g, act),
-             "gn_bwd_apply": lambda: gg.gn_bwd_apply(x, scale, bias, grad, st, msums, g, act)}
-    if stats is None:  # a one-pass forward saved no statistics: recomputed
-        parts = {"gn_stats": lambda: gg.gn_stats(x, g), **parts}
-    return whole, parts
-
-
-def gn_bwd_times(gg, seed: int, reps: int) -> dict:
-    """The device time (CUDA graph replay) of one train step's GroupNorm
-    backwards, each on the tree's route, whole and by kernel, after a check
-    of dx against the plain version; and gn_bwd_apply's f32 error at the
-    tanh readout width."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = []
-    for c, n, act in STEP_GN:
-        x, grad, scale, bias = _bwd_case(c, torch.bfloat16, gen)
-        whole, parts = _backward_route(gg, x, scale, bias, grad, 8, act)
-        _assert_close(f"backward C={c} dx", whole()[0],
-                      gg.group_norm_act_backward_reference(x, scale, bias, grad, 8,
-                                                           act=act)[0], x.dtype)
-        rows.append(dict(C=c, per_step=n, act=act, route="+".join(parts),
-                         device_ms=graph_ms(whole, reps),
-                         kernels={k: graph_ms(f, reps) for k, f in parts.items()}))
-        del x, grad
-        torch.cuda.empty_cache()
-
-    def per_step(keep, kernel=None):
-        return sum((r["kernels"].get(kernel, 0.0) if kernel else r["device_ms"]) * r["per_step"]
-                   for r in rows if keep(r["C"]))
-
-    # gn_bwd_apply's f32 error against its plain version at the tanh readout
-    # width (both from the plain statistics and group sums), with y ~ N(0, 1)
-    # and with the scale 8x, where tanh saturates
-    x, grad, scale, bias = _bwd_case(95008, torch.float32, gen)
-    stats = gg.group_stats_reference(x, 8)
-    apply_f32_err = {}
-    for label, s in (("y_1x", scale), ("y_8x", 8.0 * scale)):
-        msums = gg.gn_bwd_stats_reference(x, s, bias, grad, stats, 8, "tanh")[0]
-        apply_f32_err[label] = _err(
-            gg.gn_bwd_apply(x, s, bias, grad, stats, msums, 8, "tanh"),
-            gg.gn_bwd_apply_reference(x, s, bias, grad, stats, msums, 8, "tanh"))
-    del x, grad
-    torch.cuda.empty_cache()
-
-    return dict(
-        gn_bwd_apply_f32_max_abs_err_c95008_tanh=apply_f32_err,
-        backward_ms_per_step=per_step(lambda c: True),
-        c128_256_backward_ms=per_step(lambda c: c <= 256),
-        c512_backward_ms=per_step(lambda c: c == 512),
-        gn_bwd_onepass_ms_per_step=per_step(lambda c: True, "gn_bwd_onepass"),
-        gn_bwd_stats_ms_per_step=per_step(lambda c: True, "gn_bwd_stats"),
-        gn_bwd_stats_wide_ms_per_step=per_step(lambda c: c >= 1024, "gn_bwd_stats"),
-        gn_bwd_stats_below_95008_ms=per_step(lambda c: 1024 <= c < 95008, "gn_bwd_stats"),
-        shapes=rows)
-
-
-# (C, launches per decode, per unfused train step) of gn_stats' maps (G = 8,
-# bf16): the decode's nine two-phase forwards (phase 3 records them; gelu up
-# to C = 5120, tanh at the readout) and the step's eleven (phase 5; ten in
-# the fused step, whose readout map goes through readout_matmul_stats).
-STATS_MAPS = ((1024, 2, 4), (1280, 2, 2), (2560, 2, 2), (5120, 2, 2), (95008, 1, 1))
-
-
-def gn_stats_times(gg, seed: int, reps: int) -> dict:
-    """The device time of gn_stats on each map of a decode and a train step,
-    from a replayed CUDA graph and as the kernels' own time in a profiler
-    trace, beside torch.var_mean measured both ways, after a check against
-    the plain version; and a hash of gn_bwd_stats' outputs at two widths, so
-    two trees show whether that kernel gives the same bits."""
-    import hashlib
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows = []
-    for c, per_decode, per_step in STATS_MAPS:
-        x = _map(c, torch.bfloat16, gen)[0]
-        want = gg.group_stats_reference(x, 8)
-        if not torch.allclose(gg.gn_stats(x, 8), want, atol=2e-5, rtol=1e-5):
-            raise AssertionError(f"gn_stats C={c}: {_err(gg.gn_stats(x, 8), want):.3g}")
-        xv = x.view(B, T, 8, c // 8)
-
-        def kernel():
-            return gg.gn_stats(x, 8)
-
-        def library():
-            return torch.var_mean(xv, dim=(1, 3))
-
-        rows.append(dict(C=c, per_decode=per_decode, per_step=per_step,
-                         bound_ms=(x.numel() * x.element_size() + 8 * B * 8)
-                         / HBM_BYTES_PER_S * 1e3,
-                         device_ms=graph_ms(kernel, reps),
-                         profiled_ms=profiled_device_ms(kernel, reps),
-                         library_device_ms=graph_ms(library, reps),
-                         library_profiled_ms=profiled_device_ms(library, reps)))
-        del x, xv
-    bwd_bits = {}
-    for c, act in ((1024, "gelu"), (95008, "tanh")):
-        x, grad, scale, bias = _bwd_case(c, torch.bfloat16, gen)
-        h = hashlib.sha256()
-        for out in gg.gn_bwd_stats(x, scale, bias, grad, gg.group_stats_reference(x, 8), 8, act):
-            h.update(out.cpu().numpy().tobytes())
-        bwd_bits[c] = h.hexdigest()[:16]
-        del x, grad
-    torch.cuda.empty_cache()
-
-    def total(key, per, keep=lambda c: True):
-        return sum(r[key] * r[per] for r in rows if keep(r["C"]))
-
-    keys = ("device_ms", "profiled_ms", "library_device_ms", "library_profiled_ms", "bound_ms")
-    return dict(
-        per_decode={k: total(k, "per_decode") for k in keys},
-        per_decode_narrow={k: total(k, "per_decode", lambda c: c < 95008) for k in keys},
-        per_step={k: total(k, "per_step") for k in keys},
-        gn_bwd_stats_sha256=bwd_bits, shapes=rows)
-
-
-def gn_stats_cluster_times(gg, seed: int, reps: int) -> dict:
-    """gn_stats built with clusters of k = 5, 6 (the shipped size), 7 and 8
-    blocks a sample (_build.VARIANTS gn_stats_k*): how many of its clusters
-    the card holds at once (the occupancy API, with the build's own shared
-    memory a block and with one block an SM), and its device time (CUDA
-    graph) at T = 1 and on each map of a decode, after a check against the
-    plain version and of the same bits on two calls."""
-    import ctypes
-
-    from simulgen_vae_tpu_torch.ops import _build
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    maps = {c: _map(c, torch.bfloat16, gen)[0] for c, _, _ in STATS_MAPS}
-    maps["1x1024"] = torch.randn((B, 1, 1024), generator=gen, device="cuda").to(torch.bfloat16)
-    builds = []
-    for k in (5, 6, 7, 8):
-        lib = _build.load(f"gn_stats_k{k}")
-        lib.gn_stats_clusters.argtypes, lib.gn_stats_clusters.restype = [ctypes.c_int], ctypes.c_int
-        fn = lib.gn_stats
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, *[ctypes.c_int] * 4, ctypes.c_float,
-                       ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
-        row = dict(k=k, clusters_at_once=lib.gn_stats_clusters(0),
-                   clusters_at_once_one_block_an_sm=lib.gn_stats_clusters(1), device_ms={})
-        for key, x in maps.items():
-            b, t, c = x.shape
-            stats = torch.empty((b, 2, 8), device="cuda", dtype=torch.float32)
-            split = gg.stats_col_begin(c, x.element_size(), k)
-
-            def call(x=x, stats=stats, split=split, t=t, c=c):
-                err = fn(x.data_ptr(), stats.data_ptr(), b, t, c, 8, 1e-5, 1, split,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"gn_stats_k{k}: CUDA error {err}")
-                return stats
-
-            first = call().clone()
-            want = gg.group_stats_reference(x, 8)
-            if not torch.allclose(first, want, atol=2e-5, rtol=1e-5) or not torch.equal(first, call()):
-                raise AssertionError(f"gn_stats_k{k} {tuple(x.shape)}: {_err(first, want):.3g} "
-                                     "or two calls differ")
-            row["device_ms"][str(key)] = graph_ms(call, reps)
-        row["per_decode_ms"] = sum(row["device_ms"][str(c)] * n for c, n, _ in STATS_MAPS)
-        builds.append(row)
-        print(f"gn_stats_k{k}: {row['clusters_at_once']} clusters at once "
-              f"({row['clusters_at_once_one_block_an_sm']} one block an SM); device only "
-              + ", ".join(f"{key} {v * 1e3:.2f} us" for key, v in row["device_ms"].items())
-              + f"; a decode {row['per_decode_ms']:.4f} ms")
-    del maps
-    torch.cuda.empty_cache()
-    return dict(builds=builds)
-
-
-def readout_bwd_times(gg, seed: int, reps: int) -> dict:
-    """readout_bwd_fused (#11) in bf16 at every BWD_FUSED_SHAPES entry (inputs
-    from the plain forward, so every tree gets the same): its rel-L2 against
-    its plain version (dW, dh, d bias, d inv_sigma), then device only from replayed
-    CUDA graphs, in turns (dy-free, materializing, kernel, dy-free,
-    materializing): the kernel and both backward segments (dy-free:
-    readout_bwd_stats + #11; materializing: readout_bwd_stats +
-    readout_bwd_dy + two torch.matmul). Also a hash of readout_matmul_stats'
-    outputs (#8) at two shapes, so that two trees show whether #8 gives the
-    same bits."""
-    import hashlib
-
-    from simulgen_vae_tpu_torch.ops import readout_chain as rc
-
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    gvec = torch.tensor([1.7, 0.3, 0.8], device="cuda")
-    rows = []
-    for b, t, f, c, g, lossfun in BWD_FUSED_SHAPES:
-        k = _readout_case(b, t, f, c, torch.bfloat16, gen)
-        n_elem = float(b * t * c)
-        y, stats = rc.matmul_stats_reference(k["h"], k["w"], k["bias"], k["inv"], g)
-        chain = (k["x"], k["scale"], k["nb"])
-        msums = rc.bwd_stats_reference(y, *chain, stats, gvec, n_elem, g, lossfun)[0]
-        args = (y, *chain, k["bias"], k["h"], k["w"], stats, msums, gvec, n_elem, g, lossfun)
-        got, want = rc.readout_bwd_fused(*args), rc.bwd_fused_reference(*args)
-        # recorded, not asserted: phase 7 holds the kernel to its tolerances,
-        # and a tree that misses one is still timed
-        rels = [_grad_rel(a, w0) for a, w0 in zip(got, want)]
-        del got, want
-        fused, materialize = backward_segments(rc, k, y, stats, gvec, n_elem, g, lossfun)
-
-        row = dict(B=b, T=t, F=f, C=c, G=g, rel_l2=rels, fused_ms=[graph_ms(fused, reps)],
-                   materialize_ms=[graph_ms(materialize, reps)],
-                   kernel_ms=graph_ms(lambda: rc.readout_bwd_fused(*args), reps))
-        row["fused_ms"].append(graph_ms(fused, reps))
-        row["materialize_ms"].append(graph_ms(materialize, reps))
-        row["faster"] = ("fused" if sum(row["fused_ms"]) <= sum(row["materialize_ms"])
-                         else "materialize")
-        row["bwd_flavor"] = rc.bwd_flavor(b, t, f, c)
-        rows.append(row)
-        del k, y, stats, msums, args
-        torch.cuda.empty_cache()
-    hashes = {}
-    for b, t, f, c, g in ((3, T, 128, 300, 6), (B, T, READOUT_F, READOUT_C, READOUT_G)):
-        k = _readout_case(b, t, f, c, torch.bfloat16, gen)
-        h = hashlib.sha256()
-        for out in rc.readout_matmul_stats(k["h"], k["w"], k["bias"], k["inv"], g):
-            h.update(out.view(torch.uint8).cpu().numpy().tobytes())
-        hashes[f"{b}x{t}x{f}x{c}"] = h.hexdigest()[:16]
-        del k
-    torch.cuda.empty_cache()
-    return dict(shapes=rows, readout_matmul_stats_sha256=hashes)
-
-
-def stream_times(gg, seed: int, reps: int) -> dict:
-    """The streamed epoch on the tree's own route, at phase 5's configuration
-    (bf16): 64 f32 host rows of 200 x 95008 made on the card from ``seed``,
-    one warm-up step, then ``reps`` // 5 + 1 epochs of 4 steps, each step from
-    its call to the next (the last to a synchronise). Partners from the
-    dataset, as the CLI streams."""
-    from simulgen_vae_tpu_torch.ops import _build
-    from simulgen_vae_tpu_torch.train import vae_trainer as vt
-
-    _build.build()
-    gen = torch.Generator("cuda").manual_seed(seed)
-    host = (0.3 * torch.randn((TRAIN_SAMPLES, T, READOUT_C), generator=gen,
-                              device="cuda")).cpu().numpy()
-    trainer = vt.VAETrainer(train_config(), device="cuda", seed=seed)
-    state = trainer.init_state(seed)
-    marks, real = [], trainer.train_step
-    trainer.train_step = lambda *a: marks.append(time.perf_counter()) or real(*a)
-    state, _ = trainer.train_epoch_streaming(state, host, max_steps=1)
-    torch.cuda.synchronize()
-    steps, losses = [], []
-    for _ in range(reps // 5 + 1):
-        marks.clear()
-        state, m = trainer.train_epoch_streaming(state, host)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        steps += (np.diff(marks) * 1e3).tolist()
-        losses.append(float(m["loss"]))
-    if not np.isfinite(losses).all():
-        raise AssertionError(f"streamed epochs: losses {losses}")
-    (key,) = trainer._pinned
-    return dict(step_p50_ms=float(np.percentile(steps, 50)), step_ms=steps, losses=losses,
-                staging_dtype=str(key[1]))
-
-
-# MODE -> (what it times, the package's files whose hashes name the tree)
-AB_MODES = {"onepass": (onepass_times, ("ops/csrc/gn_act_onepass.cu",)),
-            "gn-bwd": (gn_bwd_times, ("ops/csrc/gn_bwd_onepass.cu", "ops/csrc/gn_bwd_stats.cu")),
-            "gn-stats": (gn_stats_times, ("ops/csrc/gn_stats.cu", "ops/csrc/gn_bwd_stats.cu")),
-            "gn-stats-clusters": (gn_stats_cluster_times, ("ops/csrc/gn_stats.cu",)),
-            "readout-bwd": (readout_bwd_times, ("ops/csrc/readout_bwd_fused.cu",
-                                                "ops/csrc/readout_matmul_stats.cu")),
-            "stream": (stream_times, ("train/vae_trainer.py",))}
-
-
-def ab(mode: str, trees, seed: int, reps: int) -> int:
-    """Run :func:`ab_tree` for each tree in a process of its own, in the
-    order given (parent, change, change, parent compares two commits)."""
-    if mode not in AB_MODES:
-        raise SystemExit(f"chip_smoke: --ab MODE is one of {sorted(AB_MODES)}, not {mode!r}")
-    for tree in trees:
-        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
-                              "--reps", str(reps), "--ab-tree", mode, str(Path(tree).resolve())],
-                             capture_output=True, text=True, timeout=900)
-        print(out.stdout, end="")
-        if out.returncode:
-            print(out.stderr, file=sys.stderr)
-            return out.returncode
-    print(f"card: {card_line()}")
-    return 0
-
-
-def ab_tree(mode: str, tree: str, seed: int, reps: int) -> int:
-    """MODE's times with the package found in ``tree``: one JSON line."""
-    import hashlib
-
-    sys.path.insert(0, tree)
-    from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
-
-    pkg = Path(tree) / "simulgen_vae_tpu_torch"
-    if Path(gg.__file__).resolve() != (pkg / "ops/groupnorm_gelu.py").resolve():
-        raise AssertionError(f"imported {gg.__file__}, not the package in {tree}")
-    times, sources = AB_MODES[mode]
-    print(json.dumps(dict(
-        mode=mode, tree=tree,
-        source_sha256={k: hashlib.sha256((pkg / k).read_bytes()).hexdigest()[:12]
-                       for k in sources},
-        **times(gg, seed, reps))))
-    return 0
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20, help="timed calls per measurement")
     ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--ab", nargs="+", metavar="MODE TREE",
-                    help="only time one kernel family (device only) with the package of each "
-                         f"TREE, in turn; MODE is one of {sorted(AB_MODES)}")
-    ap.add_argument("--ab-tree", nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    if args.ab_tree:
-        return ab_tree(*args.ab_tree, args.seed, args.reps)
-    if args.ab:
-        if len(args.ab) < 2:
-            ap.error("--ab needs a MODE and at least one TREE")
-        return ab(args.ab[0], args.ab[1:], args.seed, args.reps)
     from simulgen_vae_tpu_torch import generate as tgen
     from simulgen_vae_tpu_torch.models import blocks
     from simulgen_vae_tpu_torch.ops import _build
@@ -4503,7 +4062,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. build
-    seconds = _build.build((*_build.KERNELS, *_build.VARIANTS))
+    seconds = _build.build()
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_build.log").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
@@ -4601,22 +4160,7 @@ def main(argv=None) -> int:
           f"{decode_p50:.3f} ms, p75 {decode_p75:.3f} ms, min/max {lat.min():.3f}/"
           f"{lat.max():.3f} ms ({B / decode_p50 * 1e3:.1f} samples/s at p50); "
           f"plain GroupNorm decode p50 {plain_p50:.3f} ms")
-    # the two bf16 rounding repairs: decode before (pre_repair_layers) and
-    # after, in turns: after, before, before, after
-    repairs = dict(erfc=erfc_bits(blocks, gen))
-    for turn, when in enumerate(("after", "before", "before", "after")):
-        ctx = pre_repair_layers(blocks) if when == "before" else contextlib.nullcontext()
-        with ctx:
-            p50 = float(np.percentile(latencies_ms(fn), 50))
-            dev = decode_device(fn, batch)
-        repairs.setdefault(when, []).append(dict(p50_ms=p50, **dev))
-        print(f"timing: [{card}] decode {when} the bf16 rounding repairs (turn {turn + 1}): "
-              f"p50 {p50:.3f} ms, device {dev['device_ms']:.3f} ms, "
-              f"{dev['kernels']:.0f} kernels a decode")
-    repairs["kernels_added_per_decode"] = (repairs["after"][0]["kernels"]
-                                           - repairs["before"][0]["kernels"])
-    print(f"timing: [{card}] the repairs add {repairs['kernels_added_per_decode']:.0f} kernel "
-          "launches a decode")
+    erfc = erfc_bits(blocks, gen)
     per_shape = kernel_timings(gg, calls, args.reps, gen, card)
 
     if args.profile:
@@ -4651,8 +4195,7 @@ def main(argv=None) -> int:
             k = kernels[-1]
             k.update(device_ms=total("device_ms"), library_device_ms=total("library_device_ms"))
             print(f"timing: [{card}] {name} per decode ({k['launches_per_decode']} "
-                  f"launches): {k['ms']:.4f} ms (the constant for the earlier design: "
-                  f"{EARLIER_MS[name]:.3f} ms), device only "
+                  f"launches): {k['ms']:.4f} ms, device only "
                   f"{k['device_ms']:.4f} ms; library {k['library_ms']:.4f} ms, device only "
                   f"{k['library_device_ms']:.4f} ms; plain {k['plain_ms']:.4f} ms; bound "
                   f"{k['bound_ms']:.4f} ms; below the library call: "
@@ -4720,7 +4263,7 @@ def main(argv=None) -> int:
                   samples_per_s=B / decode_p50 * 1e3, plain_decode_p50_ms=plain_p50,
                   serve_checks=checks, launches=launches, kernels=kernels, train=train,
                   readout_sass=sass, onepass_launch=onepass, gn_stats_launch=stats_launch,
-                  repairs=repairs,
+                  erfc=erfc,
                   fused_train=fused, stack_train=stack, artifacts=artifacts,
                   cli_train=cli_train, images=images, pca=pca, mesh=mesh,
                   epilogue=epilogue, profiler_sessions=PROFILER_SESSIONS,

@@ -86,7 +86,6 @@ from simulgen_vae_tpu_torch.evaluation.plotter import (
     have_matplotlib,
     temporal_plotter,
 )
-from simulgen_vae_tpu_torch.generate import resolve_device
 from simulgen_vae_tpu_torch.models.conditioner_cnn import sn_filter
 from simulgen_vae_tpu_torch.models.conditioner_mlp import LatentConditioner
 from simulgen_vae_tpu_torch.parallel import (
@@ -98,7 +97,7 @@ from simulgen_vae_tpu_torch.parallel import (
 from simulgen_vae_tpu_torch.train.lc_e2e_trainer import E2ETrainer
 from simulgen_vae_tpu_torch.train.lc_trainer import LCTrainer
 from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
-from simulgen_vae_tpu_torch.utils import preemption
+from simulgen_vae_tpu_torch.utils import preemption, resolve_device
 from simulgen_vae_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     save_flax_model,

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from simulgen_vae_tpu_torch.data.scaler import restricted_load
-from simulgen_vae_tpu_torch.generate import resolve_device
+from simulgen_vae_tpu_torch.utils import resolve_device
 
 
 class _LinearPCA:

@@ -80,15 +80,9 @@ from simulgen_vae_tpu_torch.models.vae import VAE
 from simulgen_vae_tpu_torch.ops.field_epilogue import field_epilogue
 from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
 from simulgen_vae_tpu_torch.parallel import collectives, sharding
+from simulgen_vae_tpu_torch.utils import resolve_device
 from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model
 from simulgen_vae_tpu_torch.utils.profiling import span, tick
-
-def resolve_device(device=None) -> torch.device:
-    """``cuda`` by default; raises when CUDA was asked for and is absent."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return device
 
 
 def make_pipeline(cfg: VAEConfig, lc_cfg: LCConfig, vae_params: dict,

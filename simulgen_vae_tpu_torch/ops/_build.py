@@ -29,13 +29,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-# Measurement builds: a kernel's source with extra flags, loaded by no
-# wrapper. chip_smoke.py times readout_matmul_stats' product without its
-# epilogue with the first, and gn_stats with clusters of k blocks (k = 6 is
-# the shipped build) and their occupancy (`gn_stats_clusters`) with the rest.
-VARIANTS = {"readout_matmul_stats_product": ("readout_matmul_stats", ("-DREADOUT_PRODUCT_ONLY",)),
-            **{f"gn_stats_k{k}": ("gn_stats", (f"-DGN_STATS_CLUSTER={k}", "-DGN_STATS_PROBE"))
-               for k in (5, 6, 7, 8)}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
@@ -50,12 +43,6 @@ def nvcc_path() -> str:
     if found is None:
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return found
-
-
-def _source(name: str) -> tuple[Path, tuple[str, ...]]:
-    """The source of kernel or variant ``name`` and its flags."""
-    src, extra = VARIANTS.get(name, (name, ()))
-    return CSRC / f"{src}.cu", (*NVCC_FLAGS, *extra)
 
 
 def sources_of(source: Path) -> list[Path]:
@@ -75,12 +62,11 @@ def library_path(name: str) -> Path:
     """Where ``name``'s library lives for the current sources and flags: a
     change to the source or to a header it includes rebuilds it (hopper.cuh,
     for one, rebuilds readout_matmul_stats and readout_bwd_fused)."""
-    source, flags = _source(name)
     h = hashlib.sha256()
-    for src in sources_of(source):
+    for src in sources_of(CSRC / f"{name}.cu"):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(flags).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -97,8 +83,7 @@ def build(names=KERNELS) -> dict[str, float]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        source, flags = _source(name)
-        cmd = [nvcc, *flags, "-o", str(tmp), str(source)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

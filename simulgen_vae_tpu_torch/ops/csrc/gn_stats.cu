@@ -35,15 +35,17 @@
 // one reads their shared memory). No second launch, no partials in HBM, no
 // atomics: two runs give the same bits.
 //
-// Why a cluster of 6 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --ab
-// gn-stats-clusters): the card holds 17 clusters of 6 blocks that each take
-// a whole SM at once, but only 15 of 7 or of 8 (a cluster lives in one
-// GPC). With clusters of 8 at two blocks an SM allowed, the 16th sample's
-// cluster shared its SMs with another and both ended last: the map's time
-// was theirs. With 6, the 16 clusters of B = 16 run on 96 SMs of their own.
-// What bounds it (chip_smoke.py --ab gn-stats): memory at C = 95008 (90% of
-// the byte bound's rate, each of the 96 blocks streaming a 6.3 MB slice); at
-// C <= 5120 the launch of a cluster and its barriers (about 4.5 us at T = 1).
+// Why a cluster of 6 (NVIDIA H100 80GB HBM3, 700 W; builds of this kernel
+// with clusters of 5 to 8 timed on the decode's maps): the card holds 17
+// clusters of 6 blocks that each take a whole SM at once, but only 15 of 7
+// or of 8 (a cluster lives in one GPC). With clusters of 8 at two blocks an
+// SM allowed, the 16th sample's cluster shared its SMs with another and
+// both ended last: the map's time was theirs. With 6, the 16 clusters of B
+// = 16 run on 96 SMs of their own.
+// What bounds it (device-only times from replayed CUDA graphs): memory at
+// C = 95008 (90% of the byte bound's rate, each of the 96 blocks streaming
+// a 6.3 MB slice); at C <= 5120 the launch of a cluster and its barriers
+// (about 4.5 us at T = 1).
 #include <cooperative_groups.h>
 
 #include "gn_common.cuh"
@@ -52,11 +54,8 @@ namespace cgrp = cooperative_groups;
 
 namespace {
 
-// Threads of a block (GN_STATS_THREADS and GN_STATS_CLUSTER: measurement
-// builds, _build.VARIANTS).
-#ifndef GN_STATS_THREADS
+// Threads of a block.
 #define GN_STATS_THREADS 640
-#endif
 constexpr int kThreads = GN_STATS_THREADS;
 // 16-byte slots a thread holds in the shared-memory load ring (cp.async, so
 // loads in flight hold no registers): kRing / n rows of n vectors each.
@@ -67,9 +66,7 @@ constexpr int kMaxVec = 4;
 static_assert(2 * kMaxVec <= kRing, "two rows of a thread's vectors in its ring");
 // Blocks a sample (STATS_CLUSTER in groupnorm_gelu.py, which builds the
 // column split for it).
-#ifndef GN_STATS_CLUSTER
 #define GN_STATS_CLUSTER 6
-#endif
 constexpr int kCluster = GN_STATS_CLUSTER;
 constexpr int kWarps = kThreads / 32;
 
@@ -353,22 +350,3 @@ extern "C" int gn_stats(const void* x, void* stats, int batch, int rows, int col
   if (dtype == gn::kBF16) return launch.dispatch<__nv_bfloat16>();
   return (int)cudaErrorInvalidValue;
 }
-
-#ifdef GN_STATS_PROBE
-// Measurement build only: the most clusters of this build's bf16 kernel
-// (16-byte loads, G = 8) the device holds at once, with its own shared
-// memory a block or, with `whole_sm`, with as much as keeps one block an SM;
-// negative: a cudaError_t code.
-extern "C" int gn_stats_clusters(int whole_sm) {
-  auto kernel = gn_stats_kernel<__nv_bfloat16, 8>;
-  const size_t smem = whole_sm ? 200 * 1024 : smem_bytes(8);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(16, smem, nullptr, attr);
-  int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
-  return err == cudaSuccess ? n : -(int)err;
-}
-#endif

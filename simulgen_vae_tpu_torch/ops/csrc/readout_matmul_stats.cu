@@ -49,16 +49,13 @@
 //    (row tile, slot)s that hold its rows, row tile outer, and of the column
 //    tiles the group spans, in a fixed order. No atomics: two runs give the
 //    same bits.
-//  * What bounds it now (H100 SXM, 700 W; chip_smoke.py phase 6): the product
-//    alone runs at ~910 TFLOP/s, the whole kernel at ~600: the epilogue, about
-//    a third of the time, does not overlap the tensor cores, since both
-//    warpgroups reach it together.
+//  * What bounds it now (H100 SXM, 700 W; a build without the epilogue and
+//    the finalize timed against the whole): the product alone runs at ~910
+//    TFLOP/s, the whole kernel at ~600: the epilogue, about a third of the
+//    time, does not overlap the tensor cores, since both warpgroups reach it
+//    together.
 // The f32 path (plain FMA, never TF32) is kept for the f32 checks; its tiles
 // stay within a sample and it has its own finalize.
-//
-// Built with -DREADOUT_PRODUCT_ONLY (a measurement build, never the one the
-// wrappers load) the bf16 path runs the product alone, without the epilogue
-// and the finalize, so that the epilogue's share of the time can be taken.
 #include "hopper.cuh"
 #include "readout_common.cuh"
 
@@ -336,9 +333,7 @@ matmul_stats_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
       wgmma_wait<0>();
       fence_acc(acc);
       if (lane == 0) mbar_arrive(&empty[(it - 1) % kStages]);
-#ifndef READOUT_PRODUCT_ONLY
       epilogue(acc, f, mt, nt, cw, warp, lane, ct, bias_reg, inv, y, partials, slot_tab, sm);
-#endif
     }
   }
 }
@@ -550,12 +545,10 @@ extern "C" int readout_matmul_stats(const void* h, const void* w, const void* bi
     matmul_stats_wgmma_kernel<<<grid, kThreads, kSmemBytes, st>>>(
         map_h, map_w, bi, inv, static_cast<__nv_bfloat16*>(y), part, tab, f);
     err = cudaGetLastError();
-#ifndef READOUT_PRODUCT_ONLY
     if (err != cudaSuccess) return (int)err;
     matmul_stats_finalize_flat_kernel<<<batch, 32, 0, st>>>(part, tab, static_cast<float*>(stats),
                                                             f, eps);
     err = cudaGetLastError();
-#endif
     return (int)err;
   }
   if (dtype != gn::kF32) return (int)cudaErrorInvalidValue;

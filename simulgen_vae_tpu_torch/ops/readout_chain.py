@@ -112,10 +112,10 @@ def bwd_flavor(b: int, t: int, f: int, c: int) -> str:
     and two ``torch.matmul``s).
 
     The rule is this card's, written from the backward segment's device-only
-    times in ``chip_smoke.py --ab readout-bwd`` (``readout_bwd_stats`` +
-    ``readout_bwd_fused`` against ``readout_bwd_stats`` + ``readout_bwd_dy`` +
-    the two products, bf16, replayed CUDA graphs, two turns each; NVIDIA H100
-    80GB HBM3, 700.00 W):
+    times (``readout_bwd_stats`` + ``readout_bwd_fused`` against
+    ``readout_bwd_stats`` + ``readout_bwd_dy`` + the two products, bf16,
+    replayed CUDA graphs, two turns each, as ``chip_smoke.py``'s phase 7
+    times them; NVIDIA H100 80GB HBM3, 700.00 W):
 
         (B, T, F, C)              dy-free ms         materializing ms
         (2, 37, 64, 300)          0.073 - 0.074      0.042 - 0.043

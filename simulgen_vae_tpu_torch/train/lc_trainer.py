@@ -58,7 +58,6 @@ import torch
 from torch import nn
 
 from simulgen_vae_tpu_torch.data.image_augmentation import augment_images
-from simulgen_vae_tpu_torch.generate import resolve_device
 from simulgen_vae_tpu_torch.losses import (
     compute_enhanced_loss,
     compute_perceptual_loss,
@@ -68,7 +67,7 @@ from simulgen_vae_tpu_torch.models.spectral_norm import init_sn_state, spectral_
 from simulgen_vae_tpu_torch.train.nan_guard import rollback
 from simulgen_vae_tpu_torch.train.optim import FusedAdamW
 from simulgen_vae_tpu_torch.train.schedules import lc_warmup_cosine
-from simulgen_vae_tpu_torch.utils import preemption
+from simulgen_vae_tpu_torch.utils import preemption, resolve_device
 from simulgen_vae_tpu_torch.utils.profiling import span, tick
 
 STEP_METRICS = ("loss", "loss_y1", "loss_y2", "grad_norm")

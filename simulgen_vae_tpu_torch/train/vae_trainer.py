@@ -103,7 +103,6 @@ import torch
 
 from simulgen_vae_tpu_torch.config import VAEConfig, resolve_perf_stack
 from simulgen_vae_tpu_torch.data.augmentation import AugmentationConfig, augment_batch
-from simulgen_vae_tpu_torch.generate import resolve_device
 from simulgen_vae_tpu_torch.losses import beta_schedule
 from simulgen_vae_tpu_torch.models.blocks import set_compute_dtype
 from simulgen_vae_tpu_torch.models.spectral_norm import (
@@ -127,7 +126,7 @@ from simulgen_vae_tpu_torch.parallel import collectives, sharding
 from simulgen_vae_tpu_torch.train.nan_guard import rollback
 from simulgen_vae_tpu_torch.train.optim import FusedAdamW
 from simulgen_vae_tpu_torch.train.schedules import cosine_warm_restarts
-from simulgen_vae_tpu_torch.utils import preemption, profiling
+from simulgen_vae_tpu_torch.utils import preemption, profiling, resolve_device
 from simulgen_vae_tpu_torch.utils.profiling import span, tick
 from simulgen_vae_tpu_torch.utils.staging import Staging
 

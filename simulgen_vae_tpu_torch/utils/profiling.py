@@ -78,6 +78,8 @@ from typing import Iterator, List, Optional
 
 import torch
 
+from simulgen_vae_tpu_torch.utils import resolve_device
+
 _on = False          # the one flag a span tests
 _spans: list = []    # [name, start_ns, end_ns, parent, key, thread] of the recording
 _offset_ns = 0       # Unix clock minus perf_counter, taken when a recording starts
@@ -259,8 +261,6 @@ def trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
 def device_memory_mb(device=None) -> dict:
     """Memory of ``device`` (the card by default) in MiB: in use, peak and
     the card's total, from the caching allocator."""
-    from simulgen_vae_tpu_torch.generate import resolve_device
-
     device = resolve_device(device)
     if device.type != "cuda":
         in_use = peak = limit = 0

@@ -93,15 +93,39 @@ def test_the_stack_modules_are_among_those_checked():
         assert f"simulgen_vae_tpu_torch.{mod}" in names
 
 
+# The serving layer and the CLI sit on top: only they, ``__main__`` and the
+# package's own ``__init__`` name them (the package imports absolutely).
+TOP = ("simulgen_vae_tpu_torch.generate", "simulgen_vae_tpu_torch.cli")
+ABOVE_SERVING = {PKG / "generate.py", PKG / "cli.py", PKG / "__main__.py", PKG / "__init__.py"}
+
+
+def test_nothing_below_serving_imports_it():
+    offenders = []
+    for path, _ in _modules():
+        if path in ABOVE_SERVING:
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            if any(n == top or n.startswith(top + ".") for n in names for top in TOP):
+                offenders.append(f"{path.relative_to(REPO)}:{node.lineno} imports {names[0]}")
+    assert not offenders, offenders
+
+
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
     from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.utils import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tgen.resolve_device()
+        resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tgen.auto_max_batch(200, 95008)
-    assert tgen.resolve_device("cpu").type == "cpu"
+    assert resolve_device("cpu").type == "cpu"
 
 
 def test_make_pipeline_raises_without_cuda(monkeypatch):
