@@ -251,6 +251,20 @@ Phases, each printing its own lines; any failure exits non-zero:
              kernel's time for one request (back to back, device only,
              profiled) beside its byte bound (4.36 ms) and the cast,
              subtract, divide and torch.cat it replaces (plain_ms).
+14. layout : the decoder's k > 1 convolutions in cuDNN's channels-last
+             layout (models.blocks.conv1d_same, weights held by
+             make_generate_fn): one 64-row flagship decode (bf16, raw field)
+             ticks CONV_LAYOUT's conv.direct 14, conv.input_copied 3 (the
+             latent injectors' transposed maps) and conv.weight_copied 0;
+             its profiler trace (shapes recorded) holds no nchwToNhwc or
+             nhwcToNchw kernel and no layout copy (an aten::copy_ under
+             aten::clone) of a map as large as the narrowest decoder
+             activation (64 x 200 x 128); its field against the same
+             decode through the plain convolution (F.conv1d on the
+             [B, C, T] map) within rel-L2 1e-2, bit-equality printed.
+             Printed, not gated: the decode's device time in the trace
+             beside the plain convolution's and the figure from before
+             the channels-last layout (PERF.md).
 
 The line before the last is the kernels' JSON; the last line is
 ``{"ok": true, "device": {...}}``. --profile adds torch.profiler tables of
@@ -4037,6 +4051,90 @@ def phase_epilogue(args, card, pipeline, inputs) -> tuple:
                         profiled_ms=profiled_ms, bound_ms=bound_ms)
 
 
+# -- phase 14: the convolutions' layout -----------------------------------------
+
+# cuDNN's layout transposes, which a channels-last call does not run
+TRANSPOSE_KERNELS = ("nchwToNhwc", "nhwcToNchw")
+# a 64-row chunk of the four-filter decoder: its k > 1 convolutions by how
+# their operands reached cuDNN (14 direct, the 3 latent injectors' inputs
+# copied, no weight copied)
+CHUNK_CONVS = {"conv.direct": 14, "conv.input_copied": 3, "conv.weight_copied": 0}
+# a 64-row chunk's decode on the card while the convolutions ran on NCW maps
+# with cuDNN's transposes: PERF.md section 5, run z1, 51.6 ms of device time
+# a 128-field request, 5.3 of it the epilogue
+NCW_CHUNK_DECODE_MS = (51.6 - 5.3) / 2
+
+
+@contextlib.contextmanager
+def plain_convolution(blocks):
+    """Route every convolution through the plain call: ``F.conv1d`` on the
+    ``[B, C, T]`` map, its output made contiguous again."""
+    real = blocks.conv1d_same
+
+    def plain(x, weight, bias=None):
+        if weight.shape[-1] == 1:
+            return real(x, weight, bias)
+        y = F.conv1d(x.transpose(1, 2), weight, bias, padding=weight.shape[-1] // 2)
+        return y.transpose(1, 2).contiguous()
+
+    blocks.conv1d_same = plain
+    try:
+        yield
+    finally:
+        blocks.conv1d_same = real
+
+
+def phase_layout(args, card, pipeline, inputs) -> dict:
+    """Phase 14: one 64-row flagship decode (bf16, the raw field) through
+    make_generate_fn. Gated: CONV_LAYOUT's counts equal CHUNK_CONVS; its
+    profiler trace holds no TRANSPOSE_KERNELS kernel and no layout copy (an
+    ``aten::copy_`` under ``aten::clone``; casts copy under ``aten::_to_copy``)
+    of a map as large as the narrowest decoder activation; the field is
+    within rel-L2 1e-2 of the same decode through :func:`plain_convolution`.
+    Printed: bit-equality with it, the decode's device time beside the plain
+    convolution's and NCW_CHUNK_DECODE_MS."""
+    from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.models import blocks
+
+    pipe = pipeline(torch.bfloat16)
+    cfg = pipe["cfg"]
+    fn = tgen.make_generate_fn(pipe, descale_output=False, max_batch=SWEEP_CHUNK)
+    batch = torch.as_tensor(np.resize(inputs, (SWEEP_CHUNK, inputs.shape[1])), device="cuda")
+    fn(batch)
+    torch.cuda.synchronize()
+    before = dict(blocks.CONV_LAYOUT)
+    got = fn(batch)
+    counts = {k: blocks.CONV_LAYOUT[k] - before[k] for k in before}
+    prof, _ = traced(lambda: fn(batch), record_shapes=True)
+    rows = kernel_rows(prof)
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    transposes = {e.key: e.count for e in rows if any(t in e.key for t in TRANSPOSE_KERNELS)}
+    smallest = SWEEP_CHUNK * T * min(cfg.num_filter_dec)
+    copies = [list(e.input_shapes[0]) for e in prof.events()
+              if e.name == "aten::copy_" and e.cpu_parent is not None
+              and e.cpu_parent.name == "aten::clone" and e.input_shapes
+              and math.prod(e.input_shapes[0]) >= smallest]
+    with plain_convolution(blocks):
+        want = fn(batch)
+        plain_ms = decode_device(fn, batch, calls=1)["device_ms"]
+    rel = _rel_l2(got, want)
+    out = dict(counts=counts, transposes=transposes, copies=copies, rel_l2=rel,
+               equal=bool(torch.equal(got, want)), device_ms=device_ms, plain_ms=plain_ms,
+               ncw_ms=NCW_CHUNK_DECODE_MS)
+    print(f"layout: one {SWEEP_CHUNK}-row decode: convolutions {counts} (expected "
+          f"{CHUNK_CONVS}); cuDNN transposes {transposes or 'none'}; layout copies of maps "
+          f"of >= {smallest} elements {copies or 'none'}; against the plain convolution "
+          f"rel-L2 {rel:.3g}, {'the same bits' if out['equal'] else 'not the same bits'}")
+    print(f"timing: [{card}] the {SWEEP_CHUNK}-row decode's device time (profiled) "
+          f"{device_ms:.3f} ms; through the plain convolution {plain_ms:.3f} ms; on NCW "
+          f"maps with cuDNN's transposes {NCW_CHUNK_DECODE_MS:.2f} ms (PERF.md, z1)")
+    if counts != CHUNK_CONVS or transposes or copies or not rel <= 1e-2:
+        raise AssertionError(f"the convolutions did not run in cuDNN's layout: {out}")
+    del pipe, fn, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4251,6 +4349,8 @@ def main(argv=None) -> int:
     # 13. the field epilogue
     epilogue_kernel, epilogue = phase_epilogue(args, card, pipeline, inputs)
     kernels.append(epilogue_kernel)
+    # 14. the convolutions' layout
+    layout = phase_layout(args, card, pipeline, inputs)
     for k in kernels:
         for key, counts in (("launches_cli_train", cli_launches),
                             ("launches_images_e2e", e2e_launches),
@@ -4266,7 +4366,7 @@ def main(argv=None) -> int:
                   erfc=erfc,
                   fused_train=fused, stack_train=stack, artifacts=artifacts,
                   cli_train=cli_train, images=images, pca=pca, mesh=mesh,
-                  epilogue=epilogue, profiler_sessions=PROFILER_SESSIONS,
+                  epilogue=epilogue, layout=layout, profiler_sessions=PROFILER_SESSIONS,
                   seconds=time.perf_counter() - t_start)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(result, indent=1))
     print(f"profiler: {PROFILER_SESSIONS['sessions']} sessions, "

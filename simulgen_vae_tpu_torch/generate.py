@@ -76,6 +76,7 @@ from simulgen_vae_tpu_torch.convert import (
     vae_from_jax,
 )
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+from simulgen_vae_tpu_torch.models.blocks import hold_conv_weights
 from simulgen_vae_tpu_torch.models.vae import VAE
 from simulgen_vae_tpu_torch.ops.field_epilogue import field_epilogue
 from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
@@ -237,6 +238,10 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
     chunk splits over ``data`` when its rows divide by it and is replicated
     otherwise; each rank decodes its rows at its nodes and the field is
     gathered over both axes, so every rank returns all of it.
+
+    The served decoder's k > 1 conv weights are held in cuDNN's order once,
+    here (``models.blocks.hold_conv_weights``): every pipeline is served
+    through this function, and its weights no longer change.
     """
     cfg, device, dtype = pipeline["cfg"], pipeline["device"], pipeline["dtype"]
     if quantize not in (None, "int8"):
@@ -252,6 +257,7 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
         max_batch = max(data_ax, cap - cap % data_ax)
     else:
         vae = _int8_vae(pipeline) if quantize == "int8" else pipeline["vae"]
+    hold_conv_weights(vae)
     lc = pipeline["lc"]
     lv, xsc, ds = pipeline["lv_scaler"], pipeline["xs_scaler"], pipeline["data_scaler"]
     if not max_batch or max_batch <= 0:

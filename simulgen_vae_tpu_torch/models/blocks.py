@@ -15,6 +15,12 @@ Serving builds the parameters in the compute dtype, so the casts are free;
 the trainer keeps f32 master parameters and sets a lower compute dtype with
 :func:`set_compute_dtype`.
 
+Convolutions with k > 1 run in cuDNN's channels-last layout, which a
+``[B, T, C]`` map already has (:func:`conv1d_same`). Weights that no longer
+change (served, frozen) are held in that order once
+(:func:`hold_conv_weights`); a trained conv keeps contiguous masters and
+its per-call cast to the compute dtype writes the order (:func:`_conv_weight`).
+
 Spectral norm: :class:`Conv1d`, :class:`Dense` and the readout read an
 optional ``inv_sigma`` attribute (a 0-d f32 tensor, set by
 ``models.spectral_norm.attach_inv_sigmas``) and scale their output by it
@@ -40,6 +46,13 @@ from simulgen_vae_tpu_torch.ops.groupnorm_gelu import group_norm_act
 from simulgen_vae_tpu_torch.parallel.collectives import grad_sum_over, sum_over
 from simulgen_vae_tpu_torch.ops.quant import int8_conv1d_same, int8_dot
 from simulgen_vae_tpu_torch.ops.readout_chain import readout_chain_loss
+from simulgen_vae_tpu_torch.utils import profiling
+
+# k > 1 convolutions by whether their input or weight had to be copied into
+# cuDNN's channels-last order (conv1d_same); counted when a call runs (on a
+# CUDA graph's path at its capture only)
+CONV_LAYOUT = profiling.register({"conv.direct": 0, "conv.input_copied": 0,
+                                  "conv.weight_copied": 0})
 
 
 def group_count(channels: int) -> int:
@@ -96,12 +109,59 @@ def conv1d_same(x: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor | None = None) -> torch.Tensor:
     """Stride-1 SAME 1-D convolution of ``x`` [B, T, C] with ``weight``
     [F, C, k] (odd k; cross-correlation, no tap flip). Returns a contiguous
-    [B, T, F] map."""
+    [B, T, F] map.
+
+    k > 1 runs as a 2-D convolution in channels-last form: ``x`` as a
+    ``[B, C, 1, T]`` view, which for a contiguous map is channels-last with
+    no copy, and the weight as ``[F, C, 1, k]`` channels-last, so cuDNN's
+    NHWC kernel reads and writes the maps as they lie and transposes
+    nothing. An input view in another order (a transposed map) or a weight
+    not held in cuDNN's order (:func:`cudnn_order`) is copied into it
+    first; :data:`CONV_LAYOUT` counts the calls each way."""
     k = weight.shape[-1]
     if k == 1:
         return F.linear(x, weight[:, :, 0], bias)
-    y = F.conv1d(x.transpose(1, 2), weight, bias, padding=k // 2)
-    return y.transpose(1, 2).contiguous()
+    x4, w4 = x.transpose(1, 2).unsqueeze(2), weight.unsqueeze(2)
+    direct = True
+    if not x4.is_contiguous(memory_format=torch.channels_last):
+        x4, direct = x4.contiguous(memory_format=torch.channels_last), False
+        CONV_LAYOUT["conv.input_copied"] += 1
+    if not w4.is_contiguous(memory_format=torch.channels_last):
+        w4, direct = w4.contiguous(memory_format=torch.channels_last), False
+        CONV_LAYOUT["conv.weight_copied"] += 1
+    if direct:
+        CONV_LAYOUT["conv.direct"] += 1
+    y = F.conv2d(x4, w4, bias, padding=(0, k // 2))
+    return y.squeeze(2).transpose(1, 2)
+
+
+def cudnn_order(weight: torch.Tensor) -> torch.Tensor:
+    """``weight`` [F, C, k] re-strided to ``(k * C, 1, C)``: the same values,
+    laid out so that ``weight.unsqueeze(2)`` is a channels-last
+    ``[F, C, 1, k]`` tensor, the order cuDNN's NHWC kernel reads."""
+    return weight.unsqueeze(2).contiguous(memory_format=torch.channels_last).squeeze(2)
+
+
+def _conv_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A conv's ``weight`` in its compute ``dtype``. A k > 1 weight that
+    needs the cast is written in cuDNN's order in the same pass (autograd
+    then saves it in that order, and the data gradient reads it as it
+    lies); one already in ``dtype`` comes back as it is."""
+    if weight.dtype == dtype or weight.shape[-1] == 1:
+        return weight.to(dtype)
+    return weight.unsqueeze(2).to(dtype, memory_format=torch.channels_last).squeeze(2)
+
+
+@torch.no_grad()
+def hold_conv_weights(module: nn.Module) -> nn.Module:
+    """Hold every k > 1 :class:`Conv1d` weight under ``module`` in cuDNN's
+    order (:func:`cudnn_order`), in place: for weights that no longer change
+    (a served or frozen decoder), so that no call copies them into it. The
+    parameters stay the same objects with the same values."""
+    for m in module.modules():
+        if isinstance(m, Conv1d) and m.weight.shape[-1] > 1:
+            m.weight.data = cudnn_order(m.weight.data)
+    return module
 
 
 def _param(shape, device, dtype, fill: float | None = None) -> nn.Parameter:
@@ -233,11 +293,11 @@ class Conv1d(nn.Module):
         cd = self.compute_dtype
         if self.weight_q is not None:
             return _int8_biased(int8_conv1d_same, x.to(cd), self, self.bias.to(cd))
+        w = _conv_weight(self.weight, cd)
         if self.node_group is not None:
-            return _node_summed(conv1d_same, x.to(cd), self.weight.to(cd), self.bias.to(cd),
+            return _node_summed(conv1d_same, x.to(cd), w, self.bias.to(cd),
                                 self.inv_sigma, self.node_group)
-        return _biased(conv1d_same, x.to(cd), self.weight.to(cd), self.bias.to(cd),
-                       self.inv_sigma)
+        return _biased(conv1d_same, x.to(cd), w, self.bias.to(cd), self.inv_sigma)
 
 
 class Dense(nn.Module):

@@ -5,10 +5,13 @@ The conditioner's latents are descaled by the latent scalers' affine
 inverses (on the device, in the autograd graph) and decoded by the trained
 decoder, so the reconstruction loss trains the conditioner through it. The
 decoder is frozen: its parameters do not require grad, and gradients reach
-only the latents ``z`` and ``xs``. It runs the weights it was built with (the
-training CLI hands it ``VAETrainer.eval_params``: spectral norm baked in, no
-``inv_sigma``) in the deterministic ``"fix"`` decode the evaluator uses (the
-JAX trainer's default; the original reference decodes with ``"random"``).
+only the latents ``z`` and ``xs``; its conv weights are held in cuDNN's
+order (``models.blocks.hold_conv_weights``), so each step's cast to the
+compute dtype reads and writes them in one order. It runs the weights it
+was built with (the training CLI hands it ``VAETrainer.eval_params``:
+spectral norm baked in, no ``inv_sigma``) in the deterministic ``"fix"``
+decode the evaluator uses (the JAX trainer's default; the original
+reference decodes with ``"random"``).
 
 Each batch (``n // batch`` of a fresh permutation, ``batch = min(batch_size,
 n)``):
@@ -50,6 +53,7 @@ from torch import nn
 from simulgen_vae_tpu_torch.convert import flax_ndim, image_conditioner_paths
 from simulgen_vae_tpu_torch.evaluation.reconstruction import compute_dtype
 from simulgen_vae_tpu_torch.losses import get_recon_loss, mse_loss
+from simulgen_vae_tpu_torch.models.blocks import hold_conv_weights
 from simulgen_vae_tpu_torch.models.vae import VAE
 from simulgen_vae_tpu_torch.train.lc_trainer import LCTrainer, LCTrainState
 from simulgen_vae_tpu_torch.train.schedules import cosine_annealing
@@ -128,13 +132,14 @@ class E2ETrainer(LCTrainer):
                  seed: int = 0):
         """``lc_model`` is the architecture (:meth:`init_state` trains a copy);
         ``vae_model`` the trained VAE whose decoder is frozen here (its
-        parameters stop requiring grad); the scalers are the latents'
-        ``MinMaxScaler``s."""
+        parameters stop requiring grad, its conv weights are held in cuDNN's
+        order); the scalers are the latents' ``MinMaxScaler``s."""
         super().__init__(lc_model, epochs, lr, batch_size, weight_decay=weight_decay,
                          device=device, seed=seed, sn_filter=sn_filter)
         self.vae = vae_model
         for p in self.vae.parameters():
             p.requires_grad_(False)
+        hold_conv_weights(self.vae.decoder)
         self.vae_dtype = compute_dtype(vae_model)
         self.latent_scaler = latent_scaler.to(self.device)
         self.xs_scaler = xs_scaler.to(self.device)

@@ -7,6 +7,7 @@ atol 1e-5.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -112,15 +113,113 @@ def test_spectral_norm_scaled_layer_matches_jax(name):
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-@pytest.mark.parametrize("k", [1, 3, 5])
-def test_conv1d_same_matches_jax(k):
+# (k, dtype, input, weight): the input a contiguous [B, T, C] map or the
+# latent injector's transposed view of a [B, C, T] one; the weight
+# contiguous [F, C, k] or held in cuDNN's order (blocks.cudnn_order)
+CONV_CASES = [
+    pytest.param(1, "float32", "contiguous", "contiguous", id="1"),
+    pytest.param(3, "float32", "contiguous", "contiguous", id="3"),
+    pytest.param(5, "float32", "contiguous", "contiguous", id="5"),
+    pytest.param(3, "bfloat16", "contiguous", "contiguous", id="3-bf16"),
+    pytest.param(5, "bfloat16", "contiguous", "contiguous", id="5-bf16"),
+    pytest.param(3, "float32", "transposed", "contiguous", id="3-transposed"),
+    pytest.param(5, "bfloat16", "transposed", "contiguous", id="5-bf16-transposed"),
+    pytest.param(3, "float32", "contiguous", "held", id="3-held"),
+    pytest.param(5, "float32", "contiguous", "held", id="5-held"),
+    pytest.param(3, "bfloat16", "contiguous", "held", id="3-bf16-held"),
+    pytest.param(5, "bfloat16", "transposed", "held", id="5-bf16-transposed-held"),
+]
+
+
+def _bf16_close(got, want) -> None:
+    """At most 1% of bf16 values differing in their bits (the rule of
+    tests/test_torch_bf16_rounding.py)."""
+    assert got.shape == want.shape
+    assert float((got != want).mean()) <= 0.01
+
+
+@pytest.mark.parametrize("k, dtype, layout, weight", CONV_CASES)
+def test_conv1d_same_matches_jax(k, dtype, layout, weight):
+    """Output and the input's and weight's gradients against JAX's
+    ``conv1d_same`` and its vjp: f32 within atol 1e-5, bf16 as the rounding
+    tests hold it. The output is a contiguous [B, T, F] map whatever the
+    input's strides, and for k > 1 ``CONV_LAYOUT`` counts which operand had
+    to be copied into cuDNN's order."""
     rng = np.random.default_rng(k)
     x = rng.standard_normal((2, 9, 6)).astype(np.float32)
     w = rng.standard_normal((k, 6, 4)).astype(np.float32)  # HIO
-    want = np.asarray(jb.conv1d_same(x, w))
-    got = tb.conv1d_same(torch.from_numpy(x),
-                         torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0))))
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    ct = rng.standard_normal((2, 9, 4)).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want, vjp = jax.vjp(jb.conv1d_same, jnp.asarray(x, jdt), jnp.asarray(w, jdt))
+    want_gx, want_gw = vjp(jnp.asarray(ct, jdt))
+
+    if layout == "transposed":
+        leaf = torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1))).to(tdt)
+        leaf.requires_grad_()
+        xt = leaf.transpose(1, 2)
+    else:
+        leaf = xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    wt = torch.from_numpy(np.ascontiguousarray(w.transpose(2, 1, 0))).to(tdt)
+    if weight == "held":
+        wt = tb.cudnn_order(wt)
+        assert wt.stride() == (k * 6, 1, 6)
+    wt.requires_grad_()
+    before = dict(tb.CONV_LAYOUT)
+    got = tb.conv1d_same(xt, wt)
+    counts = {name: tb.CONV_LAYOUT[name] - before[name] for name in before}
+    got.backward(torch.from_numpy(ct).to(tdt))
+    gx = leaf.grad.transpose(1, 2) if layout == "transposed" else leaf.grad
+
+    assert got.dtype == tdt and got.shape == (2, 9, 4)
+    assert got.is_contiguous() and got.stride() == (9 * 4, 4, 1)
+    copies = {"conv.input_copied": int(layout == "transposed"),
+              "conv.weight_copied": int(weight == "contiguous")}
+    copies["conv.direct"] = int(not any(copies.values()))
+    assert counts == (copies if k > 1 else {name: 0 for name in before})
+    pairs = [(got, want), (gx, want_gx), (wt.grad, jnp.transpose(want_gw, (2, 1, 0)))]
+    for have, ref in pairs:
+        have = have.detach().float().numpy()
+        ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(have, ref, atol=1e-5)
+        else:
+            _bf16_close(have, ref)
+
+
+# how a Conv1d's weight reaches conv1d_same: held in cuDNN's order (served,
+# frozen), f32 masters cast to bf16 on each call (trained), or f32 masters
+# used as they are (f32 training); the expected CONV_LAYOUT counts of one
+# forward of a four-filter decoder (17 k > 1 convolutions, 3 of them the
+# latent injectors', whose input maps are transposed views)
+DECODER_WEIGHTS = {
+    "held": (torch.float32, True, {"conv.direct": 14, "conv.input_copied": 3,
+                                   "conv.weight_copied": 0}),
+    "cast_bf16": (torch.bfloat16, False, {"conv.direct": 14, "conv.input_copied": 3,
+                                          "conv.weight_copied": 0}),
+    "f32_masters": (torch.float32, False, {"conv.direct": 0, "conv.input_copied": 3,
+                                           "conv.weight_copied": 17}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DECODER_WEIGHTS))
+def test_decoder_convolutions_reach_cudnn_in_its_layout(name):
+    compute, hold, expected = DECODER_WEIGHTS[name]
+    torch.manual_seed(0)
+    dec = td.Decoder(4, 2, [4, 8, 16, 32], 30, 6)
+    tb.set_compute_dtype(dec, compute)
+    if hold:
+        tb.hold_conv_weights(dec)
+        for m in dec.modules():
+            if isinstance(m, tb.Conv1d):
+                k, c = m.weight.shape[2], m.weight.shape[1]
+                assert m.weight.stride() == ((k * c, 1, c) if k > 1 else (c, 1, 1))
+    z = torch.randn(3, 4).to(compute)
+    xs = [torch.randn(3, 2).to(compute) for _ in range(2)]
+    before = dict(tb.CONV_LAYOUT)
+    with torch.no_grad():
+        out, _, _ = dec(z, xs, mode="fix", generator=torch.Generator().manual_seed(1))
+    assert out.shape == (3, 6, 30)
+    assert {k: tb.CONV_LAYOUT[k] - before[k] for k in before} == expected
 
 
 @pytest.mark.parametrize("c", [4, 20, 300, 95008])

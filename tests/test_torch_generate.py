@@ -22,6 +22,7 @@ from simulgen_vae_tpu_torch import convert
 from simulgen_vae_tpu_torch import generate as tgen
 from simulgen_vae_tpu_torch.config import LCConfig, VAEConfig
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
+from simulgen_vae_tpu_torch.models import blocks
 
 T, NODE, Z, HIER = 8, 300, 8, 4
 ENC = [32, 16, 8, 4]
@@ -120,6 +121,23 @@ def test_decode_random_mode_with_frozen_zs_matches_jax(setup):
     assert len(got_kls) == len(kls) == 2
     for a, b in zip(got_kls, kls):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4)
+
+
+def test_served_convolutions_reach_cudnn_in_its_layout(setup):
+    """make_generate_fn holds the decoder's k > 1 conv weights in cuDNN's
+    order: a chunk of the four-filter decoder runs 14 of its 17 such
+    convolutions direct, copies the 3 latent injectors' transposed inputs
+    and no weight (models.blocks.CONV_LAYOUT)."""
+    fn = tgen.make_generate_fn(setup.port_pipe, descale_output=False, max_batch=7)
+    convs = [m for m in setup.port_pipe["vae"].modules()
+             if isinstance(m, blocks.Conv1d) and m.weight.shape[-1] > 1]
+    assert len(convs) == 17
+    assert all(m.weight.unsqueeze(2).is_contiguous(memory_format=torch.channels_last)
+               for m in convs)
+    before = dict(blocks.CONV_LAYOUT)
+    fn(setup.inputs)
+    assert {k: blocks.CONV_LAYOUT[k] - before[k] for k in before} == {
+        "conv.direct": 14, "conv.input_copied": 3, "conv.weight_copied": 0}
 
 
 def _paths(tree, prefix=""):

@@ -30,6 +30,7 @@ from simulgen_vae_tpu.data.scaler import data_scaler, latent_conditioner_scaler
 from simulgen_vae_tpu.models import LatentConditioner as JaxLC
 from simulgen_vae_tpu.models.vae import VAE as JaxVAE
 from simulgen_vae_tpu.utils.checkpoint import save_flax_model as jax_save
+from simulgen_vae_tpu_torch import convert
 from simulgen_vae_tpu_torch import generate as tgen
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
 from simulgen_vae_tpu_torch.utils.checkpoint import load_flax_model, save_flax_model
@@ -159,6 +160,26 @@ def test_port_written_artifacts_serve_jax_cli(jax_artifacts, tmp_path):
     want = _jax_main(jax_artifacts, tmp_path / "a.npy", "--quantize", "none")
     got = _jax_main(root, tmp_path / "b.npy", "--quantize", "none")
     np.testing.assert_array_equal(got, want)
+
+
+def test_held_conv_weights_survive_a_save(jax_artifacts, tmp_path):
+    """A served pipeline, its conv weights held in cuDNN's order by
+    make_generate_fn, written back through the port's writers and loaded
+    again serves the same field."""
+    cond, preset = str(jax_artifacts / "condition.txt"), str(jax_artifacts / "preset.txt")
+    x = np.random.default_rng(6).standard_normal((3, N_IN)).astype(np.float32)
+    pipe = tgen.load_pipeline(cond, preset, model_dir=str(jax_artifacts / "model_save"),
+                              device="cpu")
+    want = tgen.make_generate_fn(pipe)(x)
+    decoder = pipe["vae"].decoder
+    assert not all(p.is_contiguous() for p in decoder.parameters())
+    root = _copy(jax_artifacts, tmp_path / "copy")
+    tree = convert._to_tree(convert.decoder_state, convert.random_decoder_tree(pipe["cfg"], None),
+                            decoder)
+    save_flax_model(str(root / "model_save" / "SimulGen-VAE"), {"params": {"decoder": tree}})
+    again = tgen.load_pipeline(cond, preset, model_dir=str(root / "model_save"), device="cpu")
+    assert all(p.is_contiguous() for p in again["vae"].parameters())
+    np.testing.assert_array_equal(tgen.make_generate_fn(again)(x).numpy(), want.numpy())
 
 
 def test_module_entry_point_runs_as_a_script(jax_artifacts, tmp_path):
