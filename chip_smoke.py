@@ -241,16 +241,20 @@ Phases, each printing its own lines; any failure exits non-zero:
              --lc_epochs 2`` (one NCCL rank) in phase 9's work directory:
              exit 0, ``Mesh: {'data': 1, 'model': 1}`` printed and the eight
              model_save/ files.
-13. epilogue: the field epilogue (ops/csrc/field_epilogue.cu) against its
-             plain version bit for bit at the sweep's chunk shape (64 x 200
-             x 95008, bf16 and f32, into rows 64-127 of a 128-row field) and
-             at ragged shapes (N not a multiple of 8, row bases off 16
-             bytes), the other rows left unwritten; one 128-row request
-             through make_generate_fn(max_batch=64): two launches, the same
-             bits as the plain descale of the same request served raw; the
-             kernel's time for one request (back to back, device only,
-             profiled) beside its byte bound (4.36 ms) and the cast,
-             subtract, divide and torch.cat it replaces (plain_ms).
+13. epilogue: the readout's GroupNorm apply, tanh and descale in one pass
+             (gn_apply_field_epilogue, ops/csrc/field_epilogue.cu) against
+             gn_apply(act="tanh") then the plain descale bit for bit, and
+             within a rounding step of its whole plain version, at the
+             sweep's chunk shape (64 x 200 x 95008, bf16 and f32, into rows
+             64-127 of a 128-row field and the padded tail's 63 rows) and at
+             ragged shapes (N or the group width not a multiple of 4, row
+             bases off 16 bytes), the other rows left unwritten; one 128-row
+             request through make_generate_fn(max_batch=64): two fused
+             launches and no tanh GroupNorm, the same bits as the plain
+             descale of the same request served raw; the kernel's time for
+             one request (back to back, device only, profiled: a session
+             that reads under the bound is taken again) beside its byte
+             bound (4.36 ms) and its plain version (plain_ms).
 14. layout : the decoder's k > 1 convolutions in cuDNN's channels-last
              layout (models.blocks.conv1d_same, weights held by
              make_generate_fn): one 64-row flagship decode (bf16, raw field)
@@ -460,14 +464,24 @@ def traced_launches(prof, ops) -> dict:
     return out
 
 
-def profiled_device_ms(fn, reps: int) -> float:
+def profiled_device_ms(fn, reps: int, expect: str | None = None, floor_ms: float = 0.0) -> float:
     """Device time of one call of ``fn``: its kernels' own time in a profiler
     trace of ``reps`` calls, for calls a CUDA graph cannot capture (autograd's
-    backward of a library call)."""
+    backward of a library call). ``expect`` goes to ``traced``; a session
+    that reads under ``floor_ms`` (a bound no call can beat: the session lost
+    kernels' records) is taken again, up to TRACE_ATTEMPTS times, and then
+    fails."""
     fn()
     torch.cuda.synchronize()
-    prof, _ = traced(lambda: [fn() for _ in range(reps)], cpu=False)
-    return sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / reps
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        prof, _ = traced(lambda: [fn() for _ in range(reps)], cpu=False, expect=expect)
+        ms = sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / reps
+        if ms >= floor_ms:
+            return ms
+        PROFILER_SESSIONS["taken_again"] += 1
+        print(f"profiler: session {attempt} of {TRACE_ATTEMPTS} read {ms:.4f} ms, under the "
+              f"bound of {floor_ms:.4f} ms; tracing again")
+    raise AssertionError(f"every profiler session read under the bound of {floor_ms:.4f} ms")
 
 
 # The libraries whose bf16 kernels rest on wgmma fed by TMA.
@@ -3915,140 +3929,187 @@ def phase_mesh(args, card, root: Path) -> tuple:
     return launches, result
 
 
-# -- phase 13: the field epilogue -----------------------------------------------
+# -- phase 13: the readout's fused pass into the served field ------------------
 
 # Phase 13: the sweep's request (128 fields in chunks of 64) and ragged
-# shapes for the field epilogue: N not a multiple of 8 or of 4, and row
-# bases that are not 16-byte aligned (out rows 1.. of a [rows + 1, t, n]
-# field).
+# shapes ([rows, T, N], groups): N or the group width not a multiple of 4,
+# and row bases that are not 16-byte aligned (out rows 1.. of a
+# [rows + 1, t, n] field).
 SWEEP_ROWS, SWEEP_CHUNK = 128, 64
-EPILOGUE_RAGGED = ((3, 7, 1001), (2, 5, 95007), (2, 3, 95008), (2, 3, 1004))
+FUSED_RAGGED = (((3, 7, 1001), 7), ((2, 5, 95007), 1), ((2, 3, 95008), 8), ((2, 3, 1004), 4),
+                ((3, 2, 1004), 2))
 
 
-def _epilogue_case(fe, x, mn, sc, rows: slice, total: int) -> dict:
-    """``field_epilogue`` of ``x`` into rows ``rows`` of a NaN-filled
-    ``[total, ...]`` f32 field against the plain version on the card."""
-    out = torch.full((total, *x.shape[1:]), float("nan"), device="cuda")
-    fe.field_epilogue(x, mn, sc, out[rows])
-    want = fe.field_epilogue_reference(x, mn, sc, torch.empty_like(out[rows]))
+def _plain_gap(got, want, scale, dtype) -> tuple:
+    """How far the fused kernel's field lies from its whole plain version, in
+    the tanh'd map's units (the gap times scale_), and whether that is no
+    more than the rounding of one side's tanh (torch.tanh against tanhf, a
+    separate multiply and add against an FMA) explains: at most one bf16
+    step of a value in (-1, 1) on at most a thousandth of the elements in
+    bf16, 1e-5 in f32."""
+    gap = (got - want).abs() * scale
+    worst, share = float(gap.max()), int((gap > 0).sum()) / gap.numel()
+    ok = worst <= 2.0 ** -8 + 1e-5 and share <= 1e-3 if dtype == torch.bfloat16 else worst <= 1e-5
+    return worst, share, ok
+
+
+def _fused_case(fe, gg, y, stats, vecs, groups, rows: slice, total: int) -> dict:
+    """``gn_apply_field_epilogue`` of ``y``'s first rows into rows ``rows`` of
+    a NaN-filled ``[total, ...]`` f32 field, against ``gn_apply(act="tanh")``
+    then the plain descale bit for bit, and against its whole plain version
+    within ``_plain_gap``."""
+    gs, gb, mn, sc = vecs
+    r = rows.stop - rows.start
+    out = torch.full((total, *y.shape[1:]), float("nan"), device="cuda")
+    fe.gn_apply_field_epilogue(y, stats, gs, gb, mn, sc, out[rows], groups)
+    act = gg.gn_apply(y, gs, gb, stats, groups, "tanh")[:r]
+    want = fe.field_epilogue_reference(act, mn, sc, torch.empty_like(out[rows]))
+    del act
+    plain = fe.gn_apply_field_epilogue_reference(y, stats, gs, gb, mn, sc,
+                                                 torch.empty_like(out[rows]), groups)
     torch.cuda.synchronize()
     placed = out[rows]
     other = int(out.isnan().sum()) - int(placed.isnan().sum())
-    return dict(shape=list(x.shape), dtype=str(x.dtype).split(".")[1], rows=[rows.start, rows.stop],
-                equal=bool(torch.equal(placed, want)), max_abs=_err(placed, want),
+    gap, share, near = _plain_gap(placed, plain, sc, y.dtype)
+    return dict(shape=list(y.shape), groups=groups, dtype=str(y.dtype).split(".")[1],
+                rows=[rows.start, rows.stop], equal=bool(torch.equal(placed, want)),
+                max_abs=_err(placed, want), plain_gap=gap, plain_share=share, near_plain=near,
                 untouched=other == out.numel() - placed.numel())
 
 
 def phase_epilogue(args, card, pipeline, inputs) -> tuple:
-    """Phase 13: the field epilogue (ops/csrc/field_epilogue.cu). Gated: the
-    kernel equals its plain version bit for bit at the sweep's chunk shape
-    (64 x 200 x 95008, bf16 and f32, into rows 64-127 of a 128-row field)
-    and at EPILOGUE_RAGGED (both dtypes, aligned and shifted row bases),
-    leaving the other rows unwritten; one 128-row request through
-    make_generate_fn(max_batch=64) launches it twice and equals the plain
+    """Phase 13: the readout's GroupNorm apply, tanh, rounding and descale in
+    one pass (``gn_apply_field_epilogue`` in ops/csrc/field_epilogue.cu).
+    Gated: it equals ``gn_apply(act="tanh")`` then the plain descale
+    (``field_epilogue_reference``) bit for bit, and its whole plain version
+    (``gn_apply_field_epilogue_reference``) within ``_plain_gap``, at the
+    sweep's chunk shape (64 x 200 x 95008, bf16 and f32, into rows 64-127 of
+    a 128-row field, and the padded tail's 63 rows) and at FUSED_RAGGED
+    (both dtypes, aligned and shifted row bases), leaving the other rows
+    unwritten; one 128-row request through make_generate_fn(max_batch=64)
+    launches it twice and the tanh GroupNorm never, and equals the plain
     descale of the same request served with descale_output=False. Timed for
-    one request: the kernel back to back, device only (a replayed CUDA
-    graph) and profiled, beside the byte bound and the path it replaces (the
-    f32 cast, subtract and divide of each chunk, then torch.cat), as
-    ``plain_ms``. Returns (the kernels' JSON entry, the result dict)."""
+    one request: the fused kernel back to back, device only (a replayed CUDA
+    graph) and profiled, beside its byte bound and its plain version.
+    Returns (the kernels' JSON entry, the result dict)."""
     from simulgen_vae_tpu_torch import generate as tgen
+    from simulgen_vae_tpu_torch.models import blocks
     from simulgen_vae_tpu_torch.ops import field_epilogue as fe
+    from simulgen_vae_tpu_torch.ops import groupnorm_gelu as gg
 
     gen = torch.Generator("cuda").manual_seed(args.seed)
-    n_node = 95008
+    n_node, groups = 95008, 8
 
-    def stats(n):
-        return (torch.rand(n, generator=gen, device="cuda") * 1.8 - 0.9,
+    def vectors(n):
+        """GroupNorm scale and bias, the data scaler's min_ and scale_."""
+        return (torch.rand(n, generator=gen, device="cuda") * 2 - 0.5,
+                torch.rand(n, generator=gen, device="cuda") - 0.5,
+                torch.rand(n, generator=gen, device="cuda") * 1.8 - 0.9,
                 torch.rand(n, generator=gen, device="cuda") * 1.8 + 0.2)
 
-    def field(shape, dtype):
-        return (torch.rand(shape, generator=gen, device="cuda") * 3 - 1.5).to(dtype)
+    def pre_norm(shape, dtype, g):
+        y = (torch.randn(shape, generator=gen, device="cuda") * 2 + 0.3).to(dtype)
+        return y, gg.gn_stats(y, g)
 
     fe.reset_launch_counts()
     cases = []
-    mn, sc = stats(n_node)
+    vecs = vectors(n_node)
     for dtype in (torch.bfloat16, torch.float32):
-        x = field((SWEEP_CHUNK, T, n_node), dtype)
-        cases.append(_epilogue_case(fe, x, mn, sc, slice(SWEEP_CHUNK, SWEEP_ROWS), SWEEP_ROWS))
-        del x
+        y, stats = pre_norm((SWEEP_CHUNK, T, n_node), dtype, groups)
+        for rows in (slice(SWEEP_CHUNK, SWEEP_ROWS), slice(SWEEP_CHUNK, SWEEP_ROWS - 1)):
+            cases.append(_fused_case(fe, gg, y, stats, vecs, groups, rows, SWEEP_ROWS))
+        del y, stats
         torch.cuda.empty_cache()
-    for shape in EPILOGUE_RAGGED:
-        m, s = stats(shape[2])
+    for shape, g in FUSED_RAGGED:
+        v = vectors(shape[2])
         for dtype in (torch.bfloat16, torch.float32):
-            x = field(shape, dtype)
+            y, stats = pre_norm(shape, dtype, g)
             for start in (0, 1):
-                cases.append(_epilogue_case(fe, x, m, s, slice(start, start + shape[0]),
-                                            shape[0] + 1))
+                cases.append(_fused_case(fe, gg, y, stats, v, g,
+                                         slice(start, start + shape[0]), shape[0] + 1))
     for c in cases:
-        print(f"epilogue: {c['dtype']} {c['shape']} into rows {c['rows']}: "
-              f"{'the same bits' if c['equal'] else 'DIFFERENT'} (max abs {c['max_abs']:.3g}), "
-              f"other rows {'untouched' if c['untouched'] else 'WRITTEN'}")
-    if not all(c["equal"] and c["untouched"] for c in cases):
-        raise AssertionError("field_epilogue differs from its plain version")
+        print(f"epilogue: fused {c['dtype']} {c['shape']} G={c['groups']} into rows "
+              f"{c['rows']}: {'the same bits' if c['equal'] else 'DIFFERENT'} (max abs "
+              f"{c['max_abs']:.3g}) as gn_apply + the plain descale; against the plain "
+              f"version {c['plain_gap']:.3g} at most on {100 * c['plain_share']:.4f}% of the "
+              f"elements ({'within' if c['near_plain'] else 'OVER'} a rounding step), other "
+              f"rows {'untouched' if c['untouched'] else 'WRITTEN'}")
+    if not all(c["equal"] and c["near_plain"] and c["untouched"] for c in cases):
+        raise AssertionError("gn_apply_field_epilogue differs from gn_apply + the plain descale "
+                             "or from its plain version")
 
     # one request through the serving function
     pipe = pipeline(torch.bfloat16)
     request = np.resize(inputs, (SWEEP_ROWS, inputs.shape[1]))
     fe.reset_launch_counts()
-    got = tgen.make_generate_fn(pipe, max_batch=SWEEP_CHUNK)(request)
+    calls = []
+    with recording_calls(blocks, calls):
+        got = tgen.make_generate_fn(pipe, max_batch=SWEEP_CHUNK)(request)
     torch.cuda.synchronize()
-    launches = fe.LAUNCHES["field_epilogue"]
+    launches = dict(fe.LAUNCHES)
+    tanh_calls = sum(act == "tanh" for _, _, act in calls)
     raw = tgen.make_generate_fn(pipe, descale_output=False, max_batch=SWEEP_CHUNK)(request)
     ds = pipe["data_scaler"]
     want = ds.inverse_transform(raw.float())
     served = dict(shape=list(got.shape), dtype=str(got.dtype).split(".")[1], launches=launches,
-                  equal=bool(torch.equal(got, want)), max_abs=_err(got, want),
-                  finite=bool(got.isfinite().all()))
+                  tanh_group_norm_calls=tanh_calls, equal=bool(torch.equal(got, want)),
+                  max_abs=_err(got, want), finite=bool(got.isfinite().all()))
     print(f"epilogue: one {SWEEP_ROWS}-row request at max_batch {SWEEP_CHUNK}: "
-          f"{tuple(got.shape)} {got.dtype}, {launches} launches, against the plain descale "
-          f"of the raw field: {'the same bits' if served['equal'] else 'DIFFERENT'} "
-          f"(max abs {served['max_abs']:.3g})")
-    if (launches != SWEEP_ROWS // SWEEP_CHUNK or not served["equal"] or not served["finite"]
+          f"{tuple(got.shape)} {got.dtype}, launches {launches}, tanh GroupNorm calls "
+          f"{tanh_calls}; against the plain descale of the raw field: "
+          f"{'the same bits' if served['equal'] else 'DIFFERENT'} (max abs "
+          f"{served['max_abs']:.3g})")
+    if (launches != {"gn_apply_field_epilogue": SWEEP_ROWS // SWEEP_CHUNK}
+            or tanh_calls or not served["equal"] or not served["finite"]
             or served["shape"] != [SWEEP_ROWS, T, n_node] or got.dtype != torch.float32):
-        raise AssertionError(f"the served request did not take the epilogue: {served}")
+        raise AssertionError(f"the served request did not take the fused readout: {served}")
     del pipe, got, raw, want
     torch.cuda.empty_cache()
 
     # times for one request: two chunks of 64
-    x = field((SWEEP_CHUNK, T, n_node), torch.bfloat16)
+    y, stats = pre_norm((SWEEP_CHUNK, T, n_node), torch.bfloat16, groups)
+    gs, gb, mn, sc = vecs
     out = torch.empty((SWEEP_ROWS, T, n_node), device="cuda")
 
-    def kernel_request():
+    def fused_request():
         for start in range(0, SWEEP_ROWS, SWEEP_CHUNK):
-            fe.field_epilogue(x, mn, sc, out[start: start + SWEEP_CHUNK])
+            fe.gn_apply_field_epilogue(y, stats, gs, gb, mn, sc, out[start: start + SWEEP_CHUNK],
+                                       groups)
 
     def plain_request():
-        return torch.cat([(x.float() - mn) / sc for _ in range(0, SWEEP_ROWS, SWEEP_CHUNK)])
+        for start in range(0, SWEEP_ROWS, SWEEP_CHUNK):
+            fe.gn_apply_field_epilogue_reference(y, stats, gs, gb, mn, sc,
+                                                 out[start: start + SWEEP_CHUNK], groups)
 
     reps = max(args.reps, 10)
-    times = {}
-    for turn in ("kernel", "plain", "plain", "kernel"):
-        fn = kernel_request if turn == "kernel" else plain_request
-        times.setdefault(turn, []).append(cuda_ms(fn, reps))
-    device_ms = graph_ms(kernel_request, reps)
-    profiled_ms = profiled_device_ms(kernel_request, reps)
+    times = [cuda_ms(fused_request, reps) for _ in range(2)]
+    plain_ms = cuda_ms(plain_request, 2, warmup=1)
+    device_ms = graph_ms(fused_request, reps)
     elems = SWEEP_ROWS * T * n_node
     bound_ms = elems * (2 + 4) / HBM_BYTES_PER_S * 1e3
-    ms, plain_ms = min(times["kernel"]), min(times["plain"])
-    print(f"timing: [{card}] field_epilogue for one {SWEEP_ROWS}-field request (2 launches, "
-          f"bf16 in, f32 out): {ms:.4f} ms back to back ({times['kernel']}), device only "
-          f"{device_ms:.4f} ms, profiled {profiled_ms:.4f} ms; bound {bound_ms:.4f} ms "
-          f"({100 * bound_ms / profiled_ms:.1f}% profiled, {100 * bound_ms / device_ms:.1f}% "
-          f"device only); plain (cast, subtract, divide, cat) {plain_ms:.4f} ms "
-          f"({times['plain']})")
-    del x, out
+    profiled_ms = profiled_device_ms(fused_request, reps, expect="gn_apply_field_epilogue",
+                                     floor_ms=bound_ms)
+    ms = min(times)
+    print(f"timing: [{card}] gn_apply_field_epilogue for one {SWEEP_ROWS}-field request (2 "
+          f"launches, bf16 pre-norm map in, f32 field out): {ms:.4f} ms back to back "
+          f"({times}), device only {device_ms:.4f} ms, profiled {profiled_ms:.4f} ms; "
+          f"bound {bound_ms:.4f} ms ({100 * bound_ms / profiled_ms:.1f}% profiled, "
+          f"{100 * bound_ms / device_ms:.1f}% device only); plain version {plain_ms:.4f} ms")
+    del y, stats, out
     torch.cuda.empty_cache()
-    kernel = dict(name="field_epilogue", route="cuda",
+    kernel = dict(name="gn_apply_field_epilogue", route="cuda",
                   source="simulgen_vae_tpu_torch/ops/csrc/field_epilogue.cu",
-                  replaces="no Pallas kernel: XLA's fused cast, subtract and divide in "
-                           "simulgen_vae_tpu/generate.py",
-                  launches=launches, launches_per_request=SWEEP_ROWS // SWEEP_CHUNK,
+                  replaces="no Pallas kernel: the readout's gn_apply "
+                           "(simulgen_vae_tpu/ops/groupnorm_gelu.py:366) and XLA's fused "
+                           "descale in simulgen_vae_tpu/generate.py",
+                  launches=launches["gn_apply_field_epilogue"],
+                  launches_per_request=SWEEP_ROWS // SWEEP_CHUNK,
                   max_abs_err=max(c["max_abs"] for c in cases), ms=ms, device_ms=device_ms,
                   profiled_ms=profiled_ms, bound_ms=bound_ms, bound_by="bytes",
-                  plain_ms=plain_ms, library_ms=None, card=card,
-                  shapes=[[SWEEP_ROWS, T, n_node]])
+                  plain_ms=plain_ms, library_ms=None, card=card, shapes=[[SWEEP_ROWS, T, n_node]])
     return kernel, dict(cases=cases, served=served, times=times, device_ms=device_ms,
-                        profiled_ms=profiled_ms, bound_ms=bound_ms)
+                        profiled_ms=profiled_ms,
+                        bound_ms=bound_ms, plain_ms=plain_ms)
 
 
 # -- phase 14: the convolutions' layout -----------------------------------------
@@ -4180,8 +4241,8 @@ def main(argv=None) -> int:
 
     pipe = pipeline(torch.bfloat16)
     calls = []
-    with recording_calls(blocks, calls):
-        tgen.generate(pipe, inputs[:B], max_batch=B)
+    with recording_calls(blocks, calls):  # the raw field: the readout's GroupNorm is a call
+        tgen.generate(pipe, inputs[:B], descale_output=False, max_batch=B)
     expected = 1 + sum(isinstance(m, blocks.NormAct) for m in pipe["vae"].modules())
     if len(calls) != expected:
         raise AssertionError(f"{len(calls)} GroupNorm calls per decode, expected {expected}")
@@ -4346,7 +4407,7 @@ def main(argv=None) -> int:
         for tag, per_rank in mesh_launches.items():
             if k["name"] in per_rank[0]:
                 k[f"launches_mesh_{tag}"] = [counts[k["name"]] for counts in per_rank]
-    # 13. the field epilogue
+    # 13. the readout's fused pass into the served field
     epilogue_kernel, epilogue = phase_epilogue(args, card, pipeline, inputs)
     kernels.append(epilogue_kernel)
     # 14. the convolutions' layout

@@ -36,18 +36,22 @@ over ``model`` by the training rule (the readout's int8 scales with its
 kernel), requests over ``data`` where their count divides by it, and every
 rank returns the whole field, gathered over both axes.
 
-The field leaves the decoder in its dtype and is descaled to f32 physical
-units by ``ops.field_epilogue`` in one pass (on the card one hand-written
-kernel; on the CPU the plain expression). Without a mesh a request larger
-than one chunk is allocated once, and each chunk's epilogue writes its
-rows straight into it (a copy where ``descale_output`` is off); a mesh
-gathers each rank's descaled block first and concatenates the chunks.
+With ``descale_output`` the decoder's readout writes the field descaled to
+f32 physical units: after the readout's product and its GroupNorm
+statistics, one pass normalises, applies tanh, rounds to the decoder's
+dtype and descales (``ops.field_epilogue.gn_apply_field_epilogue``: on the
+card one hand-written kernel; on the CPU the plain versions), the same bits
+as the tanh'd field descaled after it. Without a mesh a request larger than
+one chunk is allocated once, and each chunk's readout writes its rows
+straight into it (a copy of the decoder's field where ``descale_output`` is
+off); a mesh gathers each rank's descaled block first and concatenates the
+chunks.
 
 A call of the serving function and its phases are spans of
 ``utils.profiling`` (``serve.request``, ``serve.chunk``,
-``serve.conditioner``, ``serve.decode`` with ``decoder.readout`` in it,
-``serve.descale`` around the epilogue, ``serve.concat`` around the tail
-chunk's padding and the mesh path's concatenation), recorded only inside
+``serve.conditioner``, ``serve.decode`` with ``decoder.readout`` in it and
+``serve.descale`` in that, around the readout's fused pass; ``serve.concat``
+around the tail chunk's padding and the mesh path's concatenation), recorded only inside
 ``profiling.recording()``; ``serve.requests`` counts the calls recorded.
 """
 
@@ -78,7 +82,6 @@ from simulgen_vae_tpu_torch.convert import (
 from simulgen_vae_tpu_torch.data.scaler import MinMaxScaler
 from simulgen_vae_tpu_torch.models.blocks import hold_conv_weights
 from simulgen_vae_tpu_torch.models.vae import VAE
-from simulgen_vae_tpu_torch.ops.field_epilogue import field_epilogue
 from simulgen_vae_tpu_torch.ops.quant import build_quant_collection
 from simulgen_vae_tpu_torch.parallel import collectives, sharding
 from simulgen_vae_tpu_torch.utils import resolve_device
@@ -267,9 +270,12 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
                             if t.dim() == 1 and t.shape[0] == cfg.num_node else t
                             for t in (ds.scale_, ds.min_)))
 
-    def decode(inputs: torch.Tensor) -> tuple:
-        """A chunk's field in the decoder's dtype, this rank's rows and nodes,
-        and the rows it holds on a mesh that splits them (None: all)."""
+    def decode(inputs: torch.Tensor, out: Optional[torch.Tensor] = None) -> tuple:
+        """A chunk's field, this rank's rows and nodes, and the rows it holds
+        on a mesh that splits them (None: all). With ``descale_output`` the
+        readout writes it descaled into ``out`` (its first rows are the
+        chunk's; a fresh f32 tensor where None), else it is the decoder's
+        dtype."""
         rows = None
         if mesh is not None:
             d = sharding.batch_parts(mesh, inputs.shape[0])
@@ -283,37 +289,38 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
             b, nh, hd = y2.shape
             xs_flat = xsc.inverse_transform(y2.reshape(b, nh * hd))
             xs = [xs_flat.reshape(b, nh, hd)[:, i].to(dtype) for i in range(nh)]
+        field_out = None
+        if descale_output:
+            if out is None:
+                out = torch.empty((b, cfg.num_time, cfg.num_node // parts),
+                                  dtype=torch.float32, device=device)
+            field_out = (ds.min_, ds.scale_, out)
         with span("serve.decode"):
             # mode='fix' draws noise of std 1e-8; a fixed seed keeps it repeatable.
             gen = torch.Generator(device).manual_seed(0)
-            field = vae.generate(z.to(dtype), xs, generator=gen, noise_rows=rows)
+            field = vae.generate(z.to(dtype), xs, generator=gen, noise_rows=rows,
+                                 field_out=field_out)
         return field, rows
 
-    def descale(field: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        with span("serve.descale"):
-            return field_epilogue(field, ds.min_, ds.scale_, out)
-
-    def place(field: torch.Tensor, out: Optional[torch.Tensor], start: int,
+    def place(chunk: torch.Tensor, out: Optional[torch.Tensor], start: int, got: int,
               n: int) -> torch.Tensor:
-        """``field`` as rows ``start:`` of the request's ``[n, ...]`` output,
-        which the first chunk allocates: descaled, or copied."""
+        """The first ``got`` rows of ``chunk``'s field as rows ``start:`` of
+        the request's ``[n, ...]`` output, which the first chunk allocates:
+        descaled by the readout, or copied."""
         if out is None:
-            out = field.new_empty((n, *field.shape[1:]),
-                                  dtype=torch.float32 if descale_output else field.dtype)
-        rows = out[start: start + field.shape[0]]
+            out = torch.empty((n, cfg.num_time, cfg.num_node), device=device,
+                              dtype=torch.float32 if descale_output else dtype)
+        rows = out[start: start + got]
         if descale_output:
-            descale(field, rows)
+            decode(chunk, rows)
         else:
-            rows.copy_(field)
+            rows.copy_(decode(chunk)[0][:got])
         return out
 
     def run(inputs: torch.Tensor) -> torch.Tensor:
-        """One chunk's whole field: descaled into a fresh tensor and, on a
+        """One chunk's whole field (descaled into a fresh tensor) and, on a
         mesh, gathered."""
         field, rows = decode(inputs)
-        if descale_output:
-            field = descale(field, torch.empty(field.shape, dtype=torch.float32,
-                                                 device=field.device))
         if mesh is not None:
             if parts > 1:
                 field = collectives.all_gather_cat(field, mesh.group("model"), 2)
@@ -338,7 +345,7 @@ def make_generate_fn(pipeline: dict, descale_output: bool = True,
                         chunk = torch.cat([chunk, chunk[-1:].expand(max_batch - got, -1)])
                 with span("serve.chunk"):
                     if mesh is None:
-                        out = place(decode(chunk)[0][:got], out, start, n)
+                        out = place(chunk, out, start, got, n)
                     else:  # the gathered field has to exist before its rows can be placed
                         chunks.append(run(chunk)[:got])
             if out is not None:

@@ -42,7 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from simulgen_vae_tpu_torch.ops.groupnorm_gelu import group_norm_act
+from simulgen_vae_tpu_torch.ops.field_epilogue import gn_apply_field_epilogue
+from simulgen_vae_tpu_torch.ops.groupnorm_gelu import gn_stats, group_norm_act
 from simulgen_vae_tpu_torch.parallel.collectives import grad_sum_over, sum_over
 from simulgen_vae_tpu_torch.ops.quant import int8_conv1d_same, int8_dot
 from simulgen_vae_tpu_torch.ops.readout_chain import readout_chain_loss
@@ -424,6 +425,14 @@ class FusedPointwiseNormTanh(nn.Module):
     ``readout_bwd`` picks its backward (``"auto"``, ``"fused"``,
     ``"materialize"``).
 
+    With ``field_out=(min_, scale, out)`` the serving path runs instead: the
+    same product, then ``gn_stats`` and one pass (``ops.field_epilogue.
+    gn_apply_field_epilogue``) that normalises, applies tanh, rounds to the
+    compute dtype and descales by the data scaler's ``[nodes]`` f32 ``min_``
+    and ``scale`` into ``out``, ``[rows, T, nodes]`` f32 with ``rows`` up to
+    the batch (a padded chunk's real rows); it returns ``out``, and no
+    normalised map is kept. For inference only: nothing records a gradient.
+
     On a mesh (``node_group``) the layer holds one block of ``total_nodes``
     output nodes and ``num_groups`` whole GroupNorm groups of them: the
     forward needs no collective, and the input's gradient (and, scaled on
@@ -451,7 +460,7 @@ class FusedPointwiseNormTanh(nn.Module):
         _int8_buffers(self)
 
     def forward(self, h: torch.Tensor, x_target: torch.Tensor | None = None,
-                lossfun: str = "MSE", readout_bwd: str = "auto"):
+                lossfun: str = "MSE", readout_bwd: str = "auto", field_out: tuple | None = None):
         cd = self.compute_dtype
         if x_target is not None:
             if self.node_group is not None:
@@ -484,6 +493,12 @@ class FusedPointwiseNormTanh(nn.Module):
             y = F.linear(h, w, self.bias.float())
         else:
             y = linear_f32_bias(h, w, self.bias)
+        if field_out is not None:
+            min_, scale, out = field_out
+            stats = gn_stats(y, self.num_groups, self.eps)
+            with profiling.span("serve.descale"):
+                return gn_apply_field_epilogue(y, stats, self.scale, self.norm_bias, min_, scale,
+                                               out, self.num_groups)
         return group_norm_act(y, self.scale, self.norm_bias, self.num_groups,
                               eps=self.eps, act="tanh")
 

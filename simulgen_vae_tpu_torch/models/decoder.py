@@ -129,11 +129,15 @@ class Decoder(nn.Module):
                 frozen_zs: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
                 x_target: Optional[torch.Tensor] = None, lossfun: str = "MSE",
-                readout_bwd: str = "auto", noise_rows: Optional[Tuple[int, int]] = None):
+                readout_bwd: str = "auto", noise_rows: Optional[Tuple[int, int]] = None,
+                field_out: Optional[tuple] = None):
         """Returns ``(x_hat [B, T, nodes], kl_losses, zs)``; with ``x_target``
         the fused train-path readout returns ``(recon_loss, recon_mse)`` in
-        place of ``x_hat``, with the backward ``readout_bwd`` names.
-        ``noise_rows`` as :func:`reparameterize`'s ``rows``."""
+        place of ``x_hat``, with the backward ``readout_bwd`` names; with
+        ``field_out=(min_, scale, out)`` the serving readout writes the
+        descaled f32 field into ``out`` and returns it in place of ``x_hat``
+        (``FusedPointwiseNormTanh``). ``noise_rows`` as
+        :func:`reparameterize`'s ``rows``."""
         kl_losses, zs = [], []
         decoder_out = None
         for i in range(self.n_levels):
@@ -168,5 +172,5 @@ class Decoder(nn.Module):
 
         with span("decoder.readout"):
             out = self.recon(decoder_out, x_target=x_target, lossfun=lossfun,
-                             readout_bwd=readout_bwd)
+                             readout_bwd=readout_bwd, field_out=field_out)
         return out, kl_losses, zs

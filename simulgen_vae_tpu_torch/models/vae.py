@@ -97,8 +97,11 @@ class VAE(nn.Module):
     def generate(self, z: torch.Tensor,
                  xs: Optional[Sequence[torch.Tensor]] = None,
                  generator: Optional[torch.Generator] = None,
-                 noise_rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-        """Conditioner latents -> field ``[B, time, nodes]`` (``mode='fix'``)."""
+                 noise_rows: Optional[Tuple[int, int]] = None,
+                 field_out: Optional[tuple] = None) -> torch.Tensor:
+        """Conditioner latents -> field ``[B, time, nodes]`` (``mode='fix'``);
+        with ``field_out=(min_, scale, out)`` the field descaled into ``out``
+        (``Decoder.forward``)."""
         x_hat, _, _ = self.decoder(z, xs, mode="fix", generator=generator,
-                                   noise_rows=noise_rows)
+                                   noise_rows=noise_rows, field_out=field_out)
         return x_hat

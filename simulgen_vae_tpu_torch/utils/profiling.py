@@ -33,9 +33,10 @@ thread's ident. The spans of the port:
 - ``serve.request``: one call of ``make_generate_fn``'s function, keyed by
   ``serve.requests``; in it ``serve.chunk`` (one decode call of at most
   ``max_batch`` rows) holding ``serve.conditioner`` (the conditioner and
-  the latent descales), ``serve.decode`` (``VAE.generate``) and
-  ``serve.descale``; ``serve.concat``, the tail chunk's padding and the
-  chunks' concatenation;
+  the latent descales) and ``serve.decode`` (``VAE.generate``, its
+  ``decoder.readout`` holding ``serve.descale``, the readout's fused
+  GroupNorm apply, tanh and descale of a descaled request); ``serve.concat``,
+  the tail chunk's padding and the chunks' concatenation;
 - ``lc.epoch``: ``LCTrainer.train_epoch`` (the CSV, image and E2E
   conditioners); ``lc.step``: one step, keyed by ``lc.steps``; in it
   ``lc.augment`` (the batch's rows and its augmentation or noise),

@@ -114,7 +114,9 @@ def test_build_path_follows_sources(tmp_path, monkeypatch):
     assert after["gn_stats"] != before["gn_stats"]
     assert after["gn_apply"] == before["gn_apply"]
     for header, users in (
-            ("gn_common.cuh", {k for k in _build.KERNELS if k.startswith(("gn_", "readout_"))}),
+            # field_epilogue's fused readout pass applies GroupNorm with its helpers
+            ("gn_common.cuh", {k for k in _build.KERNELS if k.startswith(("gn_", "readout_"))}
+             | {"field_epilogue"}),
             ("hopper.cuh", {"readout_matmul_stats", "readout_bwd_fused"})):
         (csrc / header).write_text((csrc / header).read_text() + "\n")
         edited = {k: _build.library_path(k) for k in _build.KERNELS}

@@ -30,7 +30,7 @@ from simulgen_vae_tpu_torch.utils.profiling import recording, span, tick
 T, NODE, INPUTS = 8, 64, 5
 STEP_PHASES = ["train.assemble", "train.sn", "train.forward", "train.backward", "train.sn",
                "train.optimizer"]
-CHUNK_PHASES = ["serve.conditioner", "serve.decode", "serve.descale"]
+CHUNK_PHASES = ["serve.conditioner", "serve.decode"]
 
 
 def _cfg(**kw):
@@ -180,7 +180,10 @@ def test_chunked_request_span_tree():
         if spans[i][0] == "serve.chunk":
             inner = _children(spans, i)
             assert _names(spans, inner) == CHUNK_PHASES
-            assert _names(spans, _children(spans, inner[1])) == ["decoder.readout"]
+            (readout,) = _children(spans, inner[1])
+            assert _names(spans, [readout]) == ["decoder.readout"]
+            # the descale runs inside the readout, in one pass with its GroupNorm
+            assert _names(spans, _children(spans, readout)) == ["serve.descale"]
 
 
 def test_trace_writes_the_spans_on_the_profilers_clock(tmp_path):
