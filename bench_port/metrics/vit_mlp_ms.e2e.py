@@ -1,0 +1,11 @@
+"""Device milliseconds a training step launched under ``vit.mlp``: each ViT
+block's LayerNorm, two MLP layers, exact GELU and dropout, in the
+conditioner's forward. From the program's spans over the profiled epoch
+(``benchlib.recorded``); None where they are missing, misaligned or count
+other steps than the run."""
+
+from benchlib import recorded
+
+
+def read(run):
+    return recorded.step_phase_ms(run, "vit.mlp")

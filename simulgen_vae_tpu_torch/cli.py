@@ -23,7 +23,9 @@ dataset plots, asked for explicitly) raises before training starts.
 
 The conditioner follows the condition file's ``input_type``: the MLP on
 the CSV (``csv``), the CNN (``image``, spectral norm on its ``sn_*``
-layers) or the ViT (``image_vit``) on the images of ``param_dir`` (OpenCV's
+layers) or the ViT (``image_vit``; its widths from the file's optional
+``vit_embed_dim``, ``vit_depth`` and ``vit_num_heads``, 256 / 6 / 8 without
+them, 768 / 12 / 12 for ViT-B/16) on the images of ``param_dir`` (OpenCV's
 reader, imported where it reads; pixels / 255), or the MLP on the PCA
 coefficients of those images (``image_pca``: a 256-component PCA fitted on
 the raw pixels on the run's device and saved as ``model_save/
@@ -397,6 +399,9 @@ def run_latent_conditioner_stage(args, cfg: VAEConfig, lc_cfg: LCConfig, vae_mod
         lc_model = convert.image_conditioner(lc_cfg, cfg, device,
                                              image_side=int(round(np.sqrt(n_in))))
         lc_sn = sn_filter if data_type == "image" else None
+        if data_type == "image_vit":
+            print(f"ViT conditioner: embedding {lc_cfg.vit_embed_dim}, depth "
+                  f"{lc_cfg.vit_depth}, {lc_cfg.vit_num_heads} heads")
     else:
         lc_model = LatentConditioner(lc_cfg.filters, cfg.latent_dim_end, n_in, cfg.latent_dim,
                                      size2, device, lc_cfg.dropout_rate)

@@ -7,7 +7,8 @@ readers of the reference's two config files:
 * ``parse_condition_file``: whitespace key-value lines, ``#`` starts a
   comment anywhere on a line, lines starting with ``%`` or ``'`` are section
   markers and skipped;
-* ``parse_training_parameters``: the typed key set with its defaults;
+* ``parse_training_parameters``: the typed key set with its defaults, and
+  the ViT's widths (``VIT_KEYS``) where the file gives them;
 * ``read_preset``: a 5-line file (header, data_No, init_beta_divisor, encoder
   filters, latent-conditioner filters), or ``input_user_variables``, the
   same four values from stdin.
@@ -32,6 +33,9 @@ def parse_condition_file(filepath: str) -> dict:
             if len(parts) >= 2:
                 params[parts[0]] = parts[1]
     return params
+
+
+VIT_KEYS = ("vit_embed_dim", "vit_depth", "vit_num_heads")
 
 
 def parse_training_parameters(params: dict) -> dict:
@@ -76,6 +80,8 @@ def parse_training_parameters(params: dict) -> dict:
         "use_latent_regularization": int(get("use_latent_regularization", 0)),
         "LC_alpha": float(get("LC_alpha", 1.0)),
         "latent_reg_weight": float(get("latent_reg_weight", 0.001)),
+        # the ViT's widths, where the file gives them (the JAX package has no such keys)
+        **{k: int(params[k]) for k in VIT_KEYS if k in params},
     }
 
 
@@ -197,7 +203,7 @@ def resolve_perf_stack(cfg: VAEConfig) -> dict:
 @dataclasses.dataclass
 class LCConfig:
     """Latent-conditioner configuration (condition.txt's %LatentConditioner
-    block). The port trains and serves the CSV (MLP) conditioner only."""
+    block)."""
 
     filters: List[int] = dataclasses.field(
         default_factory=lambda: [32, 64, 128, 256, 512, 1024])
@@ -219,8 +225,17 @@ class LCConfig:
     lc_alpha: float = 1000.0
     latent_reg_weight: float = 1e-3
 
+    # the ViT's widths (``image_vit``): SimulGen's own ViT by default (the
+    # JAX module's defaults); ViT-B/16 is 768 / 12 / 12
+    vit_embed_dim: int = 256
+    vit_depth: int = 6
+    vit_num_heads: int = 8
+
     @classmethod
     def from_condition(cls, config: dict, filters: List[int]) -> "LCConfig":
+        """From a :func:`parse_training_parameters` dict; the ViT's widths
+        from its optional ``vit_*`` keys."""
+        widths = {k: config[k] for k in VIT_KEYS if k in config}
         return cls(
             filters=list(filters),
             epochs=config["latent_conditioner_epoch"],
@@ -238,4 +253,5 @@ class LCConfig:
             use_latent_regularization=bool(config["use_latent_regularization"]),
             lc_alpha=config["LC_alpha"],
             latent_reg_weight=config["latent_reg_weight"],
+            **widths,
         )

@@ -675,22 +675,38 @@ def image_conditioner_variables(model: nn.Module) -> dict:
     return out
 
 
+def vit_widths(variables) -> dict:
+    """A flax ViT tree's ``{"embed_dim", "depth", "num_heads", "image_side"}``:
+    the embedding and the token count from ``pos_embed`` ``[1, N, d]`` (16-pixel
+    patches on a square), the blocks ``block_{i}`` counted, the heads from the
+    first block's query kernel ``[in, heads, head_dim]`` (None without a
+    block)."""
+    _, tokens, dim = np.shape(_leaf(variables, ("params", "pos_embed")))
+    depth = sum(1 for k in _leaf(variables, ("params",)) if str(k).startswith("block_"))
+    heads = None
+    if depth:
+        heads = np.shape(_leaf(variables, ("params", "block_0", "MultiHeadDotProductAttention_0",
+                                           "query", "kernel")))[1]
+    return {"embed_dim": int(dim), "depth": depth, "num_heads": heads,
+            "image_side": int(round(np.sqrt(tokens))) * 16}
+
+
 def image_conditioner(lc_cfg: LCConfig, cfg: VAEConfig, device,
                       variables: Optional[dict] = None, image_side: int = 256) -> nn.Module:
     """The port module of ``lc_cfg.input_type`` (``image``: the CNN,
-    ``image_vit``: the ViT for ``image_side``-pixel squares, or for the side
-    its ``variables``' ``pos_embed`` gives), as ``generate.load_pipeline``
-    builds it in JAX."""
+    ``image_vit``: the ViT for ``image_side``-pixel squares at ``lc_cfg``'s
+    ``vit_*`` widths, or at the side and widths its ``variables`` give,
+    :func:`vit_widths`), as ``generate.load_pipeline`` builds it in JAX."""
     if lc_cfg.input_type == "image":
         return LatentConditionerImg(lc_cfg.filters, cfg.latent_dim_end, cfg.latent_dim,
                                     cfg.num_hier, lc_cfg.dropout_rate,
                                     lc_cfg.use_spatial_attention, device)
     if lc_cfg.input_type == "image_vit":
-        side = image_side
+        widths = {"embed_dim": lc_cfg.vit_embed_dim, "depth": lc_cfg.vit_depth,
+                  "num_heads": lc_cfg.vit_num_heads, "image_side": image_side}
         if variables is not None:
-            tokens = np.shape(_leaf(variables, ("params", "pos_embed")))[1]
-            side = int(round(np.sqrt(tokens))) * 16
+            widths.update({k: v for k, v in vit_widths(variables).items() if v is not None})
         return LatentConditionerViT(cfg.latent_dim_end, cfg.latent_dim, cfg.num_hier,
-                                    dropout_rate=lc_cfg.dropout_rate, image_side=side,
-                                    device=device)
+                                    dropout_rate=lc_cfg.dropout_rate, device=device,
+                                    **widths)
     raise ValueError(f"not an image input type: {lc_cfg.input_type!r}")

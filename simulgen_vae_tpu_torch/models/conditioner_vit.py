@@ -13,7 +13,15 @@ attention dropout **broadcast** over the batch and the heads (one mask
 projection are ``nn.Linear`` over ``heads * head_dim``: ``convert.py`` maps
 flax's ``[in, heads, head_dim]`` and ``[heads, head_dim, out]`` kernels onto
 them. LayerNorm epsilon 1e-6 (flax's). Dropout masks come from the
-``torch.Generator`` passed to ``forward``.
+``torch.Generator`` passed to ``forward``: the token and MLP dropouts through
+``dropout``, the attention's through :func:`attention_dropout`.
+
+Widths: SimulGen's own ViT (embedding 256, depth 6, 8 heads) by default;
+``LCConfig``'s ``vit_*`` keys give others (ViT-B/16: 768, 12, 12).
+
+Spans: ``vit.attention`` (LN1 through the output projection and its
+residual add) and ``vit.mlp`` (LN2 through ``fc2`` and its add) in each
+block's forward; the counter ``vit.blocks`` counts block forwards.
 """
 
 from __future__ import annotations
@@ -28,8 +36,25 @@ from simulgen_vae_tpu_torch.models.blocks import gelu
 from simulgen_vae_tpu_torch.models.conditioner_cnn import image_batch
 from simulgen_vae_tpu_torch.models.conditioner_mlp import dropout
 from simulgen_vae_tpu_torch.models.flax_layers import lecun_normal_, reset_norms_
+from simulgen_vae_tpu_torch.utils import profiling
+from simulgen_vae_tpu_torch.utils.profiling import span
 
 LN_EPS = 1e-6
+COUNTS = profiling.register({"vit.blocks": 0})
+
+
+def attention_dropout(weights: torch.Tensor, rate: float,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``broadcast_dropout`` on attention weights ``[B, heads, q, k]``:
+    identity without a generator or at rate 0, else one mask ``[1, 1, q, k]``
+    (each weight kept with probability ``1 - rate``, scaled by ``1 / (1 -
+    rate)``) for every sample and head."""
+    if generator is None or rate == 0.0:
+        return weights
+    keep = 1.0 - rate
+    mask = torch.rand((1, 1, *weights.shape[-2:]), generator=generator,
+                      device=weights.device) < keep
+    return weights * (mask.to(weights.dtype) / keep)
 
 
 class SelfAttention(nn.Module):
@@ -50,10 +75,7 @@ class SelfAttention(nn.Module):
 
         q = heads(self.query) / math.sqrt(self.head_dim)
         weights = torch.softmax(q @ heads(self.key).transpose(-1, -2), dim=-1)
-        if generator is not None and self.dropout_rate > 0.0:
-            keep = 1.0 - self.dropout_rate
-            mask = torch.rand((1, 1, n, n), generator=generator, device=x.device) < keep
-            weights = weights * (mask.to(weights.dtype) / keep)
+        weights = attention_dropout(weights, self.dropout_rate, generator)
         h = (weights @ heads(self.value)).transpose(1, 2).reshape(b, n, -1)
         return self.out(h)
 
@@ -70,9 +92,12 @@ class TransformerBlock(nn.Module):
         self.fc2 = nn.Linear(dim * mlp_ratio, dim, device=device)
 
     def forward(self, x, generator=None):
-        x = x + self.attn(self.ln1(x), generator)
-        h = dropout(gelu(self.fc1(self.ln2(x))), self.dropout_rate, generator)
-        return x + self.fc2(h)
+        COUNTS["vit.blocks"] += 1
+        with span("vit.attention"):
+            x = x + self.attn(self.ln1(x), generator)
+        with span("vit.mlp"):
+            h = dropout(gelu(self.fc1(self.ln2(x))), self.dropout_rate, generator)
+            return x + self.fc2(h)
 
 
 class LatentConditionerViT(nn.Module):

@@ -3,7 +3,9 @@ against the JAX package's (flax, msgpack, sklearn and pandas are here; the
 card's machine has none of them).
 
 * Config: ``input_data/condition.txt`` + ``preset.txt`` and the CLI test's
-  condition give the same dicts and ``VAEConfig`` / ``LCConfig`` fields.
+  condition give the same dicts and ``VAEConfig`` / ``LCConfig`` fields;
+  the port's ``LCConfig`` also holds the ViT's widths, which JAX's lacks,
+  at the JAX module's defaults; a file that gives them sets them.
 * Msgpack: a tree JAX's ``save_flax_model`` writes (f32, int32, 0-d and
   scalar leaves, nesting, an empty ``batch_stats``) reads back with the same
   dtypes, shapes and bits, and the port's writer gives flax's bytes; flax
@@ -28,6 +30,7 @@ import torch
 from simulgen_vae_tpu import config as jcfg
 from simulgen_vae_tpu.data import scaler as jscaler
 from simulgen_vae_tpu.data.images import read_latent_conditioner_dataset as jax_read_csv
+from simulgen_vae_tpu.models.conditioner_vit import LatentConditionerViT as JaxViT
 from simulgen_vae_tpu.utils import checkpoint as jckpt
 from simulgen_vae_tpu_torch import config as tcfg
 from simulgen_vae_tpu_torch.data.images import read_latent_conditioner_dataset
@@ -65,9 +68,16 @@ def test_config_parsing_matches_jax(tmp_path, which):
         assert got.num_filter_dec == want.num_filter_dec and got.num_hier == want.num_hier
     got, want = tcfg.LCConfig.from_condition(typed, preset[3]), \
         jcfg.LCConfig.from_condition(typed, preset[3])
-    assert set(got.__dataclass_fields__) == set(want.__dataclass_fields__)
-    for f in got.__dataclass_fields__:
+    widths = {f"vit_{k}": JaxViT.__dataclass_fields__[k].default
+              for k in ("embed_dim", "depth", "num_heads")}
+    assert set(got.__dataclass_fields__) == set(want.__dataclass_fields__) | set(widths)
+    for f in want.__dataclass_fields__:
         assert getattr(got, f) == getattr(want, f), f
+    assert {f: getattr(got, f) for f in widths} == widths
+    given = {"vit_embed_dim": "768", "vit_depth": "12", "vit_num_heads": "12"}
+    vit = tcfg.LCConfig.from_condition(tcfg.parse_training_parameters({**raw, **given}),
+                                       preset[3])
+    assert (vit.vit_embed_dim, vit.vit_depth, vit.vit_num_heads) == (768, 12, 12)
     assert tcfg.LCConfig() == tcfg.LCConfig(**{
         f: getattr(jcfg.LCConfig(), f) for f in want.__dataclass_fields__})
 
