@@ -54,16 +54,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              cudaLaunchKernelEx, gn_bwd_stats one kernel a call; an epoch of
              4 replays in a profiler trace whose loss and gradient norm must
              be finite, every train kernel in the captured step
-             (gather_augment once) and the replays' kernels, counted in the
+             (gather_augment once, the loss pair's two passes once each)
+             and the replays' kernels, counted in the
              trace, the captured step's times the replays; one
              step's loss and gradients through the kernels against
              the plain versions from the same state, batch and noise (bf16:
              loss within 1e-2 relative; f32 with TF32 off: loss within 1e-4,
-             every gradient within rel-L2 1e-3); then the step's p50 and each
-             train kernel's time per step beside its bound, plain and library
-             times (gn_bwd_onepass and gn_bwd_stats also device only from a
-             replayed CUDA graph, and their kernels' own time in a profiler
-             trace beside the library backward's measured the same way);
+             every gradient within rel-L2 1e-3); the loss pair
+             (recon_loss_pair) on that step's own x_hat and x (16 x 200 x
+             95008, bf16 and f32) against make_recon_loss_pair for every
+             loss name: the gradients bit for bit, both losses within 1e-6
+             relative; then the step's p50 and each train kernel's time per
+             step beside its bound, plain and library times (gn_bwd_onepass
+             and gn_bwd_stats also device only from a replayed CUDA graph,
+             and their kernels' own time in a profiler trace beside the
+             library backward's measured the same way; the loss pair's MSE
+             forward and backward, bf16, beside the plain pair's and its
+             bound of 10 bytes an element: the kernels line's recon_loss
+             row);
 6. fused   : the fused-readout train path (VAETrainer(fused_readout=True)):
              each of its four kernels (readout_matmul_stats, readout_loss,
              readout_bwd_stats, readout_bwd_dy) against its plain version in
@@ -326,6 +334,9 @@ READOUT_REPLACES = {
     "readout_bwd_stats": "simulgen_vae_tpu/ops/readout_chain.py:206",
     "readout_bwd_dy": "simulgen_vae_tpu/ops/readout_chain.py:309",
 }
+# no Pallas kernel: XLA's fusion of the JAX package's loss pair
+RECON_REPLACES = "simulgen_vae_tpu/losses.py:130"
+RECON_UPSTREAM = (1000.0, 0.37)  # g_flavor, g_mse in the loss pair's check: both terms count
 STACK_REPLACES = {
     "readout_bwd_fused": "simulgen_vae_tpu/ops/readout_chain.py:229",
     # no Pallas kernel: XLA's one-sweep fusion of FusedAdamW.apply
@@ -1048,6 +1059,86 @@ def train_kernel_timings(gg, ga, shapes, data, reps, gen, card) -> dict:
     return per_shape
 
 
+def step_field(model, batch):
+    """The step's own reconstruction and target: ``model``'s x_hat of
+    ``batch`` (no autograd), and ``batch``."""
+    with torch.no_grad():
+        x_hat = model(batch, torch.Generator("cuda").manual_seed(7))[0]
+    return x_hat, batch
+
+
+def check_recon_loss(rl, fields) -> dict:
+    """recon_loss_pair against make_recon_loss_pair on each ``fields`` pair
+    (dtype name: (x_hat, x)), for every loss name: the gradients in x_hat and
+    x (upstream RECON_UPSTREAM) bit for bit, both losses within 1e-6
+    relative. Returns the largest relative loss error a dtype."""
+    from simulgen_vae_tpu_torch import losses
+
+    def pair_and_grads(fn, pred, target):
+        p, t = (v.detach().clone().requires_grad_() for v in (pred, target))
+        a, b = fn(p, t)
+        g = [torch.tensor(v, device=pred.device) for v in RECON_UPSTREAM]
+        return a.detach(), b.detach(), torch.autograd.grad((a, b), (p, t), g)
+
+    names = sorted(losses.RECON_LOSSES)
+    worst = {}
+    for dname, (x_hat, x) in fields.items():
+        worst[dname] = 0.0
+        for name in names:
+            got = pair_and_grads(lambda p, t: rl.recon_loss_pair(p, t, name), x_hat, x)
+            want = pair_and_grads(losses.make_recon_loss_pair(name), x_hat, x)
+            rel = max(abs(float(got[i]) - float(want[i])) / max(abs(float(want[i])), 1e-30)
+                      for i in (0, 1))
+            if rel > 1e-6 or not all(torch.equal(a, b) for a, b in zip(got[2], want[2])):
+                raise AssertionError(f"recon_loss_pair {name} {dname}: losses "
+                                     f"{[float(v) for v in got[:2]]} against the plain "
+                                     f"{[float(v) for v in want[:2]]}, or gradients not "
+                                     "bit-equal")
+            worst[dname] = max(worst[dname], rel)
+            del got, want
+        print(f"train kernels: recon_loss {dname} {tuple(x.shape)} (the step's x_hat and x): "
+              f"gradients bit-equal to make_recon_loss_pair for {names}, losses within "
+              f"{worst[dname]:.3g} relative")
+    return worst
+
+
+def recon_loss_kernel(rl, x_hat, x, loss_rel, launches, steps, reps, card) -> dict:
+    """The kernels line's recon_loss row: the main path's pair (MSE, x_hat and
+    x bf16, x wanting no gradient) forward and backward through autograd
+    against the plain pair, each pass alone, and the bound (10 bytes an
+    element: both maps read twice, the gradient written once)."""
+    from simulgen_vae_tpu_torch.losses import make_recon_loss_pair
+
+    gf, gm = (torch.tensor(v, device="cuda") for v in RECON_UPSTREAM)
+
+    def through(pair):
+        def run():
+            p = x_hat.detach().requires_grad_()
+            torch.autograd.grad(pair(p, x), (p,), (gf, gm))
+        return run
+
+    ms = cuda_ms(through(lambda p, t: rl.recon_loss_pair(p, t, "MSE")), reps)
+    plain_ms = cuda_ms(through(make_recon_loss_pair("MSE")), reps)
+    fwd_ms = cuda_ms(lambda: rl.recon_loss_pair_fwd(x_hat, x, "MSE"), reps)
+    bwd_ms = cuda_ms(lambda: rl.recon_loss_pair_bwd(x_hat, x, gf, gm, "MSE", True, False), reps)
+    n = x.numel()
+    bound_ms = 5 * n * x.element_size() / HBM_BYTES_PER_S * 1e3
+    ops = {k: launches[k] for k in rl.LAUNCHES}
+    print(f"timing: [{card}] train recon_loss x1/step (MSE, {tuple(x.shape)} {x.dtype}): "
+          f"{ms:.4f} ms forward and backward (forward {fwd_ms:.4f}, backward {bwd_ms:.4f}; "
+          f"plain pair {plain_ms:.4f}, bound {bound_ms:.4f}, bytes); launches in the "
+          f"replays (trace) {ops}")
+    return dict(name="recon_loss", route="cuda",
+                source="simulgen_vae_tpu_torch/ops/csrc/recon_loss.cu", replaces=RECON_REPLACES,
+                launches=ops, launches_per_step={k: v / steps for k, v in ops.items()},
+                max_abs_err=0.0, max_abs_err_f32=0.0, loss_rel_err=loss_rel, ms=ms,
+                fwd_ms=fwd_ms, bwd_ms=bwd_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", library_ms=None,
+                library_call="none: no single PyTorch call gives both losses and their gradient",
+                shape=f"[{', '.join(map(str, x.shape))}] {str(x.dtype).split('.')[-1]}",
+                card=card)
+
+
 def train_config():
     """The flagship train configuration (bench.py's), 403.5M parameters."""
     from simulgen_vae_tpu_torch.config import VAEConfig
@@ -1165,8 +1256,10 @@ def graph_against_eager(cfg, seed: int, data, card) -> dict:
 
 
 def phase_train(args, card, blocks, gg, ga, gen):
-    """Phase 5: the flagship train step. Returns (per-kernel dict, result dict,
-    and the trainer, state and data for the phase after it)."""
+    """Phase 5: the flagship train step. Returns (per-kernel dicts, the loss
+    pair's kernel dict, result dict, and the trainer, state and data for the
+    phase after it)."""
+    from simulgen_vae_tpu_torch.ops import recon_loss as rl
     from simulgen_vae_tpu_torch.train.vae_trainer import VAETrainer
 
     cfg = train_config()
@@ -1189,8 +1282,9 @@ def phase_train(args, card, blocks, gg, ga, gen):
         state, m = trainer.train_epoch(state, data, max_steps=1)
     gg.reset_launch_counts()
     ga.reset_launch_counts()
+    rl.reset_launch_counts()
     state, m = trainer.train_epoch(state, data, max_steps=1)
-    per_step = {**gg.LAUNCHES, **ga.LAUNCHES}
+    per_step = {**gg.LAUNCHES, **ga.LAUNCHES, **rl.LAUNCHES}
     torch.cuda.synchronize()
     shapes = {k: calls.count(k) for k in set(calls)}
     print(f"train: warm-up done (loss {float(m['loss']):.6g}); {len(calls)} GroupNorms per "
@@ -1231,6 +1325,8 @@ def phase_train(args, card, blocks, gg, ga, gen):
         raise AssertionError(f"a kernel did not run in the captured step: {per_step}")
     if per_step["gather_augment"] != 1:
         raise AssertionError(f"gather_augment ran {per_step['gather_augment']} times in a step")
+    if (per_step["recon_loss_pair_fwd"], per_step["recon_loss_pair_bwd"]) != (1, 1):
+        raise AssertionError(f"the loss pair's passes in a step: {per_step}")
     if replays != steps:
         raise AssertionError(f"{replays} graph replays in {steps} steps")
     if launches != {k: n * replays for k, n in per_step.items()}:
@@ -1265,6 +1361,7 @@ def phase_train(args, card, blocks, gg, ga, gen):
         raise AssertionError("gather_augment batch differs from its plain version")
     checks = {"bfloat16": compare_step(trainer, state, batch, blocks, gg, beta, "bf16",
                                        1e-2, None)}
+    fields = {"bfloat16": step_field(state.model, batch)}
     del batch
     trainer32 = VAETrainer(dataclasses.replace(cfg, dtype="float32"), device="cuda",
                            seed=args.seed)
@@ -1274,7 +1371,15 @@ def phase_train(args, card, blocks, gg, ga, gen):
     batch32 = ga.gather_augment(data32, rows, rows.flip(0).contiguous(), seed_tensor(5), lam, ones, zero)
     checks["float32"] = compare_step(trainer32, state32, batch32, blocks, gg, beta,
                                      "f32, TF32 off", 1e-4, 1e-3)
+    fields["float32"] = step_field(model32, batch32)
     del trainer32, model32, state32, batch32
+    torch.cuda.empty_cache()
+
+    # the loss pair on the step's own field and target, then its time
+    loss_rel = check_recon_loss(rl, fields)
+    recon_kernel = recon_loss_kernel(rl, *fields["bfloat16"], loss_rel, launches, steps,
+                                     args.reps, card)
+    del fields
     torch.cuda.empty_cache()
 
     per_shape = train_kernel_timings(gg, ga, shapes, data, args.reps, gen, card)
@@ -1312,8 +1417,8 @@ def phase_train(args, card, blocks, gg, ga, gen):
                   epoch_grad_norms=norms, launches=launches, step_checks=checks,
                   gn_bwd_launches=traces, graph=graph,
                   params=n_params, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return kernels, result, dict(cfg=cfg, trainer=trainer, state=state, data=data,
-                                 data32=data32)
+    return kernels, recon_kernel, result, dict(cfg=cfg, trainer=trainer, state=state,
+                                               data=data, data32=data32)
 
 
 # -- 6. the fused-readout train path ------------------------------------------
@@ -1488,7 +1593,7 @@ def readout_kernel_timings(rc, gg, reps, gen, card) -> dict:
     """Per fused-readout kernel at the flagship bf16 shape: kernel, plain and
     library ms and the bound; then the readout segment (h to dy, without the
     dW and dh products both routes share) fused against unfused."""
-    from simulgen_vae_tpu_torch.losses import make_recon_loss_pair
+    from simulgen_vae_tpu_torch.ops.recon_loss import recon_loss_pair
 
     b, t, f, c, g = B, T, READOUT_F, READOUT_C, READOUT_G
     k = _readout_case(b, t, f, c, torch.bfloat16, gen)
@@ -1544,12 +1649,10 @@ def readout_kernel_timings(rc, gg, reps, gen, card) -> dict:
         None, none, 3 * mb + 12 * c + 4 * b * c + 16 * b * g,
         elems * (NORM_OPS + ACT_OPS["tanh"] + LOSS_GRAD_OPS + BWD_DX_OPS + 4), F32_OPS_PER_S)
 
-    pair = make_recon_loss_pair("MSE")
-
     def unfused_segment():
         yl = F.linear(k["h"], k["w"], b16).requires_grad_()
         o = gg.group_norm_act(yl, k["scale"], k["nb"], g, act="tanh")
-        loss, mse = pair(o, k["x"])
+        loss, mse = recon_loss_pair(o, k["x"], "MSE")
         (loss + 0.3 * mse).backward()
         return yl.grad
 
@@ -4364,7 +4467,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # 5. the train step
-    train_kernels, train, ctx = phase_train(args, card, blocks, gg, ga, gen)
+    train_kernels, recon_kernel, train, ctx = phase_train(args, card, blocks, gg, ga, gen)
     for k in kernels:  # the forward kernels run in the train step too
         k["launches_train"] = train["launches"][k["name"]]
     kernels += train_kernels
@@ -4383,6 +4486,7 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_stack_train"] = stack["launches"][k["name"]]
     kernels += stack_kernels
+    kernels.append(recon_kernel)  # the unfused path's alone: phases 6 and 7 never launch it
     del data, data32
     torch.cuda.empty_cache()
 

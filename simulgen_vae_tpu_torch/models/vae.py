@@ -4,7 +4,8 @@ Serving builds it without an encoder (``decode`` and ``generate`` only);
 training passes ``num_filter_enc`` and calls :meth:`VAE.forward`: encode,
 clamp log_var to +-30, reparameterize (std clamped to [1e-8, 10]), decode
 with the hierarchical latents, then the reconstruction loss in the
-configured flavor, the always-on MSE monitor and the KL terms. Noise comes
+configured flavor and the always-on MSE monitor (``ops.recon_loss``: on the
+card one kernel pass forward, one backward) and the KL terms. Noise comes
 from an explicit ``torch.Generator``. ``remat=True`` recomputes the encoder's
 and decoder's residual blocks in the backward (``torch.utils.checkpoint``);
 none of them draws noise, so both passes see the same values.
@@ -24,10 +25,11 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from simulgen_vae_tpu_torch.losses import kl, make_recon_loss_pair
+from simulgen_vae_tpu_torch.losses import kl
 from simulgen_vae_tpu_torch.models.blocks import group_count
 from simulgen_vae_tpu_torch.models.decoder import Decoder, reparameterize
 from simulgen_vae_tpu_torch.models.encoder import Encoder
+from simulgen_vae_tpu_torch.ops.recon_loss import recon_loss_pair
 from simulgen_vae_tpu_torch.parallel.collectives import sum_over
 
 
@@ -73,7 +75,7 @@ class VAE(nn.Module):
         else:
             x_hat, kl_losses, _ = self.decoder(z, xs, generator=generator,
                                                noise_rows=noise_rows)
-            recon_loss, recon_loss_mse = make_recon_loss_pair(self.lossfun)(x_hat, x)
+            recon_loss, recon_loss_mse = recon_loss_pair(x_hat, x, self.lossfun)
             if self.node_group is not None:  # each block's mean, by its share
                 recon_loss = sum_over(recon_loss / self.node_parts, self.node_group)
                 recon_loss_mse = sum_over(recon_loss_mse / self.node_parts, self.node_group)

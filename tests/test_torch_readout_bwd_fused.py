@@ -212,7 +212,7 @@ def test_other_devices_raise_and_nothing_falls_back():
 
 
 def test_build_list_holds_thirteen_kernels_with_their_sources():
-    assert len(_build.KERNELS) == len(set(_build.KERNELS)) == 14
+    assert len(_build.KERNELS) == len(set(_build.KERNELS)) == 15
     for name in _build.KERNELS:
         assert (_build.CSRC / f"{name}.cu").exists(), name
     assert {"readout_bwd_fused", "fused_adamw"} <= set(_build.KERNELS)

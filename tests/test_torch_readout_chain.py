@@ -244,7 +244,7 @@ def test_build_list_holds_the_four_kernels():
         assert name in _build.KERNELS
         assert (_build.CSRC / f"{name}.cu").exists()
         assert name in trc.LAUNCHES
-    assert len(_build.KERNELS) == 14
+    assert len(_build.KERNELS) == 15
     src = (_build.CSRC / "readout_common.cuh").read_bytes()
     assert src and _build.library_path("readout_loss").name.startswith("readout_loss-")
 
